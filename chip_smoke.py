@@ -18,15 +18,32 @@ Phases, any failure exits non-zero before the result line:
    on the campaign's 15,600 rows with 2,000 samples and the main path's MC
    seed (its statistics also against the artifact's columns 10 and 11);
    timing (CUDA events, median of repeats; the residual kernel alone is
-   timed as 50 launches replayed from one CUDA graph) and one JSON line
+   timed as 50 launches replayed from one CUDA graph);
+6. the training kernel against its plain version at the training path's
+   shape: the campaign's 6,000 training rows (ragged against its 512-row
+   mask blocks), flagship params from ``torch.Generator().manual_seed(0)``,
+   20 steps at lr 0.01 with the staircase turning three times, dropout 0.2
+   and 0; two kernel runs bitwise equal; a NaN row with skip_nonfinite
+   leaves the weights as they were;
+7. the training slice: ``run_training_pipeline(device="cuda")`` on the
+   default campaign at flagship width, mc_times 2000, the default schedule
+   with every stage's n_iter scaled by 0.1, the launch counters reset just
+   before and read just after; losses, λ bounds and the artifact checked; the
+   checkpoint saved as ``cli train`` saves it and scored again with
+   ``run_scoring_pipeline``, whose artifact must equal the train-time one;
+8. timing at the training path's shapes (the training kernel per step of a
+   200-step stage, its plain version, each λ-stage kind per step, the slice's
+   per-stage seconds; the device launches and per-kernel device time of a
+   50-step stage, counted from a torch.profiler trace), then one JSON line
    ``{"kernels": [...]}``;
-6. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch and the port only.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -44,6 +61,9 @@ HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 MC_FLOP_PER_ROW_SAMPLE = 2 * (8 * 256 + 2 * 256 * 256 + 256 + 256 * 128 + 128 * 64 + 64)
 # float32 operations per row of csrc/residuals.cu, counting each powf/expf/logf/sqrtf as one
 RESIDUAL_FLOP_PER_ROW = 110
+# MACs per row of one training step: forward 174,400, weight gradients 174,400,
+# input gradients 172,352
+TRAIN_FLOP_PER_ROW_STEP = 2 * (174_400 + 174_400 + 172_352)
 
 
 def fail(msg: str) -> None:
@@ -115,9 +135,197 @@ def check_mc(k_sums: torch.Tensor, p_sums: torch.Tensor, m: int, label: str):
     return p_mc, err
 
 
+def check_artifact(arr: np.ndarray, params, ds, metrics, n: int) -> None:
+    """The artifact against the plain functions on the same inputs: shape,
+    finite columns, positive uncertainties, the prediction column and the
+    residual columns, and which metrics may be non-finite."""
+    from pinnfc_tpu_torch.physics.residuals import all_residuals
+
+    check(arr.shape == (n, 22), f"artifact shape {arr.shape}")
+    finite_cols = [*range(0, 13), *range(14, 18), *range(19, 22)]
+    bad = [c for c in finite_cols if not np.isfinite(arr[:, c]).all()]
+    check(not bad, f"non-finite values in columns {bad}")
+    check((arr[:, 10] > 0).all() and (arr[:, 11] > 0).all(), "uncertainty columns not positive")
+    with torch.no_grad():
+        base = params["mlp"](ds.x_test)[0]
+        bundle = all_residuals(params, ds.x_test, base, ds.scaler_x, ds.scaler_y)
+        scale_y, min_y = ds.scaler_y.loss_affine()
+        pred_real = ((base[:, 0] - min_y) / (scale_y + 1e-12)).cpu().numpy()
+    np.testing.assert_allclose(arr[:, 9], pred_real, rtol=2e-5, atol=1e-4)
+    for col, t in zip((13, 14, 15, 16, 18, 19, 20, 21), bundle):
+        np.testing.assert_allclose(arr[:, col], t[:, 0].cpu().numpy(), rtol=2e-5, atol=2e-4,
+                                   equal_nan=True, err_msg=f"column {col}")
+    nan_metrics = sorted(k for k, v in metrics.items() if not np.isfinite(v))
+    check(set(nan_metrics) <= {"physics_v_mae", "physics_v_rmse"},
+          f"non-finite metrics {nan_metrics}")
+    check(bool(np.isnan(arr[:, 13]).any()) or not nan_metrics,
+          "physics_v metrics non-finite although column 13 is finite")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     finite = torch.isfinite(a) & torch.isfinite(b)
     return float((a[finite] - b[finite]).abs().max()) if bool(finite.any()) else 0.0
+
+
+def check_train_kernel(mlp, x: torch.Tensor, y: torch.Tensor) -> float:
+    """Phase 6: the training kernel against its plain version on the training
+    path's rows; returns max |Δ| over the losses and weights."""
+    from pinnfc_tpu_torch.ops.train_dnn import mlp_weights, train_dnn, train_dnn_stage_plain
+
+    steps, hp = 20, dict(lr=0.01, lr_step=5, lr_gamma=0.5)
+    seed = 20240601
+    err = 0.0
+    for p in (0.2, 0.0):
+        k_mlp, k_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=p, **hp)
+        p_mlp, p_loss = train_dnn_stage_plain(mlp, x, y, seed, steps, dropout_p=p, **hp)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k_loss[0], p_loss[0], rtol=2e-5, atol=0)
+        torch.testing.assert_close(k_loss, p_loss, rtol=5e-3, atol=1e-5)
+        w_err = 0.0
+        for i, (a, b) in enumerate(zip(mlp_weights(k_mlp), mlp_weights(p_mlp))):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3, msg=f"weight tensor {i}")
+            w_err = max(w_err, max_abs_err(a, b))
+        l0 = float((k_loss[0] - p_loss[0]).abs())
+        l_err = max_abs_err(k_loss, p_loss)
+        err = max(err, w_err, l_err)
+        print(f"[check] train_dnn kernel vs plain, N={x.shape[0]} (ragged), {steps} steps, "
+              f"dropout {p}: |Δloss[0]| {l0:.3e} (rtol 2e-5), max |Δloss| {l_err:.3e} "
+              f"(rtol 5e-3 atol 1e-5), max |Δweight| {w_err:.3e} (rtol=atol=5e-3): ok")
+    a_mlp, a_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=0.2, **hp)
+    b_mlp, b_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=0.2, **hp)
+    same = torch.equal(a_loss, b_loss) and all(
+        torch.equal(u, v) for u, v in zip(mlp_weights(a_mlp), mlp_weights(b_mlp)))
+    check(same, "two training-kernel runs with one seed differ")
+    x_nan = x.clone()
+    x_nan[17, 3] = float("nan")
+    s_mlp, s_loss = train_dnn(mlp, x_nan, y, seed, 5, dropout_p=0.2, skip_nonfinite=True, **hp)
+    kept = all(torch.equal(u, v) for u, v in zip(mlp_weights(s_mlp), mlp_weights(mlp)))
+    check(kept and bool(torch.isnan(s_loss).all()),
+          "skip_nonfinite with a NaN row changed the weights")
+    print("[check] train_dnn kernel: two runs bitwise equal; a NaN row with skip_nonfinite "
+          "leaves the weights as they were: ok")
+    return err
+
+
+def run_training_slice():
+    """Phase 7: the training path at flagship width on the default campaign,
+    the schedule scaled by 0.1; returns (result, launches)."""
+    from pinnfc_tpu_torch.cli._common import _train_config
+    from pinnfc_tpu_torch.config import train_config_to_dict
+    from pinnfc_tpu_torch.models.pinn import LAMBDA_BOUNDS
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.pipeline.score import run_scoring_pipeline
+    from pinnfc_tpu_torch.pipeline.train_pipeline import run_training_pipeline
+    from pinnfc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = _train_config(argparse.Namespace(small=False, seed=42, steps_scale=0.1,
+                                           precision=None, skip_nonfinite=False))
+    steps = [s.n_iter for s in cfg.schedule]
+    check(steps == [400, 400, 400, 800, 1000, 800, 800], f"scaled schedule {steps}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    res = run_training_pipeline(cfg, n_normal=6000, n_fault=800, verbose=True, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(launches["train_dnn"] == 2 and launches["mc_dropout"] == 1
+          and launches["residuals"] >= 1, f"training path launches {launches}")
+    for name, losses in res.log.stages:
+        check(np.isfinite(losses).all(), f"non-finite losses in stage {name}")
+        if name.endswith(":dnn"):
+            check(losses[-1] < losses[0], f"stage {name} loss did not fall: "
+                                          f"{losses[0]} -> {losses[-1]}")
+    for g, (lo, hi) in LAMBDA_BOUNDS.items():
+        lam = res.params[g].cpu().numpy()
+        check(((lam >= lo) & (lam <= hi)).all(), f"{g} = {lam} outside its bounds")
+    arr = res.results.array
+    check_artifact(arr, res.params, res.dataset, res.metrics, 15600)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "trained")
+        save_checkpoint(ckpt, res.params, res.dataset.scaler_x, res.dataset.scaler_y,
+                        meta={"config": train_config_to_dict(cfg), "n_normal": 6000,
+                              "n_fault": 800, "metrics": res.metrics})
+        build.reset_launches()
+        scored = run_scoring_pipeline(ckpt, device="cuda").results.array
+    check(np.array_equal(scored, arr, equal_nan=True),
+          "scoring the written checkpoint does not reproduce the train-time artifact")
+    print(f"[slice] train: launches {launches}, timings {json.dumps(res.timings)}")
+    print(f"[slice] train per stage (s): "
+          f"{json.dumps({n: round(t, 4) for n, t in res.log.seconds})}")
+    print(f"[slice] train final losses {json.dumps(res.log.final_losses())}; the artifact "
+          "passes the plain-function checks and equals the one scored from the checkpoint")
+    return res, launches
+
+
+def time_training(mlp, params, ds):
+    """Phase 8: per-step times and device launches at the training path's shapes."""
+    from pinnfc_tpu_torch.ops.train_dnn import train_dnn, train_dnn_stage_plain
+    from pinnfc_tpu_torch.training.stages import train_lambda_v_stage, train_residual_stage
+
+    x, y = ds.x_train, ds.y_train
+    steps = 200
+    kernel_ms = cuda_ms(lambda: train_dnn(mlp, x, y, 7, steps), repeats=3) / steps
+    plain_ms = cuda_ms(lambda: train_dnn_stage_plain(mlp, x, y, 7, 20), repeats=2) / 20
+    breakdown, traced, per_step = kernel_breakdown(lambda: train_dnn(mlp, x, y, 7, 50), 50)
+    with torch.no_grad():
+        u_pred = mlp(x)[0]
+    lam_kinds = {
+        "lambda_v(dnn_para=False)": lambda: train_lambda_v_stage(
+            params["lam_v"], x, y, u_pred, ds.scaler_x, ds.scaler_y, steps, dnn_para=False),
+        "lambda_v(dnn_para=True)": lambda: train_lambda_v_stage(
+            params["lam_v"], x, y, u_pred, ds.scaler_x, ds.scaler_y, steps, dnn_para=True),
+        "thermal": lambda: train_residual_stage(params["lam_t"], x, ds.scaler_x, "lam_t",
+                                                steps, 1.0),
+        "hydrogen": lambda: train_residual_stage(params["lam_h"], x, ds.scaler_x, "lam_h",
+                                                 steps, 0.1, lr_gamma=0.9),
+        "oxygen": lambda: train_residual_stage(params["lam_o"], x, ds.scaler_x, "lam_o",
+                                               steps, 0.01, lr_gamma=0.9),
+    }
+    lam_ms = {}
+    for name, fn in lam_kinds.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn().losses.cpu()
+        lam_ms[name] = (time.perf_counter() - t0) / steps * 1e3
+    print(f"[time] train_dnn kernel {kernel_ms:.4f} ms/step (median of 3 {steps}-step stages, "
+          f"N={x.shape[0]}); plain {plain_ms:.4f} ms/step; profiler trace of a 50-step stage: "
+          f"{per_step} device launches per step, launches {json.dumps(traced)}, "
+          f"per-kernel device ms/step {json.dumps(breakdown)}")
+    print(f"[time] λ stages, plain PyTorch on the card, host clock, ms/step: "
+          f"{json.dumps({k: round(v, 4) for k, v in lam_ms.items()})}")
+    return kernel_ms, plain_ms, per_step, traced, breakdown, lam_ms
+
+
+# the kernels of csrc/train_dnn.cu: launched every step, and once per stage
+STEP_KERNELS = ("fwd_bwd_kernel", "wgrad_kernel", "finalize_kernel", "adam_kernel")
+STAGE_KERNELS = ("transpose_kernel",)
+
+
+def kernel_breakdown(fn, steps: int):
+    """From a torch.profiler trace of ``fn``, one ``steps``-step stage: device
+    ms per step of each kernel of csrc/train_dnn.cu, the launches of each (and
+    the trace's device memsets, the wrapper's and torch's), and the device
+    launches per step of the step kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, launches = {}, {"memset": 0}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if ev.key.startswith("Memset"):
+            launches["memset"] += ev.count
+        name = next((k for k in STEP_KERNELS + STAGE_KERNELS if k in ev.key), None)
+        if name and dev_us:
+            ms[name] = ms.get(name, 0.0) + dev_us / steps / 1e3
+            launches[name] = launches.get(name, 0) + ev.count
+    missing = [k for k in STEP_KERNELS + STAGE_KERNELS if k not in ms]
+    check(not missing, f"the profiler trace shows no device time for {missing}")
+    per_step = sum(launches[k] for k in STEP_KERNELS) / steps
+    return ms, launches, per_step
 
 
 def main() -> int:
@@ -205,30 +413,15 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         reloaded = load_comprehensive_results(mat_path).array
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches["mc_dropout"] > 0 and launches["residuals"] > 0,
+          f"a kernel of the scoring path was not launched: {launches}")
     arr = res.results.array
-    check(arr.shape == (15600, 22), f"artifact shape {arr.shape}")
     check(np.array_equal(reloaded, arr, equal_nan=True), "the .mat artifact does not round-trip")
-    finite_cols = [*range(0, 13), *range(14, 18), *range(19, 22)]
-    bad = [c for c in finite_cols if not np.isfinite(arr[:, c]).all()]
-    check(not bad, f"non-finite values in columns {bad}")
-    check((arr[:, 10] > 0).all() and (arr[:, 11] > 0).all(), "uncertainty columns not positive")
-    # the artifact against the plain functions on the same inputs
     ds = res.dataset
+    check_artifact(arr, params, ds, res.metrics, 15600)
     with torch.no_grad():
         base = mlp(ds.x_test)[0]
-        bundle = all_residuals(params, ds.x_test, base, ds.scaler_x, ds.scaler_y)
-        scale_y, min_y = ds.scaler_y.loss_affine()
-        pred_real = ((base[:, 0] - min_y) / (scale_y + 1e-12)).cpu().numpy()
-    np.testing.assert_allclose(arr[:, 9], pred_real, rtol=2e-5, atol=1e-4)
-    for col, t in zip((13, 14, 15, 16, 18, 19, 20, 21), bundle):
-        np.testing.assert_allclose(arr[:, col], t[:, 0].cpu().numpy(), rtol=2e-5, atol=2e-4,
-                                   equal_nan=True, err_msg=f"column {col}")
-    nan_metrics = sorted(k for k, v in res.metrics.items() if not np.isfinite(v))
-    check(set(nan_metrics) <= {"physics_v_mae", "physics_v_rmse"},
-          f"non-finite metrics {nan_metrics}")
-    check(bool(np.isnan(arr[:, 13]).any()) or not nan_metrics,
-          "physics_v metrics non-finite although column 13 is finite")
+        scale_y, _ = ds.scaler_y.loss_affine()
     print(f"[slice] score N={arr.shape[0]} mc_times={cfg.mc_times}: launches {launches}, "
           f"wall {wall:.3f} s, timings {json.dumps(res.timings)}")
     print(f"[slice] metrics {json.dumps(res.metrics)}")
@@ -265,6 +458,24 @@ def main() -> int:
                            repeats=5, inner=50)
     res_bytes = 4 * (n * 8 + n + 19 + 16 + 8 * n)
     res_bound = max(res_bytes / HBM_RATE, RESIDUAL_FLOP_PER_ROW * n / FP32_PEAK) * 1e3
+
+    # ---- 6. the training kernel vs plain at the training path's shape ----
+    train_ds = combine_and_normalize(normal, faults, device=dev)
+    check(train_ds.x_train.shape[0] == 6000, f"training rows {train_ds.x_train.shape[0]}")
+    train_err = check_train_kernel(mlp, train_ds.x_train, train_ds.y_train)
+
+    # ---- 7. the training slice ----
+    trained, train_launches = run_training_slice()
+
+    # ---- 8. timing at the training path's shapes ----
+    t_ms, t_plain_ms, t_per_step, t_traced, t_breakdown, lam_ms = time_training(
+        mlp, trained.params, train_ds)
+    n_tr = train_ds.x_train.shape[0]
+    t_flop = TRAIN_FLOP_PER_ROW_STEP * n_tr
+    n_param = sum(p.numel() for p in mlp.parameters())
+    t_bytes = 4 * (n_tr * 9 + 2 * n_param) / 200 + 4  # x, y, weights in/out per 200 steps, loss
+    t_bound = max(t_flop / FP32_PEAK, t_bytes / HBM_RATE) * 1e3
+
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
          "replaces": "pinnfc_tpu/ops/pallas_mc_dropout.py:140",
@@ -278,7 +489,15 @@ def main() -> int:
          "max_abs_err": res_err, "ms": res_ms, "wrapper_ms": res_wrapper_ms,
          "plain_ms": res_plain_ms, "bound_ms": res_bound, "bound_by": "bytes",
          "library_ms": None},
+        {"name": "train_dnn", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/train_dnn.cu",
+         "replaces": "pinnfc_tpu/ops/pallas_train.py:239",
+         "shape": f"x ({n_tr}, 8), flagship; times per step of a 200-step stage",
+         "launches": train_launches["train_dnn"], "device_launches_per_step": t_per_step,
+         "traced_launches_50_steps": t_traced, "max_abs_err": train_err, "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+         "bound_by": "operations", "bound_tf32_ms": t_flop / TF32_PEAK * 1e3,
+         "kernel_ms_per_step": t_breakdown, "library_ms": None},
     ]
+    print(f"[time] λ-stage ms/step {json.dumps(lam_ms)}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

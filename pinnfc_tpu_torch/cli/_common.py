@@ -1,0 +1,58 @@
+"""Shared CLI helpers (counterpart of ``pinnfc_tpu/cli/_common.py``): the
+reduced schedule, the training config from flags, the λ table."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from pinnfc_tpu_torch.config import StageConfig, TrainConfig
+from pinnfc_tpu_torch.models.pinn import LAMBDA_INIT, LAMBDA_NAMES
+
+
+def _small_schedule():
+    """Reduced schedule for quick verification runs (same stage order)."""
+    return (
+        StageConfig("dnn", 300, lr=0.01),
+        StageConfig("lambda_v", 150, lr=1e-3, dnn_para=False),
+        StageConfig("lambda_v", 150, lr=1e-3, dnn_para=True),
+        StageConfig("dnn", 300, lr=0.01),
+        StageConfig("thermal", 500, lr=1.0),
+        StageConfig("hydrogen", 300, lr=0.1, lr_gamma=0.9),
+        StageConfig("oxygen", 300, lr=0.01, lr_gamma=0.9),
+    )
+
+
+def _train_config(args) -> TrainConfig:
+    """``--small`` (reduced schedule, 200 MC passes), ``--seed``,
+    ``--steps-scale`` (every stage's n_iter times the factor, at least 1),
+    ``--precision`` and ``--skip-nonfinite`` → ``TrainConfig``."""
+    if getattr(args, "small", False):
+        cfg = TrainConfig(schedule=_small_schedule(), mc_times=200, seed=args.seed)
+    else:
+        cfg = TrainConfig(seed=args.seed)
+    scale = getattr(args, "steps_scale", None)
+    if scale:
+        cfg = dataclasses.replace(cfg, schedule=tuple(
+            dataclasses.replace(s, n_iter=max(1, int(s.n_iter * scale))) for s in cfg.schedule))
+    precision = getattr(args, "precision", None)
+    if precision:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, precision=precision))
+    if getattr(args, "skip_nonfinite", False):
+        cfg = dataclasses.replace(cfg, skip_nonfinite=True)
+    return cfg
+
+
+def _print_lambda_table(params) -> None:
+    """The identified physics parameters with their physical names."""
+    print("identified physics parameters (λ):")
+    for group, names in LAMBDA_NAMES.items():
+        vals = params.get(group)
+        if vals is None:
+            continue
+        vals = vals.detach().cpu().numpy().ravel()
+        inits = np.asarray(LAMBDA_INIT[group]).ravel()
+        for i, name in enumerate(names):
+            moved = "" if np.isclose(vals[i], inits[i]) else f"  (init {inits[i]:.6g})"
+            print(f"  {group}[{i}] = {vals[i]:<12.6g} {name}{moved}")

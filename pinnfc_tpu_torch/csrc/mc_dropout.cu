@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash.cuh"
+
 namespace {
 
 constexpr int ROWS = 64;         // rows per CTA
@@ -58,17 +60,6 @@ struct Weights {
   const float *mw, *mb;                      // mean head
   const float *v0w, *v0b, *v1w, *v1b, *v2w, *v2b;  // variance head
 };
-
-__device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
-  x = (x ^ 61u) ^ (x >> 16);
-  x *= 9u;
-  x = x ^ (x >> 4);
-  x *= 0x27D4EB2Du;
-  x = x ^ (x >> 15);
-  x *= 2654435761u;
-  x = x ^ (x >> 13);
-  return x;
-}
 
 template <int NV>
 __device__ __forceinline__ void load_vec(float (&dst)[NV], const float* src) {

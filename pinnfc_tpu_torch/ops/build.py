@@ -28,7 +28,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 FILE_FLAGS = {"residuals.cu": ["-fmad=false"]}
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0}
+LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0, "train_dnn": 0}
 
 
 def reset_launches() -> None:
@@ -112,6 +112,12 @@ def load() -> ctypes.CDLL:
     handle.pinnfc_residuals.restype = i
     handle.pinnfc_mc_dropout.argtypes = [p, i, *([p] * 14), p, u, i, u, f, p]
     handle.pinnfc_mc_dropout.restype = i
+    handle.pinnfc_train_dnn_layout.argtypes = [ctypes.POINTER(i)]
+    handle.pinnfc_train_dnn_layout.restype = None
+    handle.pinnfc_train_dnn_workspace_floats.argtypes = [i]
+    handle.pinnfc_train_dnn_workspace_floats.restype = ctypes.c_longlong
+    handle.pinnfc_train_dnn.argtypes = [p, p, i, p, p, p, p, p, p, u, i, f, i, f, u, f, f, i, p]
+    handle.pinnfc_train_dnn.restype = i
     _Library.handle = handle
     return handle
 

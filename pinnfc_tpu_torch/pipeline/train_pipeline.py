@@ -1,23 +1,45 @@
-"""Stage-01 metric block (counterpart of ``evaluate_voltage_metrics`` in
-``pinnfc_tpu/pipeline/train_pipeline.py``; reference 01:1765-1818).
+"""End-to-end stage-01 pipeline: data → staged training → MC export → metrics
+(counterpart of ``pinnfc_tpu/pipeline/train_pipeline.py``; the reference's
+``__main__``, 01:2055-2228).
 
-The training pipeline itself (``run_training_pipeline``) comes with the
-training slice.
+``run_training_pipeline`` synthesizes (or takes) the campaign, initialises the
+PINN from a ``torch.Generator`` seeded with ``config.seed``, runs the staged
+schedule (``training/stages.py``: the DNN stages through the training kernel),
+exports the 22-column artifact through the MC-dropout and residual kernels
+with ``default_mc_seed(config.seed)``, and prints the metric block
+(``evaluate_voltage_metrics``, reference 01:1765-1818).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from pinnfc_tpu_torch.data.combine import FuelCellDataset
-from pinnfc_tpu_torch.data.contract import ComprehensiveResults
-from pinnfc_tpu_torch.models.pinn import PinnParams
+from pinnfc_tpu_torch.config import TrainConfig
+from pinnfc_tpu_torch.data.combine import FuelCellDataset, combine_and_normalize
+from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehensive_results
+from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+from pinnfc_tpu_torch.device import resolve_device
+from pinnfc_tpu_torch.models.pinn import PinnParams, init_pinn
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_euler
+from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results, default_mc_seed
+from pinnfc_tpu_torch.training.stages import TrainLog, run_schedule
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    params: PinnParams
+    dataset: FuelCellDataset
+    results: ComprehensiveResults
+    log: TrainLog
+    metrics: Dict[str, float]
+    timings: Dict[str, float]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -103,3 +125,56 @@ def evaluate_voltage_metrics(
         "ratio_o_target_min": float(np.min(target_o)),
         "ratio_o_target_max": float(np.max(target_o)),
     }
+
+
+def run_training_pipeline(
+    config: TrainConfig = TrainConfig(),
+    dataset: Optional[FuelCellDataset] = None,
+    mat_path: Optional[str] = None,
+    n_normal: int = 6000,
+    n_fault: int = 800,
+    verbose: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    device="cuda",
+) -> PipelineResult:
+    """Execute the stage-01 pipeline on ``device`` (the card by default; it
+    raises when CUDA is absent).  ``dataset`` (pre-built, on ``device``) takes
+    precedence over the synthetic generator.  ``checkpoint_dir`` saves the
+    params after every stage and resumes a restarted run (see
+    ``run_schedule``).  ``timings`` holds ``data_s``, ``train_s`` and
+    ``export_s``; the metric block gains ``final_loss/<k:stage>``."""
+    dev = resolve_device(device)
+    timings: Dict[str, float] = {}
+
+    t0 = time.perf_counter()
+    if dataset is None:
+        normal, faults = synthesize_stack_data(n_normal=n_normal, n_fault=n_fault,
+                                               seed=config.seed)
+        dataset = combine_and_normalize(normal, faults, training_rate=config.training_rate,
+                                        seed=config.seed, device=dev)
+    timings["data_s"] = time.perf_counter() - t0
+
+    params = init_pinn(config.model.layers,
+                       generator=torch.Generator().manual_seed(config.seed), device=dev)
+    t0 = time.perf_counter()
+    params, log = run_schedule(
+        params, dataset.x_train, dataset.y_train, dataset.scaler_x, dataset.scaler_y,
+        schedule=config.schedule, seed=config.seed, dropout_p=config.model.dropout_p,
+        verbose=verbose, checkpoint_dir=checkpoint_dir, precision=config.model.precision,
+        skip_nonfinite=config.skip_nonfinite,
+    )  # each stage ends by copying its losses to the host, which syncs the device
+    timings["train_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    results = build_comprehensive_results(
+        params, dataset, mc_seed=default_mc_seed(config.seed), mc_times=config.mc_times,
+        dropout=config.mc_dropout, smooth_window=config.smooth_window,
+    )
+    timings["export_s"] = time.perf_counter() - t0
+
+    metrics = evaluate_voltage_metrics(params, dataset, results=results)
+    metrics.update({f"final_loss/{k}": v for k, v in log.final_losses().items()})
+    if mat_path is not None:
+        save_comprehensive_results(results, mat_path)
+    return PipelineResult(params=params, dataset=dataset, results=results, log=log,
+                          metrics=metrics, timings=timings)

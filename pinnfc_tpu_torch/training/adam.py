@@ -1,0 +1,66 @@
+"""Hand-written Adam with the StepLR staircase, on float32 tensors.
+
+This is ``optax.adam(optax.exponential_decay(lr, lr_step, gamma,
+staircase=True))`` as the JAX package builds it (``training/stages.py:64-71``):
+
+    m ← 0.9·m + 0.1·g,  v ← 0.999·v + 0.001·g²,  c ← count + 1
+    w ← w − lr·γ^⌊count/lr_step⌋ · (m / (1 − 0.9^c)) / (√(v / (1 − 0.999^c)) + 1e-8)
+
+with ε outside the root.  The count lives on the parameters' device as an
+int64 scalar, so a stage never syncs with the host, and ``keep_if_nonfinite``
+can hold it back together with the moments.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class AdamState(NamedTuple):
+    m: torch.Tensor
+    v: torch.Tensor
+    count: torch.Tensor  # int64 scalar: updates applied so far
+
+
+def adam_init(w: torch.Tensor) -> AdamState:
+    return AdamState(torch.zeros_like(w), torch.zeros_like(w),
+                     torch.zeros((), dtype=torch.int64, device=w.device))
+
+
+def step_lr(count: torch.Tensor, lr: float, lr_step: int, lr_gamma: float) -> torch.Tensor:
+    """``lr·γ^⌊count/lr_step⌋`` in float32, as ``optax.exponential_decay``."""
+    p = torch.floor(count.to(torch.float32) / lr_step)
+    return lr * torch.pow(torch.tensor(lr_gamma, dtype=torch.float32, device=count.device), p)
+
+
+def adam_step(
+    w: torch.Tensor, g: torch.Tensor, state: AdamState, lr: float, lr_step: int, lr_gamma: float
+) -> Tuple[torch.Tensor, AdamState]:
+    """One update of ``w`` by gradient ``g``; returns new tensors."""
+    m = (1 - B1) * g + B1 * state.m
+    v = (1 - B2) * (g * g) + B2 * state.v
+    c = (state.count + 1).to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=w.device)
+    m_hat = m / (one - torch.pow(one * B1, c))
+    v_hat = v / (one - torch.pow(one * B2, c))
+    lr_t = step_lr(state.count, lr, lr_step, lr_gamma)
+    return w - lr_t * (m_hat / (torch.sqrt(v_hat) + EPS)), AdamState(m, v, state.count + 1)
+
+
+def all_finite(loss: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Device bool: the loss and every gradient element are finite."""
+    return torch.isfinite(loss) & torch.isfinite(g).all()
+
+
+def keep_if_nonfinite(ok: torch.Tensor, new: Tuple[torch.Tensor, AdamState],
+                      old: Tuple[torch.Tensor, AdamState]) -> Tuple[torch.Tensor, AdamState]:
+    """``new`` where ``ok``, else ``old`` — parameters, both moments AND the
+    count (which drives StepLR and the bias correction), as the JAX package's
+    ``_keep_if_nonfinite`` (``training/stages.py:78-94``)."""
+    (w1, s1), (w0, s0) = new, old
+    pick = lambda a, b: torch.where(ok, a, b)  # noqa: E731
+    return pick(w1, w0), AdamState(pick(s1.m, s0.m), pick(s1.v, s0.v), pick(s1.count, s0.count))

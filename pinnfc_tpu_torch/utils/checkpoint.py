@@ -58,6 +58,20 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return listify(nested)
 
 
+def save_params_npz(tree: Dict[str, Any], path: str) -> None:
+    """Write a nested dict/list tree of arrays (e.g. the schedule snapshot
+    ``{"params": params_to_numpy(params), "stage": k}``) to the archive
+    ``path``, atomically, in the flat-key layout of the checkpoints."""
+    atomic_savez(path, **_flatten(tree))
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """Read an archive written by ``save_params_npz`` back into its tree of
+    numpy arrays."""
+    with np.load(path) as archive:
+        return _unflatten(dict(archive))
+
+
 def _meta_path(path: str) -> str:
     return os.path.abspath(path) + ".meta.json"
 
@@ -97,8 +111,7 @@ def save_checkpoint(
 def load_checkpoint(path: str, device="cuda") -> Dict[str, Any]:
     """Load ``<path>.npz``: ``params`` as port params on ``device``, scalers as
     ``AffineScaler`` on ``device``, provenance (if any) under ``'meta'``."""
-    with np.load(path + ".npz") as archive:
-        tree = _unflatten(dict(archive))
+    tree = load_params_npz(path + ".npz")
     out: Dict[str, Any] = dict(tree)
     out["params"] = params_from_jax(tree["params"], device=device)
     for name in ("scaler_x", "scaler_y"):

@@ -20,15 +20,15 @@ def _jax_linears(mlp_tree) -> list:
     return [*mlp_tree["hidden"], mlp_tree["mean"], *mlp_tree["var"]]
 
 
-def params_from_jax(tree: Dict[str, Any], device="cuda") -> PinnParams:
-    """JAX-layout tree of numpy arrays → port params on ``device``."""
-    mlp_tree = tree["mlp"]
-    layers = [np.asarray(layer["w"]).shape[0] for layer in mlp_tree["hidden"]]
-    layers += [np.asarray(mlp_tree["hidden"][-1]["w"]).shape[1],
-               np.asarray(mlp_tree["mean"]["w"]).shape[1]]
+def mlp_from_jax(tree: Dict[str, Any], device="cuda") -> MLP:
+    """A bare JAX MLP tree (``{"hidden", "mean", "var"}``) of numpy arrays →
+    an ``MLP`` on ``device``."""
+    layers = [np.asarray(layer["w"]).shape[0] for layer in tree["hidden"]]
+    layers += [np.asarray(tree["hidden"][-1]["w"]).shape[1],
+               np.asarray(tree["mean"]["w"]).shape[1]]
     mlp = MLP(layers, device=device)
     with torch.no_grad():
-        for lin, src in zip(mlp.linears(), _jax_linears(mlp_tree)):
+        for lin, src in zip(mlp.linears(), _jax_linears(tree)):
             w = np.array(src["w"], np.float32)
             b = np.array(src["b"], np.float32).reshape(-1)
             if w.shape != (lin.in_features, lin.out_features):
@@ -38,7 +38,23 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> PinnParams:
                 )
             lin.weight.copy_(torch.as_tensor(w.T.copy()))
             lin.bias.copy_(torch.as_tensor(b))
-    params: PinnParams = {"mlp": mlp}
+    return mlp
+
+
+def mlp_to_numpy(mlp: MLP) -> Dict[str, Any]:
+    """``MLP`` → bare JAX MLP tree of numpy arrays (inverse of ``mlp_from_jax``)."""
+
+    def lin(l):
+        return {"w": l.weight.detach().cpu().numpy().T.copy(),
+                "b": l.bias.detach().cpu().numpy().copy()}
+
+    return {"hidden": [lin(l) for l in mlp.hidden], "mean": lin(mlp.mean),
+            "var": [lin(l) for l in mlp.var]}
+
+
+def params_from_jax(tree: Dict[str, Any], device="cuda") -> PinnParams:
+    """JAX-layout params tree of numpy arrays → port params on ``device``."""
+    params: PinnParams = {"mlp": mlp_from_jax(tree["mlp"], device=device)}
     for g in LAMBDA_GROUPS:
         params[g] = torch.as_tensor(np.array(tree[g], np.float32), device=device)
     return params
@@ -46,19 +62,7 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> PinnParams:
 
 def params_to_numpy(params: PinnParams) -> Dict[str, Any]:
     """Port params → JAX-layout tree of numpy arrays (inverse of ``params_from_jax``)."""
-
-    def lin(l):
-        return {"w": l.weight.detach().cpu().numpy().T.copy(),
-                "b": l.bias.detach().cpu().numpy().copy()}
-
-    mlp: MLP = params["mlp"]
-    tree: Dict[str, Any] = {
-        "mlp": {
-            "hidden": [lin(l) for l in mlp.hidden],
-            "mean": lin(mlp.mean),
-            "var": [lin(l) for l in mlp.var],
-        }
-    }
+    tree: Dict[str, Any] = {"mlp": mlp_to_numpy(params["mlp"])}
     for g in LAMBDA_GROUPS:
         tree[g] = params[g].detach().cpu().numpy().copy()
     return tree

@@ -1,0 +1,61 @@
+"""The port's kernels on the card against their plain versions.
+
+Every test here needs a CUDA card and is marked ``cuda``; without one it
+skips.  The file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerances: loss[0] of the training kernel at rtol 2e-5 (one float32 forward
+under the same masks: it checks the masks); its loss trace at rtol 5e-3,
+atol 1e-5 and the weights at rtol 5e-3, atol 5e-3 (summation order differs,
+and Adam amplifies it over the steps; the hardware row of
+tests/test_pallas_train.py:47-49)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pinnfc_tpu_torch.models.mlp import MLP
+from pinnfc_tpu_torch.ops import build
+from pinnfc_tpu_torch.ops import train_dnn as td
+from pinnfc_tpu_torch.training.stages import train_dnn_stage
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.2, 0.0])
+def test_train_kernel_matches_plain(cuda_device, dropout_p):
+    """N = 1,000 is ragged against the 32-row CTAs and the 512-row mask blocks."""
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.uniform(-1, 1, (1000, 8)).astype(np.float32), device=cuda_device)
+    y = torch.as_tensor(rs.uniform(-1, 1, (1000, 1)).astype(np.float32), device=cuda_device)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    before = build.LAUNCHES["train_dnn"]
+    km, kl = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
+    assert build.LAUNCHES["train_dnn"] == before + 1
+    pm, pl = td.train_dnn_stage_plain(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5,
+                                      dropout_p=dropout_p)
+    torch.testing.assert_close(kl[0], pl[0], rtol=2e-5, atol=0)
+    torch.testing.assert_close(kl, pl, rtol=5e-3, atol=1e-5)
+    for a, b in zip(td.mlp_weights(km), td.mlp_weights(pm)):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+    again = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
+    assert torch.equal(again[1], kl)
+
+
+@pytest.mark.cuda
+def test_train_kernel_refuses_what_it_does_not_cover(cuda_device):
+    x = torch.zeros(64, 8, device=cuda_device)
+    y = torch.zeros(64, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="flagship"):
+        td.train_dnn(MLP((8, 32, 32, 1), device=cuda_device), x, y, 0, 2)
+    with pytest.raises(ValueError, match="TF32"):
+        train_dnn_stage(MLP(device=cuda_device), x, y, 0, 2, precision="default")
