@@ -5,6 +5,9 @@
 Phases, any failure exits non-zero before the result line:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile every kernel in pinnfc_tpu_torch/csrc with nvcc (sm_90a);
+   count the tensor-core instructions (HMMA) of each training-kernel function
+   in the library's SASS (cuobjdump): fwd_bwd_kernel and wgrad_kernel must
+   have them;
 3. kernel vs plain on the card: the MC-dropout kernel at flagship width on
    1,000 rows (ragged against its 64-row CTAs and 256-row mask blocks),
    64 samples; the residual kernel on the 15,600-row campaign, with and
@@ -21,20 +24,24 @@ Phases, any failure exits non-zero before the result line:
    timed as 50 launches replayed from one CUDA graph);
 6. the training kernel against its plain version at the training path's
    shape: the campaign's 6,000 training rows (ragged against its 512-row
-   mask blocks), flagship params from ``torch.Generator().manual_seed(0)``,
+   mask blocks), and their first 37 (ragged against the 16-row mma tiles and
+   the 48-row CTAs), flagship params from ``torch.Generator().manual_seed(0)``,
    20 steps at lr 0.01 with the staircase turning three times, dropout 0.2
-   and 0; two kernel runs bitwise equal; a NaN row with skip_nonfinite
-   leaves the weights as they were;
+   and 0; two kernel runs bitwise equal at each N; a NaN row with
+   skip_nonfinite leaves the weights as they were;
 7. the training slice: ``run_training_pipeline(device="cuda")`` on the
    default campaign at flagship width, mc_times 2000, the default schedule
    with every stage's n_iter scaled by 0.1, the launch counters reset just
-   before and read just after; losses, λ bounds and the artifact checked; the
+   before and read just after; finite losses, every DNN stage's loss falling
+   (median of its last tenth of steps below that of its first), λ bounds and
+   the artifact checked; the
    checkpoint saved as ``cli train`` saves it and scored again with
    ``run_scoring_pipeline``, whose artifact must equal the train-time one;
 8. timing at the training path's shapes (the training kernel per step of a
    200-step stage, its plain version, each λ-stage kind per step, the slice's
    per-stage seconds; the device launches and per-kernel device time of a
-   50-step stage, counted from a torch.profiler trace), then one JSON line
+   50-step stage, counted from a torch.profiler trace; the kernel's share of
+   its 3xTF32 and float32 bounds), then one JSON line
    ``{"kernels": [...]}``;
 9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -169,33 +176,35 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def check_train_kernel(mlp, x: torch.Tensor, y: torch.Tensor) -> float:
     """Phase 6: the training kernel against its plain version on the training
-    path's rows; returns max |Δ| over the losses and weights."""
+    path's rows and on their first 37; returns max |Δ| over the losses and
+    weights."""
     from pinnfc_tpu_torch.ops.train_dnn import mlp_weights, train_dnn, train_dnn_stage_plain
 
     steps, hp = 20, dict(lr=0.01, lr_step=5, lr_gamma=0.5)
     seed = 20240601
     err = 0.0
-    for p in (0.2, 0.0):
-        k_mlp, k_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=p, **hp)
-        p_mlp, p_loss = train_dnn_stage_plain(mlp, x, y, seed, steps, dropout_p=p, **hp)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(k_loss[0], p_loss[0], rtol=2e-5, atol=0)
-        torch.testing.assert_close(k_loss, p_loss, rtol=5e-3, atol=1e-5)
-        w_err = 0.0
-        for i, (a, b) in enumerate(zip(mlp_weights(k_mlp), mlp_weights(p_mlp))):
-            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3, msg=f"weight tensor {i}")
-            w_err = max(w_err, max_abs_err(a, b))
-        l0 = float((k_loss[0] - p_loss[0]).abs())
-        l_err = max_abs_err(k_loss, p_loss)
-        err = max(err, w_err, l_err)
-        print(f"[check] train_dnn kernel vs plain, N={x.shape[0]} (ragged), {steps} steps, "
-              f"dropout {p}: |Δloss[0]| {l0:.3e} (rtol 2e-5), max |Δloss| {l_err:.3e} "
-              f"(rtol 5e-3 atol 1e-5), max |Δweight| {w_err:.3e} (rtol=atol=5e-3): ok")
-    a_mlp, a_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=0.2, **hp)
-    b_mlp, b_loss = train_dnn(mlp, x, y, seed, steps, dropout_p=0.2, **hp)
-    same = torch.equal(a_loss, b_loss) and all(
-        torch.equal(u, v) for u, v in zip(mlp_weights(a_mlp), mlp_weights(b_mlp)))
-    check(same, "two training-kernel runs with one seed differ")
+    for xn, yn in ((x, y), (x[:37], y[:37])):
+        for p in (0.2, 0.0):
+            k_mlp, k_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
+            p_mlp, p_loss = train_dnn_stage_plain(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k_loss[0], p_loss[0], rtol=2e-5, atol=0)
+            torch.testing.assert_close(k_loss, p_loss, rtol=5e-3, atol=1e-5)
+            w_err = 0.0
+            for i, (a, b) in enumerate(zip(mlp_weights(k_mlp), mlp_weights(p_mlp))):
+                torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3, msg=f"weight tensor {i}")
+                w_err = max(w_err, max_abs_err(a, b))
+            l0 = float((k_loss[0] - p_loss[0]).abs())
+            l_err = max_abs_err(k_loss, p_loss)
+            err = max(err, w_err, l_err)
+            print(f"[check] train_dnn kernel vs plain, N={xn.shape[0]} (ragged), {steps} steps, "
+                  f"dropout {p}: |Δloss[0]| {l0:.3e} (rtol 2e-5), max |Δloss| {l_err:.3e} "
+                  f"(rtol 5e-3 atol 1e-5), max |Δweight| {w_err:.3e} (rtol=atol=5e-3): ok")
+        a_mlp, a_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
+        b_mlp, b_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
+        same = torch.equal(a_loss, b_loss) and all(
+            torch.equal(u, v) for u, v in zip(mlp_weights(a_mlp), mlp_weights(b_mlp)))
+        check(same, f"two training-kernel runs with one seed differ at N={xn.shape[0]}")
     x_nan = x.clone()
     x_nan[17, 3] = float("nan")
     s_mlp, s_loss = train_dnn(mlp, x_nan, y, seed, 5, dropout_p=0.2, skip_nonfinite=True, **hp)
@@ -232,8 +241,15 @@ def run_training_slice():
     for name, losses in res.log.stages:
         check(np.isfinite(losses).all(), f"non-finite losses in stage {name}")
         if name.endswith(":dnn"):
-            check(losses[-1] < losses[0], f"stage {name} loss did not fall: "
-                                          f"{losses[0]} -> {losses[-1]}")
+            # at lr 0.01 the dropout loss spikes by tens within a stage, so
+            # the stage's first and last tenths are compared by their medians
+            tenth = max(1, len(losses) // 10)
+            first = float(np.median(losses[:tenth]))
+            last = float(np.median(losses[-tenth:]))
+            print(f"[slice] train stage {name}: loss median {first:.4f} over its first "
+                  f"tenth, {last:.4f} over its last")
+            check(last < first, f"stage {name} loss did not fall: median {first} over its "
+                                f"first tenth, {last} over its last")
     for g, (lo, hi) in LAMBDA_BOUNDS.items():
         lam = res.params[g].cpu().numpy()
         check(((lam >= lo) & (lam <= hi)).all(), f"{g} = {lam} outside its bounds")
@@ -301,6 +317,26 @@ STEP_KERNELS = ("fwd_bwd_kernel", "wgrad_kernel", "finalize_kernel", "adam_kerne
 STAGE_KERNELS = ("transpose_kernel",)
 
 
+def sass_hmma(lib) -> dict:
+    """Tensor-core (HMMA) instructions in the SASS of each function of
+    csrc/train_dnn.cu in the built library, counted from ``cuobjdump -sass``."""
+    from pinnfc_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stdout[-2000:]}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = next((k for k in STEP_KERNELS + STAGE_KERNELS if k in line), None)
+            if current:
+                counts.setdefault(current, 0)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
 def kernel_breakdown(fn, steps: int):
     """From a torch.profiler trace of ``fn``, one ``steps``-step stage: device
     ms per step of each kernel of csrc/train_dnn.cu, the launches of each (and
@@ -360,6 +396,10 @@ def main() -> int:
     lib = build.build(verbose=True)
     build.load()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
+    hmma = sass_hmma(lib)
+    check(hmma.get("fwd_bwd_kernel", 0) > 0 and hmma.get("wgrad_kernel", 0) > 0,
+          f"the training kernel's products are not on the tensor cores: HMMA counts {hmma}")
+    print(f"[build] HMMA instructions in the SASS of csrc/train_dnn.cu: {json.dumps(hmma)}")
 
     # ---- 3. kernel vs plain on the card ----
     gen = torch.Generator().manual_seed(0)
@@ -474,7 +514,12 @@ def main() -> int:
     t_flop = TRAIN_FLOP_PER_ROW_STEP * n_tr
     n_param = sum(p.numel() for p in mlp.parameters())
     t_bytes = 4 * (n_tr * 9 + 2 * n_param) / 200 + 4  # x, y, weights in/out per 200 steps, loss
-    t_bound = max(t_flop / FP32_PEAK, t_bytes / HBM_RATE) * 1e3
+    # 3xTF32: three TF32 tensor-core products for every float32 one
+    t_bound = max(3 * t_flop / TF32_PEAK, t_bytes / HBM_RATE) * 1e3
+    t_bound_fp32 = max(t_flop / FP32_PEAK, t_bytes / HBM_RATE) * 1e3
+    print(f"[time] train_dnn kernel at {t_ms:.4f} ms/step: {t_bound / t_ms:.1%} of its 3xTF32 "
+          f"bound ({t_bound:.4f} ms), {t_bound_fp32 / t_ms:.1%} of its float32 bound "
+          f"({t_bound_fp32:.4f} ms)")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
@@ -493,9 +538,11 @@ def main() -> int:
          "replaces": "pinnfc_tpu/ops/pallas_train.py:239",
          "shape": f"x ({n_tr}, 8), flagship; times per step of a 200-step stage",
          "launches": train_launches["train_dnn"], "device_launches_per_step": t_per_step,
-         "traced_launches_50_steps": t_traced, "max_abs_err": train_err, "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
-         "bound_by": "operations", "bound_tf32_ms": t_flop / TF32_PEAK * 1e3,
-         "kernel_ms_per_step": t_breakdown, "library_ms": None},
+         "traced_launches_50_steps": t_traced, "max_abs_err": train_err, "ms": t_ms,
+         "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": "operations",
+         "bound_is": "3xTF32 on the tensor cores", "bound_fp32_ms": t_bound_fp32,
+         "bound_tf32_ms": t_flop / TF32_PEAK * 1e3, "kernel_ms_per_step": t_breakdown,
+         "sass_hmma": hmma, "library_ms": None},
     ]
     print(f"[time] λ-stage ms/step {json.dumps(lam_ms)}")
     print(json.dumps({"kernels": kernels}))

@@ -9,26 +9,59 @@
 //
 // What bounds it on the H100: operations.  A step costs 521,152 MAC per row
 // (174,400 forward, 174,400 for the weight gradients, 172,352 for the input
-// gradients): 6.25 GFLOP at N = 6,000, 0.093 ms against 67 TFLOP/s of float32
-// outside the tensor cores.  The data (0.19 MB) and the state (weights, Adam
-// moments, 2.8 MB) stay in L2.
+// gradients): 6.25 GFLOP at N = 6,000.  Every product of output width >= 64
+// runs on the tensor cores in 3xTF32, three TF32 products for each float32
+// one, so float32 accuracy costs 18.8 GFLOP of TF32: 0.038 ms/step against
+// 495 TFLOP/s.  The same work in float32 outside the tensor cores would take
+// 0.093 ms/step at 67 TFLOP/s.  The data (0.19 MB) and the state (weights,
+// Adam moments, 2.8 MB) stay in L2.  Only wgmma reaches the full tensor-core
+// rate; that form is later work.
+//
+// 3xTF32 ("highest", the TPU kernel's Precision.HIGHEST).  warp_mma_3xtf32 is
+// the one tile routine of every product: a warp's C(16 TM x 8 TN) += A(16 TM x
+// K) B(K x 8 TN) from shared memory, with the strides of A and B as template
+// arguments, so that the forward, the input-gradient backward and the weight
+// gradients (A transposed) share it.  Each float32 operand is split into
+// hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
+// mma.sync.m16n8k8 (TF32 in, float32 accumulate) adds a_lo b_hi, a_hi b_lo,
+// then a_hi b_hi; the dropped a_lo b_lo is about 2^-22 of the product.  A NaN
+// stays a NaN through the split, so a NaN row still reaches the flag.  cvt.rna
+// is a sequence of instructions, so an operand that several warps read is
+// split once, where it is written to shared memory, and kept as a hi and a lo
+// plane; the weights, which one warp each reads, are split as they are loaded.
 //
 // Design.  The TPU kernel is one program that loops over steps and 512-row
 // blocks with all state in VMEM; on the H100 that shape would use one SM.  Here
 // every step is four launches on the caller's stream, queued from C with no
 // host sync, and all state stays in device memory (in L2) for the stage:
-//  1. fwd_bwd_kernel: a CTA owns ROWS = 32 rows (inside one 512-row mask block)
-//     and runs the forward and the input-gradient backward for them.  Its
-//     activations live in shared memory as [feature][row]; every dense layer
-//     stages 32-row weight tiles through shared memory and each thread computes
-//     a 4 x TN register tile with float32 FMAs.  The masks are recomputed from
-//     the hash in the backward rather than stored.  It writes the masked
-//     activations and the deltas of every layer to a global scratch, and the
-//     per-row loss.
-//  2. wgrad_kernel: every weight gradient is A^T D summed over the rows, with
-//     the bias as an extra column of ones in A.  A CTA owns a 64 x 64 tile of
-//     one gradient tensor and one of SPLIT fixed row segments, and walks its
-//     rows in order into a partial buffer.  No float atomics: the result is the
+//  1. fwd_bwd_kernel: a CTA owns ROWS = 48 rows (125 CTAs at N = 6,000, one
+//     wave on 132 SMs, one CTA per SM) and runs the forward and the
+//     input-gradient backward for them.  The layer's input lives in shared
+//     memory as [row][feature], split into hi and lo planes with a leading
+//     dimension of width + 4 (A fragment on banks 4g + q); the output replaces
+//     it.  The weights stream from L2 in KT-row tiles through an NSTAGE-tile
+//     cp.async ring (leading dimension width + 8: B fragment on banks 8q + g);
+//     the next layer's first tiles are requested before this layer's
+//     epilogue.  Each of the 8 warps owns all 48 rows of an eighth of the
+//     output columns.  The epilogue puts the C tile in shared memory and then
+//     walks it four columns at a time (a short loop: fully unrolled
+//     epilogues made the kernel's code too large to stay in the instruction
+//     cache): bias, tanh and the mask forward; the dpred Wm^T term, the mask
+//     and (1 - h^2) backward, with h read back from the masked activations in
+//     the global scratch.  The masks are recomputed from the hash in the
+//     backward rather than stored.  The width-1 heads are row dot products
+//     reduced by warp shuffles in a fixed order.  It writes the masked
+//     activations and the deltas of every layer to the global scratch, and
+//     the per-row loss.
+//  2. wgrad_kernel: every weight gradient is A^T D summed over the rows: A
+//     (the activations, or x) as the transposed mma A operand, D (the deltas)
+//     as B, the rows as the mma's k.  A CTA owns a 64 x 64 tile of one gradient
+//     tensor and one of SPLIT fixed row segments, and walks its rows in order,
+//     32-row chunks of A and D through a cp.async ring with a leading dimension
+//     of 72 (fragment loads conflict-free), each chunk split once into hi and lo.
+//     The CTA of a column tile's first row tile also sums D's columns in the
+//     same pass: the bias row.  The width-1 heads (Wm, V3) are column sums of
+//     A scaled by D, in scalar float32.  No float atomics: the result is the
 //     same from run to run.
 //  3. finalize_kernel: sums the SPLIT partials in segment order, flags a
 //     non-finite gradient, and (its last CTA) reduces the per-row losses in a
@@ -46,9 +79,9 @@
 //   wang(lr*W + c ^ wang(salt + 0x9E3779B9)) >= thresh,
 //   salt = seed*2654435761 + t*40503 + blk*7919 + l   (uint32, wrapping),
 // with t the step index inside the stage; a kept value is multiplied by the
-// float32 constant 1/(1-p).  Rows past n take no part in the loss or the
-// gradients, and the mean divides by the true n.  tanhf/logf/expf/log1pf are
-// the accurate versions (no fast math).
+// float32 constant 1/(1-p).  A CTA's rows may straddle two mask blocks.  Rows
+// past n take no part in the loss or the gradients, and the mean divides by
+// the true n.  tanhf/logf/expf/log1pf are the accurate versions (no fast math).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,15 +94,25 @@ constexpr int D_IN = 8;
 constexpr int H = 256;   // trunk width
 constexpr int V0 = 128;  // first variance layer
 constexpr int V1 = 64;   // second variance layer
-constexpr int ROWS = 32;  // rows per CTA of fwd_bwd_kernel
+constexpr int ROWS = 48;  // rows per CTA of fwd_bwd_kernel
+constexpr int MT = ROWS / 16;  // ... in 16-row mma tiles
 constexpr int THREADS = 256;
-constexpr int KT = 32;  // weight rows staged in shared memory per step
+constexpr int KT = 16;      // weight rows per staged tile
+constexpr int NSTAGE = 4;   // tiles in fwd_bwd_kernel's weight ring
 constexpr uint32_t MASK_BLOCK = 512;
-constexpr int SPLIT = 4;   // row segments of the weight-gradient pass
-constexpr int GT = 64;     // gradient tile edge
-constexpr int GR = 32;     // rows per chunk of a gradient tile
+constexpr int SPLIT = 5;     // row segments of the weight-gradient pass
+constexpr int GT = 64;       // gradient tile edge
+constexpr int GR = 32;       // rows per chunk of a gradient tile
+constexpr int GLD = GT + 8;  // leading dimension of a staged chunk
+constexpr int GPLANE = GR * GLD;  // floats of one staged chunk of A or D
+constexpr int GSTAGE = 3;    // chunks in wgrad_kernel's ring
+// shared memory of wgrad_kernel: the ring and the lo planes of one chunk (three
+// CTAs fit on an SM)
+constexpr size_t GSMEM_BYTES = (GSTAGE * 2 + 2) * GPLANE * sizeof(float);  // 73,728
 
-static_assert(MASK_BLOCK % ROWS == 0, "a CTA's rows must lie in one mask block");
+static_assert(ROWS % 16 == 0 && ROWS <= (int)MASK_BLOCK,
+              "whole mma tiles; a CTA's rows touch at most two mask blocks");
+static_assert(THREADS == 256, "fwd_bwd_kernel's warp tiles: 8 warps x ROWS rows");
 
 // Flat parameter layout: tensor block i is W_i (K x J, row-major (in, out))
 // followed by its bias (J), i.e. a (K + 1) x J matrix; blocks start at
@@ -85,16 +128,22 @@ constexpr int OFF_V2 = align4(OFF_V1 + (H + 1) * V0);
 constexpr int OFF_V3 = align4(OFF_V2 + (V0 + 1) * V1);
 constexpr int N_PARAM = align4(OFF_V3 + (V1 + 1) * 1);
 
+// Leading dimensions, in floats, of fwd_bwd_kernel's shared buffers of width
+// w: mma A operands (the fragment load at row g, column q falls on bank
+// 4g + q) and weight tiles (a B fragment at row q, column g on bank 8q + g).
+__host__ __device__ constexpr int lda(int w) { return w + 4; }
+__host__ __device__ constexpr int ldb(int w) { return w + 8; }
+constexpr int WBUF = KT * ldb(H);  // floats of one staged weight tile
+constexpr int X_PLANE = ROWS * lda(D_IN);  // floats between the hi and lo planes of x
+constexpr int ACT_PLANE = ROWS * lda(H);   // ... of the activation or delta buffer
+
 // shared memory of fwd_bwd_kernel, in floats
-constexpr int SMEM_FLOATS = D_IN * ROWS        // x, transposed
-                          + 3 * H * ROWS       // tanh outputs h1, h2, h3 (unmasked)
-                          + V0 * ROWS          // t1 (unmasked)
-                          + V1 * ROWS          // t2
-                          + 2 * H * ROWS       // ping-pong: masked inputs, then deltas
-                          + KT * H             // weight tile
-                          + 8 * ROWS           // row-dot partial sums
-                          + 2 * ROWS;          // per-row dpred, dq3
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+constexpr int SMEM_FLOATS = 2 * X_PLANE      // x, split
+                          + 2 * ACT_PLANE    // the layer's input, then its output, split
+                          + NSTAGE * WBUF    // weight-tile ring
+                          + 2 * ROWS         // the two heads' row dot products
+                          + 2 * ROWS;        // per-row dpred, dq3
+constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);  // 172,800
 static_assert(SMEM_BYTES <= 232448, "over the H100's 227 KB of shared memory per block");
 
 __host__ __device__ constexpr size_t round4(size_t v) { return (v + 3) / 4 * 4; }
@@ -119,237 +168,373 @@ struct Step {
   float inv_n;
 };
 
-template <int NV>
-__device__ __forceinline__ void load_vec(float (&dst)[NV], const float* src) {
-  if constexpr (NV % 4 == 0) {
+// x = hi + lo + O(2^-22 |x|), both TF32 (cvt.rna: round to nearest, ties away
+// from zero, to 10 mantissa bits).  A NaN gives NaN in both; inf gives hi = inf
+// and lo = NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// c += a b on one m16n8k8 tile: TF32 operands, float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// with valid false the destination is filled with zeros and src is not read.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One warp's C(16 TM x 8 TN) += A(16 TM x K) B(K x 8 TN) in 3xTF32, both
+// operands in shared memory: A(m, k) = a[m * AM + k * AK], B(k, n) =
+// b[k * BK + n * BN].  A is split already: its hi parts at a, its lo parts at
+// a_lo in the same layout.  B likewise with B_PRE (lo parts at b_lo);
+// without, B is float32 and is split here.  With g = lane / 4 and
+// q = lane % 4, the fragments are A: (g, q), (g + 8, q), (g, q + 4),
+// (g + 8, q + 4); B: (q, g), (q + 4, g); c[i][j][0..1] is C at row 16 i + g,
+// columns 8 j + 2 q + 0..1, and c[i][j][2..3] the same columns eight rows
+// below.
+template <int TM, int TN, int K, int AM, int AK, int BK, int BN, bool B_PRE>
+__device__ __forceinline__ void warp_mma_3xtf32(const float* a, const float* a_lo,
+                                                const float* b, const float* b_lo,
+                                                float (&c)[TM][TN][4]) {
+  static_assert(K % 8 == 0, "the mma's depth is 8");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int q = 0; q < NV / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(src)[q];
-      dst[4 * q + 0] = v.x;
-      dst[4 * q + 1] = v.y;
-      dst[4 * q + 2] = v.z;
-      dst[4 * q + 3] = v.w;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[TM][4], al[TM][4], bh[TN][2], bl[TN][2];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int o0 = (16 * i + g) * AM + (k0 + q) * AK;
+      const int at[4] = {o0, o0 + 8 * AM, o0 + 4 * AK, o0 + 8 * AM + 4 * AK};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[i][e] = __float_as_uint(a[at[e]]);
+        al[i][e] = __float_as_uint(a_lo[at[e]]);
+      }
     }
-  } else {
-    static_assert(NV % 2 == 0, "vector width must be even");
 #pragma unroll
-    for (int q = 0; q < NV / 2; ++q) {
-      const float2 v = reinterpret_cast<const float2*>(src)[q];
-      dst[2 * q + 0] = v.x;
-      dst[2 * q + 1] = v.y;
+    for (int j = 0; j < TN; ++j) {
+      const int o0 = (k0 + q) * BK + (8 * j + g) * BN;
+      const int bt[2] = {o0, o0 + 4 * BK};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (B_PRE) {
+          bh[j][e] = __float_as_uint(b[bt[e]]);
+          bl[j][e] = __float_as_uint(b_lo[bt[e]]);
+        } else {
+          split_tf32(b[bt[e]], bh[j][e], bl[j][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        mma_tf32(c[i][j], al[i], bh[j]);
+        mma_tf32(c[i][j], ah[i], bl[j]);
+        mma_tf32(c[i][j], ah[i], bh[j]);
+      }
+  }
+}
+
+// Stage rows [k0, k0 + KS) of W (row-major (K, N) in device memory) into buf
+// (leading dimension ldb(N)) with cp.async, as one committed group.
+template <int N, int KS>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ W, int k0, float* buf) {
+  constexpr int V = KS * N / (4 * THREADS);  // 16-byte copies per thread
+  static_assert(V >= 1 && V * 4 * THREADS == KS * N && KS * ldb(N) <= WBUF, "bad staging");
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int e = threadIdx.x + v * THREADS;  // float4 index inside the staged rows
+    cp_async16(buf + (e / (N / 4)) * ldb(N) + (e % (N / 4)) * 4, W + (size_t)(k0 * N + 4 * e),
+               true);
+  }
+  cp_async_commit();
+}
+
+// Put the first NSTAGE - 1 tiles of W (K, N) in flight, one committed group
+// each (empty groups past K), into the ring wtile.  cta_gemm<K, N, KS> expects
+// them; a layer calls this for the next layer before its own epilogue.
+template <int K, int N, int KS>
+__device__ __forceinline__ void prefetch_weights(const float* __restrict__ W, float* wtile) {
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < K / KS) {
+      stage_weights<N, KS>(W, s * KS, wtile + s * WBUF);
+    } else {
+      cp_async_commit();
     }
   }
 }
 
-template <int NV>
-__device__ __forceinline__ void store_vec(float* dst, const float (&src)[NV]) {
-  if constexpr (NV % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < NV / 4; ++q) {
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
-    }
-  } else {
-    static_assert(NV % 2 == 0, "vector width must be even");
-#pragma unroll
-    for (int q = 0; q < NV / 2; ++q) {
-      reinterpret_cast<float2*>(dst)[q] = make_float2(src[2 * q], src[2 * q + 1]);
-    }
-  }
-}
-
-// The thread's tile of in[K][ROWS]^T @ W(K, N): rows r0..r0+TM, columns
-// c0..c0+TN.  W is row-major (K, N) in device memory.  Ends with a barrier.
-template <int K, int N, int TM, int TN, int KSTEP>
-__device__ __forceinline__ void gemm_tile(const float* in, const float* __restrict__ W,
-                                          float* wtile, float (&acc)[TM][TN], int r0,
-                                          int c0) {
-  static_assert(K % KSTEP == 0 && (KSTEP * N) % (4 * THREADS) == 0, "bad staging");
+// The CTA's C(ROWS x N) = in(ROWS x K, leading dimension lda(K)) @ W: in split
+// already, hi parts at in and lo parts at in + PLANE; W row-major (K, N) in
+// device memory, streamed KS rows at a time through the NSTAGE-tile ring
+// wtile, whose first NSTAGE - 1 tiles prefetch_weights<K, N, KS> has put in
+// flight: while the tensor cores work on tile c, tiles c + 1 .. c + NSTAGE - 1
+// are on their way.  Warp w owns columns [w N/8, (w + 1) N/8) of all ROWS
+// rows.  Ends with a barrier.
+template <int K, int N, int KS, int PLANE>
+__device__ __forceinline__ void cta_gemm(const float* in, const float* __restrict__ W,
+                                         float* wtile, float (&acc)[MT][N / 64][4]) {
+  static_assert(K % KS == 0, "bad staging");
   const int t = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += KSTEP) {
-    const float4* src = reinterpret_cast<const float4*>(W + k0 * N);
-    float4* dst = reinterpret_cast<float4*>(wtile);
+    for (int j = 0; j < N / 64; ++j)
 #pragma unroll
-    for (int q = t; q < KSTEP * N / 4; q += THREADS) dst[q] = __ldg(src + q);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KSTEP; ++kk) {
-      float a[TM], w[TN];
-      load_vec<TM>(a, in + (k0 + kk) * ROWS + r0);
-      load_vec<TN>(w, wtile + kk * N + c0);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  for (int c = 0; c < K / KS; ++c) {
+    cp_async_wait<NSTAGE - 2>();  // tile c has landed (this thread's part)
+    __syncthreads();              // ... everyone's, and tile c - 1 is free
+    const int next = c + NSTAGE - 1;
+    if (next < K / KS) {
+      stage_weights<N, KS>(W, next * KS, wtile + (next % NSTAGE) * WBUF);
+    } else {
+      cp_async_commit();
     }
-    __syncthreads();
+    const float* b = wtile + (c % NSTAGE) * WBUF + (t >> 5) * (N / 8);
+    warp_mma_3xtf32<MT, N / 64, KS, lda(K), 1, ldb(N), 1, false>(
+        in + c * KS, in + PLANE + c * KS, b, nullptr, acc);
   }
+  __syncthreads();
 }
+
+// Write the warp's C fragments (see warp_mma_3xtf32), as float32, into the
+// [ROWS][lda(N)] tile c (warp w's columns [w N/8, (w + 1) N/8)).
+template <int N>
+__device__ __forceinline__ void store_c_tile(const float (&acc)[MT][N / 64][4], float* c) {
+  const int lane = threadIdx.x & 31;
+  const int cw = (threadIdx.x >> 5) * (N / 8) + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 64; ++j)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int r = 16 * i + (lane >> 2) + 8 * f;
+        *reinterpret_cast<float2*>(c + r * lda(N) + cw + 8 * j) =
+            make_float2(acc[i][j][2 * f], acc[i][j][2 * f + 1]);
+      }
+}
+
+// Store four values, split, into the hi and lo planes of a pre-split mma A
+// operand.
+__device__ __forceinline__ void store_split4(float* hi, int plane, const float (&v)[4]) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(v[e], h[e], l[e]);
+  *reinterpret_cast<float4*>(hi) = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                                               __uint_as_float(h[2]), __uint_as_float(h[3]));
+  *reinterpret_cast<float4*>(hi + plane) = make_float4(
+      __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+// The hashed salts of one layer's mask in the (at most two) mask blocks that
+// a CTA's rows touch: global rows below `split` lie in the first.
+struct LayerSalt {
+  uint32_t first, second;
+  int split;
+  __device__ __forceinline__ uint32_t at(int row) const { return row < split ? first : second; }
+};
 
 __device__ __forceinline__ bool keep(uint32_t hs, uint32_t local_row, uint32_t width,
                                      uint32_t col, uint32_t thresh) {
   return wang_hash((local_row * width + col) ^ hs) >= thresh;
 }
 
-// Forward layer: raw = tanh(in @ W + b), masked = dropout(raw) when DROP (else
-// raw); masked goes to `out` (when given) and to the global scratch `g`.
-template <int K, int N, int TN, int KSTEP, bool DROP>
+// Forward layer: h = tanh(in @ W + b), masked = dropout(h) when DROP (else h).
+// The product's C tile goes to act's hi plane (in is dead by then), then four
+// columns of a row at a time: masked goes to the global scratch `g` and, split,
+// back into act as the next layer's input, or, with SPLIT_OUT false, nowhere
+// else.  next() runs between the product and the epilogue.
+template <int K, int N, int KS, int IN_PLANE, bool SPLIT_OUT, bool DROP, class Next>
 __device__ __forceinline__ void fwd_layer(const Step& st, const float* in,
                                           const float* __restrict__ W,
-                                          const float* __restrict__ bias, float* raw,
-                                          float* out, float* g, float* wtile, uint32_t hs,
-                                          int row0, uint32_t lr0) {
-  constexpr int TM = 4;
-  constexpr int NCG = N / TN;
-  static_assert(NCG * (ROWS / TM) == THREADS, "tile does not cover the CTA");
-  const int t = threadIdx.x;
-  const int c0 = (t % NCG) * TN;
-  const int r0 = (t / NCG) * TM;
-  float acc[TM][TN];
-  gemm_tile<K, N, TM, TN, KSTEP>(in, W, wtile, acc, r0, c0);
+                                          const float* __restrict__ bias, float* act, float* g,
+                                          float* wtile, const LayerSalt& hs, int row0,
+                                          Next next) {
+  float acc[MT][N / 64][4];
+  cta_gemm<K, N, KS, IN_PLANE>(in, W, wtile, acc);
+  next();
+  store_c_tile<N>(acc, act);
+  __syncthreads();
+#pragma unroll 2
+  for (int e = threadIdx.x; e < ROWS * N / 4; e += THREADS) {
+    const int r = e / (N / 4), c = (e % (N / 4)) * 4;
+    const int row = row0 + r;
+    const float4 a = *reinterpret_cast<const float4*>(act + r * lda(N) + c);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + c));
+    float hd[4] = {tanhf(a.x + b.x), tanhf(a.y + b.y), tanhf(a.z + b.z), tanhf(a.w + b.w)};
+    if (DROP) {
+      const uint32_t s = hs.at(row), lr = (uint32_t)row % MASK_BLOCK;
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const float bj = __ldg(bias + c0 + j);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float h = tanhf(acc[i][j] + bj);
-      float hd = h;
-      if (DROP) {
-        hd = keep(hs, lr0 + r0 + i, N, c0 + j, st.thresh) ? h * st.inv_keep : 0.0f;
+      for (int q = 0; q < 4; ++q) {
+        hd[q] = keep(s, lr, N, c + q, st.thresh) ? hd[q] * st.inv_keep : 0.0f;
       }
-      raw[(c0 + j) * ROWS + r0 + i] = h;
-      if (out != nullptr) out[(c0 + j) * ROWS + r0 + i] = hd;
-      acc[i][j] = hd;
     }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (row0 + r0 + i < st.n) store_vec<TN>(g + (size_t)(row0 + r0 + i) * N + c0, acc[i]);
+    if (SPLIT_OUT) store_split4(act + r * lda(N) + c, ACT_PLANE, hd);
+    if (row < st.n) {
+      *reinterpret_cast<float4*>(g + (size_t)row * N + c) = make_float4(hd[0], hd[1], hd[2], hd[3]);
+    }
   }
   __syncthreads();
 }
 
 // Backward layer: d = in @ WT (WT row-major (K, N) = W^T), plus
-// rowadd[row] * wadd[col] when given; then the dropout mask when DROP (kept
-// values times 1/(1-p)), then times (1 - raw^2).  To `out` and to `g`.
-template <int K, int N, int TN, bool DROP>
-__device__ __forceinline__ void bwd_layer(const Step& st, const float* in,
-                                          const float* __restrict__ WT, const float* raw,
-                                          const float* rowadd, const float* __restrict__ wadd,
-                                          float* out, float* g, float* wtile, uint32_t hs,
-                                          int row0, uint32_t lr0) {
-  constexpr int TM = 4;
-  constexpr int NCG = N / TN;
-  static_assert(NCG * (ROWS / TM) == THREADS, "tile does not cover the CTA");
-  const int t = threadIdx.x;
-  const int c0 = (t % NCG) * TN;
-  const int r0 = (t / NCG) * TM;
-  float acc[TM][TN];
-  gemm_tile<K, N, TM, TN, KT>(in, WT, wtile, acc, r0, c0);
+// rowadd[row] * wadd[col] when given; then the dropout mask (kept values times
+// 1/(1-p)), then times (1 - h^2); to the global scratch `g` and, split, back
+// into act.  h is the forward's tanh output, read back from its masked copy
+// hd in the global scratch (this CTA's rows, written by this CTA): where kept,
+// h = hd (1 - p) within two ulps of the forward's value (exactly, without
+// dropout); where dropped d is 0.  The C tile goes through act's hi plane as
+// in fwd_layer.  next() runs between the product and the epilogue.
+template <int K, int N, class Next>
+__device__ __forceinline__ void bwd_layer(const Step& st, const float* __restrict__ WT,
+                                          const float* hd, const float* rowadd,
+                                          const float* __restrict__ wadd, float* act, float* g,
+                                          float* wtile, const LayerSalt& hs, int row0,
+                                          Next next) {
+  float acc[MT][N / 64][4];
+  cta_gemm<K, N, KT, ACT_PLANE>(act, WT, wtile, acc);
+  next();
+  store_c_tile<N>(acc, act);
+  __syncthreads();
+  const float keep_scale = 1.0f / st.inv_keep;
+#pragma unroll 2
+  for (int e = threadIdx.x; e < ROWS * N / 4; e += THREADS) {
+    const int r = e / (N / 4), c = (e % (N / 4)) * 4;
+    const int row = row0 + r;
+    const float4 a = *reinterpret_cast<const float4*>(act + r * lda(N) + c);
+    float d[4] = {a.x, a.y, a.z, a.w};
+    if (rowadd != nullptr) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(wadd + c));
+      const float ra = rowadd[r];
+      d[0] = ra * w.x + d[0];
+      d[1] = ra * w.y + d[1];
+      d[2] = ra * w.z + d[2];
+      d[3] = ra * w.w + d[3];
+    }
+    const float4 hv = row < st.n ? __ldcg(reinterpret_cast<const float4*>(hd + (size_t)row * N + c))
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float h[4] = {hv.x * keep_scale, hv.y * keep_scale, hv.z * keep_scale,
+                        hv.w * keep_scale};
+    const uint32_t s = hs.at(row), lr = (uint32_t)row % MASK_BLOCK;
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const float wj = wadd != nullptr ? __ldg(wadd + c0 + j) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float d = acc[i][j];
-      if (rowadd != nullptr) d = rowadd[r0 + i] * wj + d;
-      if (DROP) {
-        d = keep(hs, lr0 + r0 + i, N, c0 + j, st.thresh) ? d * st.inv_keep : 0.0f;
-      }
-      const float h = raw[(c0 + j) * ROWS + r0 + i];
-      d = d * (1.0f - h * h);
-      out[(c0 + j) * ROWS + r0 + i] = d;
-      acc[i][j] = d;
+    for (int q = 0; q < 4; ++q) {
+      d[q] = keep(s, lr, N, c + q, st.thresh) ? d[q] * st.inv_keep : 0.0f;
+      d[q] = d[q] * (1.0f - h[q] * h[q]);
+    }
+    store_split4(act + r * lda(N) + c, ACT_PLANE, d);
+    if (row < st.n) {
+      *reinterpret_cast<float4*>(g + (size_t)row * N + c) = make_float4(d[0], d[1], d[2], d[3]);
     }
   }
+  __syncthreads();
+}
+
+// sum[r] = in[r] . w for this CTA's first `rows` rows of in (K floats each, in
+// the global scratch, read through L2), 0 for the others: warp w takes rows w,
+// w + 8, ...; its lanes take every 32nd k, summed by a fixed shuffle tree.
+// Ends with a barrier.
+template <int K>
+__device__ __forceinline__ void row_dot(const float* in, int rows, const float* __restrict__ w,
+                                        float* sum) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (row0 + r0 + i < st.n) store_vec<TN>(g + (size_t)(row0 + r0 + i) * N + c0, acc[i]);
+  for (int r = threadIdx.x >> 5; r < ROWS; r += THREADS / 32) {
+    float v = 0.0f;
+    if (r < rows) {
+#pragma unroll
+      for (int k = lane; k < K; k += 32) v = fmaf(__ldcg(in + (size_t)r * K + k), __ldg(w + k), v);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) sum[r] = v;
   }
   __syncthreads();
-}
-
-// Partial dot products of each row of in[K][ROWS] with w (K,): eight threads
-// per row, each over an eighth of K, into red[8][ROWS].  Ends with a barrier.
-template <int K>
-__device__ __forceinline__ void row_dot(const float* in, const float* __restrict__ w,
-                                        float* red) {
-  const int t = threadIdx.x;
-  const int r = t % ROWS, part = t / ROWS;
-  constexpr int KP = K / (THREADS / ROWS);
-  float s = 0.0f;
-#pragma unroll 8
-  for (int k = part * KP; k < (part + 1) * KP; ++k) s = fmaf(in[k * ROWS + r], __ldg(w + k), s);
-  red[part * ROWS + r] = s;
-  __syncthreads();
-}
-
-__device__ __forceinline__ float reduce_row(const float* red, int r, float b) {
-  const float s01 = red[r] + red[ROWS + r];
-  const float s23 = red[2 * ROWS + r] + red[3 * ROWS + r];
-  const float s45 = red[4 * ROWS + r] + red[5 * ROWS + r];
-  const float s67 = red[6 * ROWS + r] + red[7 * ROWS + r];
-  return ((s01 + s23) + (s45 + s67)) + b;
 }
 
 __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   extern __shared__ __align__(16) float smem[];
-  float* xT = smem;
-  float* R1 = xT + D_IN * ROWS;
-  float* R2 = R1 + H * ROWS;
-  float* R3 = R2 + H * ROWS;
-  float* RT1 = R3 + H * ROWS;
-  float* RT2 = RT1 + V0 * ROWS;
-  float* P = RT2 + V1 * ROWS;
-  float* Q = P + H * ROWS;
-  float* wtile = Q + H * ROWS;
-  float* red = wtile + KT * H;
-  float* rowv = red + 8 * ROWS;  // [0, ROWS): dpred, [ROWS, 2 ROWS): dq3
+  float* xs = smem;                     // 2 planes of [ROWS][lda(D_IN)]
+  float* act = xs + 2 * X_PLANE;        // 2 planes of [ROWS][lda(width)]
+  float* wtile = act + 2 * ACT_PLANE;   // NSTAGE x [KT][ldb(width)]
+  float* head = wtile + NSTAGE * WBUF;  // [0, ROWS): h3 . Wm, [ROWS, 2 ROWS): t2 . V3
+  float* rowv = head + 2 * ROWS;        // [0, ROWS): dpred, [ROWS, 2 ROWS): dq3
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int n = st.n;
-  for (int q = t; q < ROWS * D_IN; q += THREADS) {
-    const int r = q / D_IN, d = q % D_IN;
-    xT[d * ROWS + r] = row0 + r < n ? st.x[(size_t)(row0 + r) * D_IN + d] : 0.0f;
-  }
-  __syncthreads();
-
-  const uint32_t blk = (uint32_t)row0 / MASK_BLOCK;
-  const uint32_t lr0 = (uint32_t)row0 % MASK_BLOCK;
-  const uint32_t salt = st.seed * 2654435761u + (uint32_t)st.t * 40503u + blk * 7919u;
-  const uint32_t hs0 = hashed_salt(salt + 0u), hs1 = hashed_salt(salt + 1u);
-  const uint32_t hs2 = hashed_salt(salt + 2u), hs3 = hashed_salt(salt + 3u);
+  const int rows = min(ROWS, n - row0);  // this CTA's rows inside n
   const float* p = st.p;
   const Scratch& s = st.s;
+  prefetch_weights<D_IN, H, D_IN>(p + OFF_W1, wtile);
+  for (int q = t; q < ROWS * D_IN; q += THREADS) {
+    const int r = q / D_IN, d = q % D_IN;
+    uint32_t hi, lo;
+    split_tf32(r < rows ? st.x[(size_t)(row0 + r) * D_IN + d] : 0.0f, hi, lo);
+    xs[r * lda(D_IN) + d] = __uint_as_float(hi);
+    xs[X_PLANE + r * lda(D_IN) + d] = __uint_as_float(lo);
+  }
+
+  // mask salts of the layers (0..2 the trunk, 3 the first variance layer) in
+  // the mask blocks of this CTA's rows
+  const uint32_t blk = (uint32_t)row0 / MASK_BLOCK;
+  const uint32_t base = st.seed * 2654435761u + (uint32_t)st.t * 40503u;
+  LayerSalt hs[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    hs[l] = LayerSalt{hashed_salt(base + blk * 7919u + (uint32_t)l),
+                      hashed_salt(base + (blk + 1u) * 7919u + (uint32_t)l),
+                      (int)((blk + 1u) * MASK_BLOCK)};
+  }
 
   // ---- forward ----
-  fwd_layer<D_IN, H, 8, D_IN, true>(st, xT, p + OFF_W1, p + OFF_W1 + D_IN * H, R1, P, s.h1d,
-                                    wtile, hs0, row0, lr0);
-  fwd_layer<H, H, 8, KT, true>(st, P, p + OFF_W2, p + OFF_W2 + H * H, R2, Q, s.h2d, wtile, hs1,
-                               row0, lr0);
-  fwd_layer<H, H, 8, KT, true>(st, Q, p + OFF_W3, p + OFF_W3 + H * H, R3, P, s.h3d, wtile, hs2,
-                               row0, lr0);
-  row_dot<H>(P, p + OFF_WM, red);
-  float pred = 0.0f;
-  if (t < ROWS) pred = reduce_row(red, t, __ldg(p + OFF_WM + H));
-  fwd_layer<H, V0, 4, KT, true>(st, P, p + OFF_V1, p + OFF_V1 + H * V0, RT1, Q, s.t1d, wtile,
-                                hs3, row0, lr0);
-  fwd_layer<V0, V1, 2, KT, false>(st, Q, p + OFF_V2, p + OFF_V2 + V0 * V1, RT2, nullptr, s.t2,
-                                  wtile, 0u, row0, lr0);
-  // the row_dot below overwrites red only after the barriers of the layers
-  // above, so the mean-head reduction has been read by then
-  row_dot<V1>(RT2, p + OFF_V3, red);
+  fwd_layer<D_IN, H, D_IN, X_PLANE, true, true>(
+      st, xs, p + OFF_W1, p + OFF_W1 + D_IN * H, act, s.h1d, wtile, hs[0], row0,
+      [&] { prefetch_weights<H, H, KT>(p + OFF_W2, wtile); });
+  fwd_layer<H, H, KT, ACT_PLANE, true, true>(
+      st, act, p + OFF_W2, p + OFF_W2 + H * H, act, s.h2d, wtile, hs[1], row0,
+      [&] { prefetch_weights<H, H, KT>(p + OFF_W3, wtile); });
+  fwd_layer<H, H, KT, ACT_PLANE, true, true>(
+      st, act, p + OFF_W3, p + OFF_W3 + H * H, act, s.h3d, wtile, hs[2], row0,
+      [&] { prefetch_weights<H, V0, KT>(p + OFF_V1, wtile); });
+  row_dot<H>(s.h3d + (size_t)row0 * H, rows, p + OFF_WM, head);
+  fwd_layer<H, V0, KT, ACT_PLANE, true, true>(
+      st, act, p + OFF_V1, p + OFF_V1 + H * V0, act, s.t1d, wtile, hs[3], row0,
+      [&] { prefetch_weights<V0, V1, KT>(p + OFF_V2, wtile); });
+  fwd_layer<V0, V1, KT, ACT_PLANE, false, false>(
+      st, act, p + OFF_V2, p + OFF_V2 + V0 * V1, act, s.t2, wtile, hs[0], row0,
+      [&] { prefetch_weights<V1, V0, KT>(st.v2t, wtile); });
+  row_dot<V1>(s.t2 + (size_t)row0 * V1, rows, p + OFF_V3, head + ROWS);
 
   // ---- loss and the head's deltas, one thread per row ----
   if (t < ROWS) {
     const int row = row0 + t;
     const bool valid = row < n;
-    const float q3 = reduce_row(red, t, __ldg(p + OFF_V3 + V1));
+    const float pred = head[t] + __ldg(p + OFF_WM + H);
+    const float q3 = head[ROWS + t] + __ldg(p + OFF_V3 + V1);
     const float yv = valid ? st.y[row] : 0.0f;
     const float sp = fmaxf(q3, 0.0f) + log1pf(expf(-fabsf(q3)));  // jax.nn.softplus
     const float lv = logf(sp + 1e-6f);
@@ -372,27 +557,39 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   __syncthreads();
 
   // ---- backward ----
-  // dq2 = (dq3 V3^T) * (1 - t2^2), into Q[V1][ROWS]
-  for (int q = t; q < ROWS * V1; q += THREADS) {
-    const int r = q / V1, j = q % V1;
-    const float t2 = RT2[j * ROWS + r];
-    const float d = (rowv[ROWS + r] * __ldg(p + OFF_V3 + j)) * (1.0f - t2 * t2);
-    Q[j * ROWS + r] = d;
-    if (row0 + r < n) s.dq2[(size_t)(row0 + r) * V1 + j] = d;
+  // dq2 = (dq3 V3^T) * (1 - t2^2), split into act; the t2 loads first
+  constexpr int DQ2 = ROWS * V1 / THREADS;
+  static_assert(DQ2 * THREADS == ROWS * V1, "dq2 elements per thread");
+  float t2v[DQ2];
+#pragma unroll
+  for (int e = 0; e < DQ2; ++e) {
+    const int r = (t + e * THREADS) / V1, j = (t + e * THREADS) % V1;
+    t2v[e] = r < rows ? __ldcg(s.t2 + (size_t)(row0 + r) * V1 + j) : 0.0f;
   }
-  __syncthreads();
-  // dq1 = mask3(dq2 V2^T) * (1 - t1^2), into P[V0][ROWS]
-  bwd_layer<V1, V0, 4, true>(st, Q, st.v2t, RT1, nullptr, nullptr, P, s.dq1, wtile, hs3, row0,
-                             lr0);
-  // da3 = mask2(dpred Wm^T + dq1 V1^T) * (1 - h3^2), into Q
-  bwd_layer<V0, H, 8, true>(st, P, st.v1t, R3, rowv, p + OFF_WM, Q, s.da3, wtile, hs2, row0,
-                            lr0);
-  // da2 = mask1(da3 W3^T) * (1 - h2^2), into P
-  bwd_layer<H, H, 8, true>(st, Q, st.w3t, R2, nullptr, nullptr, P, s.da2, wtile, hs1, row0,
-                           lr0);
-  // da1 = mask0(da2 W2^T) * (1 - h1^2), into Q
-  bwd_layer<H, H, 8, true>(st, P, st.w2t, R1, nullptr, nullptr, Q, s.da1, wtile, hs0, row0,
-                           lr0);
+#pragma unroll
+  for (int e = 0; e < DQ2; ++e) {
+    const int r = (t + e * THREADS) / V1, j = (t + e * THREADS) % V1;
+    const float t2 = t2v[e];
+    const float d = (rowv[ROWS + r] * __ldg(p + OFF_V3 + j)) * (1.0f - t2 * t2);
+    uint32_t hi, lo;
+    split_tf32(d, hi, lo);
+    act[r * lda(V1) + j] = __uint_as_float(hi);
+    act[ACT_PLANE + r * lda(V1) + j] = __uint_as_float(lo);
+    if (r < rows) s.dq2[(size_t)(row0 + r) * V1 + j] = d;
+  }
+  // (cta_gemm's first barrier orders these stores before the product reads them)
+  // dq1 = mask3(dq2 V2^T) * (1 - t1^2)
+  bwd_layer<V1, V0>(st, st.v2t, s.t1d, nullptr, nullptr, act, s.dq1, wtile, hs[3], row0,
+                    [&] { prefetch_weights<V0, H, KT>(st.v1t, wtile); });
+  // da3 = mask2(dpred Wm^T + dq1 V1^T) * (1 - h3^2)
+  bwd_layer<V0, H>(st, st.v1t, s.h3d, rowv, p + OFF_WM, act, s.da3, wtile, hs[2], row0,
+                   [&] { prefetch_weights<H, H, KT>(st.w3t, wtile); });
+  // da2 = mask1(da3 W3^T) * (1 - h2^2)
+  bwd_layer<H, H>(st, st.w3t, s.h2d, nullptr, nullptr, act, s.da2, wtile, hs[1], row0,
+                  [&] { prefetch_weights<H, H, KT>(st.w2t, wtile); });
+  // da1 = mask0(da2 W2^T) * (1 - h1^2)
+  bwd_layer<H, H>(st, st.w2t, s.h1d, nullptr, nullptr, act, s.da1, wtile, hs[0], row0,
+                  [] {});
 }
 
 // One gradient tensor of wgrad_kernel: G (K + 1, J) = [A | 1]^T D over the rows.
@@ -410,9 +607,23 @@ struct GradPass {
   int seg_rows;
 };
 
-__global__ void __launch_bounds__(THREADS) wgrad_kernel(GradPass gp) {
-  __shared__ __align__(16) float As[GR][GT];
-  __shared__ __align__(16) float Ds[GR][GT];
+// A CTA: the 64 x 64 tile (k0, j0) of one gradient tensor over row segment
+// blockIdx.y, walked in GR-row chunks through a GSTAGE-chunk ring of A and D
+// in shared memory (cp.async; GSTAGE - 1 chunks in flight while the tensor
+// cores work on one).  Once a chunk has landed, each thread splits its slots
+// (rows sr and sr + GR/2, columns sc..sc+3 of A and of D) once: hi in place,
+// lo into a plane of its own; from the same float32 values it sums, over its
+// rows in order, its columns of D (the bias row K, in the tile with k0 = 0)
+// and, for a width-1 head, its columns of A times D.  Tensors of width
+// J >= 64 (k % 4 == 0, j % 8 == 0) then go through the tensor cores: warp w
+// owns rows k0 + 16 (w / 2) and columns j0 + 32 (w % 2) of the tile.  The
+// sixteen threads of a column's sums are added in a fixed order at the end.
+__global__ void __launch_bounds__(THREADS, 3) wgrad_kernel(GradPass gp) {
+  extern __shared__ __align__(16) float gsm[];  // GSTAGE x (A, D), then A lo, D lo
+  float* alo = gsm + GSTAGE * 2 * GPLANE;
+  float* dlo = alo + GPLANE;
+  float* red = alo;  // after the chunks: [2][GR / 2][GT], per-thread column sums (bias, head)
+  static_assert(GR * GT <= 2 * GPLANE, "the column sums fit the lo planes");
   const int t = threadIdx.x;
   const int u = blockIdx.x, seg = blockIdx.y;
   int i = 0;
@@ -423,50 +634,123 @@ __global__ void __launch_bounds__(THREADS) wgrad_kernel(GradPass gp) {
   const int j0 = ((u - gp.unit0[i]) % jtiles) * GT;
   const int rb = seg * gp.seg_rows;
   const int re = min(gp.n, rb + gp.seg_rows);
-  const int tk = t / (GT / 4), tj = t % (GT / 4);
+  const int chunks = rb < re ? (re - rb + GR - 1) / GR : 0;
+  const bool head = g.j == 1;
+  const bool bias = k0 == 0;
+  const int warp = t >> 5;
+  const int wk = (warp >> 1) * 16, wj = (warp & 1) * 32;
+  const bool mma = !head && k0 + wk < g.k;
+  // this thread's slots: rows sr and sr + GR/2 of a chunk, columns sc..sc+3
+  const int sr = t / (GT / 4), sc = (t % (GT / 4)) * 4;
+  static_assert(THREADS * 8 == GR * GT, "two 4-column slots per thread cover a chunk");
 
-  float acc[4][4];
+  float acc[1][4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int jn = 0; jn < 4; ++jn)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[0][jn][e] = 0.0f;
+  float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int r = rb; r < re; r += GR) {
-    for (int q = t; q < GR * GT; q += THREADS) {
-      const int rr = q / GT, c = q % GT;
-      const int row = r + rr;
-      const int k = k0 + c, j = j0 + c;
-      float av = 0.0f, dv = 0.0f;
-      if (row < re) {
-        av = k < g.k ? g.a[(size_t)row * g.k + k] : (k == g.k ? 1.0f : 0.0f);
-        if (j < g.j) dv = g.d[(size_t)row * g.j + j];
+  // Stage chunk ch of the segment into its ring slot as one committed group
+  // (the thread's own slots); rows past the segment and columns past the
+  // tensor are zeros, and a head's D is its column 0.  Past the last chunk the
+  // group is empty.
+  auto stage = [&](int ch) {
+    if (ch < chunks) {
+      float* as = gsm + (ch % GSTAGE) * 2 * GPLANE;
+      float* ds = as + GPLANE;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int rr = sr + v * (GR / 2);
+        const int row = rb + ch * GR + rr;
+        const bool in_a = row < re && k0 + sc < g.k;
+        cp_async16(as + rr * GLD + sc, in_a ? g.a + (size_t)row * g.k + k0 + sc : g.a, in_a);
+        if (head) {
+          const float dv = row < re && sc == 0 ? __ldg(g.d + row) : 0.0f;
+          *reinterpret_cast<float4*>(ds + rr * GLD + sc) = make_float4(dv, 0.0f, 0.0f, 0.0f);
+        } else {
+          const bool in_d = row < re && j0 + sc < g.j;
+          cp_async16(ds + rr * GLD + sc, in_d ? g.d + (size_t)row * g.j + j0 + sc : g.d, in_d);
+        }
       }
-      As[rr][c] = av;
-      Ds[rr][c] = dv;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < GR; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][tk * 4]);
-      const float4 d = *reinterpret_cast<const float4*>(&Ds[rr][tj * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float dv[4] = {d.x, d.y, d.z, d.w};
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
+  for (int ch = 0; ch < GSTAGE - 1; ++ch) stage(ch);
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<GSTAGE - 2>();  // chunk ch has landed (this thread's slots)
+    __syncthreads();              // ... everyone's, and chunk ch - 1 is done with
+    stage(ch + GSTAGE - 1);
+    float* as = gsm + (ch % GSTAGE) * 2 * GPLANE;
+    float* ds = as + GPLANE;
 #pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], dv[y], acc[x][y]);
+    for (int v = 0; v < 2; ++v) {
+      const int o = (sr + v * (GR / 2)) * GLD + sc;
+      const float4 a = *reinterpret_cast<const float4*>(as + o);
+      const float4 d = *reinterpret_cast<const float4*>(ds + o);
+      const float a4[4] = {a.x, a.y, a.z, a.w};
+      const float d4[4] = {d.x, d.y, d.z, d.w};
+      if (head) {  // no product: sums only, D left as staged
+        const float dh = ds[(sr + v * (GR / 2)) * GLD];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hsum[e] = fmaf(a4[e], dh, hsum[e]);
+      } else {
+        uint32_t ah[4], al[4], dhi[4], dlw[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(a4[e], ah[e], al[e]);
+          split_tf32(d4[e], dhi[e], dlw[e]);
+        }
+        *reinterpret_cast<uint4*>(as + o) = make_uint4(ah[0], ah[1], ah[2], ah[3]);
+        *reinterpret_cast<uint4*>(alo + o) = make_uint4(al[0], al[1], al[2], al[3]);
+        *reinterpret_cast<uint4*>(ds + o) = make_uint4(dhi[0], dhi[1], dhi[2], dhi[3]);
+        *reinterpret_cast<uint4*>(dlo + o) = make_uint4(dlw[0], dlw[1], dlw[2], dlw[3]);
+      }
+      if (bias) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bsum[e] += d4[e];
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the chunk is split
+    if (mma) {
+      warp_mma_3xtf32<1, 4, GR, 1, GLD, GLD, 1, true>(as + wk, alo + wk, ds + wj, dlo + wj, acc);
+    }
   }
 
   float* out = gp.part + (size_t)seg * N_PARAM + g.off;
+  if (mma) {
+    const int lane = t & 31;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int k = k0 + tk * 4 + a;
+    for (int jn = 0; jn < 4; ++jn) {
+      const int j = j0 + wj + 8 * jn + 2 * (lane & 3);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tj * 4 + b;
-      if (k <= g.k && j < g.j) out[k * g.j + j] = acc[a][b];
+      for (int f = 0; f < 4; f += 2) {
+        const int k = k0 + wk + (lane >> 2) + 4 * f;
+        if (k < g.k && j < g.j) {
+          out[k * g.j + j] = acc[0][jn][f];
+          out[k * g.j + j + 1] = acc[0][jn][f + 1];
+        }
+      }
+    }
+  }
+  if (head || bias) {
+    __syncthreads();  // the last chunk's product is done with the lo planes
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[sr * GT + sc + e] = bsum[e];
+      red[(GR / 2 + sr) * GT + sc + e] = hsum[e];
+    }
+    __syncthreads();
+    if (t < GT) {
+      float b = 0.0f, h = 0.0f;
+#pragma unroll
+      for (int q = 0; q < GR / 2; ++q) {
+        b += red[q * GT + t];
+        h += red[(GR / 2 + q) * GT + t];
+      }
+      if (head && k0 + t < g.k) out[k0 + t] = h;
+      if (bias && j0 + t < g.j) out[g.k * g.j + j0 + t] = b;
     }
   }
 }
@@ -625,10 +909,15 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
                                 uint32_t thresh, float inv_keep, float inv_n, int skip,
                                 void* stream_ptr) {
   if (n <= 0 || n_iter <= 0) return 0;
+  // wgrad_kernel reads x's rows as float4
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err = cudaFuncSetAttribute(fwd_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GSMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   Workspace w;
   carve(work, n, &w);
@@ -644,7 +933,7 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   gp.unit0[0] = 0;
   for (int i = 0; i < NT; ++i) {
     gp.g[i] = GradTensor{a_src[i], d_src[i], ks[i], js[i], offs[i]};
-    const int units = ((ks[i] + 1 + GT - 1) / GT) * ((js[i] + GT - 1) / GT);
+    const int units = ((ks[i] + GT - 1) / GT) * ((js[i] + GT - 1) / GT);
     gp.unit0[i + 1] = gp.unit0[i] + units;
   }
   gp.part = w.part;
@@ -676,7 +965,7 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   for (int t = 0; t < n_iter; ++t) {
     st.t = t;
     fwd_bwd_kernel<<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
-    wgrad_kernel<<<wgrid, THREADS, 0, stream>>>(gp);
+    wgrad_kernel<<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
     finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, w.grad, w.s.lossrow, n, inv_n,
                                                           losses, flags, t);
     adam_kernel<<<pblocks, THREADS, 0, stream>>>(params, m, v, w.grad, w.tr, flags, counts, t,

@@ -73,15 +73,16 @@ def train_dnn_stage(
     The JAX function takes a ``jax.random`` key, which torch cannot reproduce;
     this one takes a uint32 ``seed`` and draws its dropout masks from the hash
     stream of ``train_dnn_pallas`` (see ``ops/train_dnn.py``).  On a CUDA
-    tensor it launches the training kernel, in full float32 ('highest');
-    ``precision='default'`` (the TPU's bf16 throughput mode) needs the TF32
-    form of the kernel, which does not exist yet, and raises there.  On a CPU
-    tensor it runs the plain version, in float32 for either precision."""
+    tensor it launches the training kernel at float32 accuracy ('highest',
+    3xTF32 on the tensor cores); ``precision='default'`` (the TPU's bf16
+    throughput mode) needs a single-TF32 or bf16 form of the kernel, which does
+    not exist yet, and raises there.  On a CPU tensor it runs the plain
+    version, in float32 for either precision."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if precision == "default" and x.device.type == "cuda":
-        raise ValueError("precision='default' needs the TF32 form of the training kernel, "
-                         "which is not ported yet; use 'highest'")
+        raise ValueError("precision='default' needs a single-TF32 or bf16 form of the "
+                         "training kernel, which is not ported yet; use 'highest'")
     mlp, losses = train_dnn(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p,
                             skip_nonfinite)
     return StageResult(mlp, losses)

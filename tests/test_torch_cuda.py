@@ -31,12 +31,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
 @pytest.mark.parametrize("dropout_p", [0.2, 0.0])
-def test_train_kernel_matches_plain(cuda_device, dropout_p):
-    """N = 1,000 is ragged against the 32-row CTAs and the 512-row mask blocks."""
+def test_train_kernel_matches_plain(cuda_device, dropout_p, n):
+    """N = 1,000 is ragged against the 48-row CTAs and the 512-row mask blocks
+    (CTA 10 straddles the first block boundary); N = 37 against the 16-row
+    mma tiles and a single CTA."""
     rs = np.random.RandomState(0)
-    x = torch.as_tensor(rs.uniform(-1, 1, (1000, 8)).astype(np.float32), device=cuda_device)
-    y = torch.as_tensor(rs.uniform(-1, 1, (1000, 1)).astype(np.float32), device=cuda_device)
+    x = torch.as_tensor(rs.uniform(-1, 1, (n, 8)).astype(np.float32), device=cuda_device)
+    y = torch.as_tensor(rs.uniform(-1, 1, (n, 1)).astype(np.float32), device=cuda_device)
     mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
     before = build.LAUNCHES["train_dnn"]
     km, kl = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
