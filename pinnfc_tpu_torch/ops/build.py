@@ -27,6 +27,12 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # the residual kernel follows the plain version op by op: no contracted FMAs
 FILE_FLAGS = {"residuals.cu": ["-fmad=false"]}
 
+# C signature of pinnfc_mc_dropout: x, n, 14 float32 weights and biases, 4 bf16
+# wide weights, out, seed, mc_times, thresh, inv_keep, stream
+MC_DROPOUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, *([ctypes.c_void_p] * 18),
+                       ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32,
+                       ctypes.c_float, ctypes.c_void_p]
+
 # launches per kernel; each wrapper adds one where it launches its kernel
 LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0, "train_dnn": 0}
 
@@ -110,7 +116,7 @@ def load() -> ctypes.CDLL:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     handle.pinnfc_residuals.argtypes = [p, p, p, p, p, i, p]
     handle.pinnfc_residuals.restype = i
-    handle.pinnfc_mc_dropout.argtypes = [p, i, *([p] * 14), p, u, i, u, f, p]
+    handle.pinnfc_mc_dropout.argtypes = MC_DROPOUT_ARGTYPES
     handle.pinnfc_mc_dropout.restype = i
     handle.pinnfc_train_dnn_layout.argtypes = [ctypes.POINTER(i)]
     handle.pinnfc_train_dnn_layout.restype = None

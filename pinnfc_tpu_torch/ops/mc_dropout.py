@@ -8,16 +8,41 @@ counter-based Wang hash, bit for bit: global row r lies in mask block
 is kept iff ``wang(lr·W + c ^ wang(salt + 0x9E3779B9)) >= thresh`` with
 ``salt = seed·7919 + blk·104729 + s·15485863 + l`` in wrapping uint32.
 
+Precision.  The TPU kernel runs its base pass at ``Precision.HIGHEST`` and its
+sample passes at the default matmul precision, which is one bf16 pass on a
+TPU and float32 on a CPU.  The port does the same: the base pass is float32
+everywhere; the sample passes are bf16 on the card (``sample_dtype``
+``torch.bfloat16``) and float32 on the CPU, so that the port on the CPU
+equals the JAX kernel on the CPU.  The bf16 rounding contract of a sample
+pass, which the CUDA kernel and ``mc_dropout_sums_plain(...,
+sample_dtype=torch.bfloat16)`` share:
+
+- every activation stored between layers is bf16, rounded to nearest even
+  after tanh and after the dropout select and scale (``h·(1/(1−p))`` in
+  float32, then rounded);
+- the four wide products (trunk 256×256 twice, variance 256×128 and
+  128×64) take bf16 operands and accumulate in float32; their weights are
+  rounded to bf16 once per call;
+- layer 0 (8→256) reads ``x`` and its weights in float32; the two width-1
+  heads read the stored bf16 activations with float32 weights; bias adds,
+  ``log_softplus`` and the per-row sums are float32, the sums in sample order.
+
+The kernel computes a sample pass's tanh from ``ex2.approx`` and
+``rcp.approx`` (an odd polynomial below |x| = 0.25), within 1.5e-6 relative
+of tanh, far below the bf16 rounding that follows; the plain version keeps
+``torch.tanh``, and the tolerance of the comparison covers the difference.
+
 The plain version emulates uint32 in int64 with ``& 0xFFFFFFFF``; products
 are split into 16-bit halves of the constant so no int64 product overflows.
 ``mc_dropout_sums`` launches the kernel for a CUDA tensor (flagship topology
-only) and runs the plain version only for a CPU tensor.
+only) and runs the float32 plain version only for a CPU tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pinnfc_tpu_torch.models.mlp import MLP, logvar_from_raw
 from pinnfc_tpu_torch.ops import build
@@ -65,40 +90,76 @@ def dropout_constants(dropout: float):
     return thresh, inv_keep
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), held in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def wide_linears(mlp: MLP):
+    """The layers whose products a bf16 sample pass runs in bf16: every trunk
+    layer but the first, and the first two variance layers."""
+    return [*mlp.hidden[1:], mlp.var[0], mlp.var[1]]
+
+
+def sample_product(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """One wide product of a bf16 sample pass: ``h`` and ``weight`` (out, in)
+    rounded to bf16, multiplied and accumulated in float32, plus the float32
+    bias."""
+    return F.linear(round_bf16(h), round_bf16(weight), bias)
+
+
+def sample_pass(mlp: MLP, x: torch.Tensor, local_rows: torch.Tensor, salt: torch.Tensor,
+                thresh: int, inv_keep: float, sample_dtype: torch.dtype = torch.float32):
+    """One dropout pass of the plain version: (pred (N,), logvar (N,), the
+    stored activations of each masked layer).  Row i uses mask row
+    ``local_rows[i]`` of the streams keyed by ``salt[i] + layer``.  With
+    ``sample_dtype`` bf16 it rounds what the module's contract rounds."""
+    if sample_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sample_dtype must be float32 or bfloat16, got {sample_dtype}")
+    bf16 = sample_dtype == torch.bfloat16
+    store = round_bf16 if bf16 else (lambda t: t)
+    wide = wide_linears(mlp) if bf16 else []
+
+    def linear(h, lin):
+        return sample_product(h, lin.weight, lin.bias) if lin in wide else lin(h)
+
+    def drop(h, layer):
+        bits = random_bits(local_rows, h.shape[1], (salt + layer) & _U32)
+        return store(torch.where(bits >= thresh, h * inv_keep, 0.0))
+
+    masked = []
+    h = x
+    for layer, lin in enumerate(mlp.hidden):
+        h = drop(torch.tanh(linear(h, lin)), layer)
+        masked.append(h)
+    pred = mlp.mean(h)[:, 0]
+    v = drop(torch.tanh(linear(h, mlp.var[0])), len(mlp.hidden))
+    masked.append(v)
+    v = store(torch.tanh(linear(v, mlp.var[1])))
+    return pred, logvar_from_raw(mlp.var[2](v))[:, 0], masked
+
+
 @torch.no_grad()
 def mc_dropout_sums_plain(
-    mlp: MLP, x: torch.Tensor, seed: int, mc_times: int = 2000, dropout: float = 0.4
+    mlp: MLP, x: torch.Tensor, seed: int, mc_times: int = 2000, dropout: float = 0.4,
+    sample_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain PyTorch version: (N, 4) [base, Σd, Σd², Σlogvar], any topology."""
+    """Plain PyTorch version: (N, 4) [base, Σd, Σd², Σlogvar], any topology.
+    The base pass is float32; the sample passes run in ``sample_dtype``
+    (bf16: the kernel's rounding contract, see the module docstring)."""
     thresh, inv_keep = dropout_constants(dropout)
     n = x.shape[0]
     rows = torch.arange(n, dtype=torch.int64, device=x.device)
     local = rows % MASK_BLOCK
     block_salt = (int(seed) * 7919 + (rows // MASK_BLOCK) * 104729) & _U32
 
-    def drop(h, salt, layer):
-        bits = random_bits(local, h.shape[1], (salt + layer) & _U32)
-        return torch.where(bits >= thresh, h * inv_keep, 0.0)
-
-    def forward(salt):
-        h = x
-        for layer, lin in enumerate(mlp.hidden):
-            h = torch.tanh(lin(h))
-            if salt is not None:
-                h = drop(h, salt, layer)
-        pred = mlp.mean(h)[:, 0]
-        v = torch.tanh(mlp.var[0](h))
-        if salt is not None:
-            v = drop(v, salt, len(mlp.hidden))
-        v = torch.tanh(mlp.var[1](v))
-        return pred, logvar_from_raw(mlp.var[2](v))[:, 0]
-
-    base, _ = forward(None)
+    base = mlp(x)[0][:, 0]
     s_d = torch.zeros_like(base)
     s_d2 = torch.zeros_like(base)
     s_lv = torch.zeros_like(base)
     for s in range(mc_times):
-        pred, log_var = forward((block_salt + (s * 15485863 & _U32)) & _U32)
+        salt = (block_salt + (s * 15485863 & _U32)) & _U32
+        pred, log_var, _ = sample_pass(mlp, x, local, salt, thresh, inv_keep, sample_dtype)
         d = pred - base
         s_d = s_d + d
         s_d2 = s_d2 + d * d
@@ -133,21 +194,32 @@ def mc_dropout_sums(
             f"the MC-dropout kernel covers the flagship topology (8, 256, 256, 256, 1) "
             f"only; this MLP is {mlp.layers}"
         )
+    out = launch_kernel(build.load(), mlp, x, seed, mc_times, dropout)
+    build.LAUNCHES["mc_dropout"] += 1
+    return out
+
+
+def launch_kernel(lib, mlp: MLP, x: torch.Tensor, seed: int, mc_times: int,
+                  dropout: float) -> torch.Tensor:
+    """Launch ``pinnfc_mc_dropout`` of the loaded library ``lib`` on CUDA
+    tensors (flagship MLP, inputs checked by the caller); returns the (N, 4)
+    sums."""
     thresh, inv_keep = dropout_constants(dropout)
     x = x.contiguous()
     n = x.shape[0]
+    # float32 (in, out) copies for the base pass, layer 0 and the heads; bf16
+    # (in, out) copies of the four wide products for the sample passes
     weights = []
     for lin in mlp.linears():
         weights += [lin.weight.detach().t().contiguous(), lin.bias.detach().contiguous()]
+    wide = [lin.weight.detach().t().to(torch.bfloat16).contiguous() for lin in wide_linears(mlp)]
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
-    lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.pinnfc_mc_dropout(
-        x.data_ptr(), n, *[w.data_ptr() for w in weights], out.data_ptr(),
-        int(seed) & _U32, int(mc_times), thresh, inv_keep, stream,
+        x.data_ptr(), n, *[w.data_ptr() for w in weights], *[w.data_ptr() for w in wide],
+        out.data_ptr(), int(seed) & _U32, int(mc_times), thresh, inv_keep, stream,
     )
     build.check(status, "mc_dropout")
-    build.LAUNCHES["mc_dropout"] += 1
     return out
 
 

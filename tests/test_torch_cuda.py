@@ -10,7 +10,11 @@ Tolerances: loss[0] of the training kernel at rtol 2e-5 (one float32 forward
 under the same masks: it checks the masks); its loss trace at rtol 5e-3,
 atol 1e-5 and the weights at rtol 5e-3, atol 5e-3 (summation order differs,
 and Adam amplifies it over the steps; the hardware row of
-tests/test_pallas_train.py:47-49)."""
+tests/test_pallas_train.py:47-49).  The MC-dropout kernel against its plain
+version with bf16 sample passes: base at rtol 2e-5, atol 1e-6 (float32 in
+both), statistics at rtol 1e-3, atol 1e-5 (summation order, and the bf16
+roundings that it flips); against the float32 plain version at rtol 1e-2,
+atol 1e-4."""
 
 import numpy as np
 import pytest
@@ -19,7 +23,9 @@ import torch
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops import train_dnn as td
+from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout_sums, mc_dropout_sums_plain
 from pinnfc_tpu_torch.training.stages import train_dnn_stage
+from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats
 
 
 @pytest.fixture
@@ -62,3 +68,33 @@ def test_train_kernel_refuses_what_it_does_not_cover(cuda_device):
         td.train_dnn(MLP((8, 32, 32, 1), device=cuda_device), x, y, 0, 2)
     with pytest.raises(ValueError, match="TF32"):
         train_dnn_stage(MLP(device=cuda_device), x, y, 0, 2, precision="default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
+def test_mc_kernel_matches_bf16_plain(cuda_device, n):
+    """N = 1,000 is ragged against the 128-row CTAs and the 256-row mask
+    blocks; N = 37 fills part of one CTA."""
+    x = torch.as_tensor(np.random.RandomState(1).uniform(-1.2, 1.2, (n, 8)).astype(np.float32),
+                        device=cuda_device)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    seed, m = 123456789, 64
+    before = build.LAUNCHES["mc_dropout"]
+    k_sums = mc_dropout_sums(mlp, x, seed, mc_times=m)
+    assert build.LAUNCHES["mc_dropout"] == before + 1
+    assert torch.equal(mc_dropout_sums(mlp, x, seed, mc_times=m), k_sums)
+    k = finish_mc_stats(k_sums, m)
+    b = finish_mc_stats(mc_dropout_sums_plain(mlp, x, seed, mc_times=m,
+                                              sample_dtype=torch.bfloat16), m)
+    f = finish_mc_stats(mc_dropout_sums_plain(mlp, x, seed, mc_times=m), m)
+    torch.testing.assert_close(k.pred_mean, b.pred_mean, rtol=2e-5, atol=1e-6)
+    for name in ("aleatoric_std", "epistemic_std"):
+        torch.testing.assert_close(getattr(k, name), getattr(b, name), rtol=1e-3, atol=1e-5)
+        torch.testing.assert_close(getattr(k, name), getattr(f, name), rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mc_kernel_refuses_a_non_flagship_mlp(cuda_device):
+    with pytest.raises(ValueError, match="flagship"):
+        mc_dropout_sums(MLP((8, 64, 64, 1), device=cuda_device),
+                        torch.zeros(16, 8, device=cuda_device), 0, mc_times=2)
