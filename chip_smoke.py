@@ -11,20 +11,26 @@ Phases, any failure exits non-zero before the result line:
 3. kernel vs plain on the card: the MC-dropout kernel at flagship width on
    1,000 rows (ragged against its 128-row CTAs and 256-row mask blocks),
    64 samples, against its plain version with bf16 sample passes and against
-   the float32 plain version; the residual kernel on the 15,600-row campaign,
-   with and without rows past the limiting current (NaN sets must be
-   identical);
+   the float32 plain version; the residual kernel on the 15,600-row campaign
+   and on its first 37 rows (ragged against the 32-row CTAs), each with and
+   without rows past the limiting current (NaN sets must be identical);
 4. the scoring slice at full width: flagship params from a torch.Generator
    seed, scalers fitted on the default synthetic campaign (N = 15,600), a
    port checkpoint, then ``run_scoring_pipeline(device="cuda")`` with
    mc_times = 2000, the launch counters reset just before and read just
-   after; the artifact is checked against the plain functions;
+   after; the artifact is checked against the plain functions; then
+   ``evaluate_voltage_metrics(params, dataset)`` (one eval forward and the
+   residual kernel, the counters reset just before and read just after)
+   against ``evaluate_voltage_metrics(..., results=)`` of the scored artifact,
+   every metric within rtol 1e-5 (atol 1e-7; an R² as 1 − R²);
 5. the main path's shapes: the MC-dropout kernel against its plain versions
    (bf16 and float32 sample passes) on the campaign's 15,600 rows with 2,000
    samples and the main path's MC seed, two kernel runs bitwise equal, the
    artifact's columns 10 and 11 against the bf16 plain statistics; timing
-   (CUDA events, median of repeats; the residual kernel alone is timed as 50
-   launches replayed from one CUDA graph);
+   (CUDA events, median of repeats; the residual kernel alone, and an empty
+   kernel on its grid as its launch floor, each as 50 launches replayed from
+   one CUDA graph, and the kernel on 37 rows; its wrapper and its plain
+   version as 50 calls);
 6. the training kernel against its plain version at the training path's
    shape: the campaign's 6,000 training rows (ragged against its 512-row
    mask blocks), and their first 37 (ragged against the 16-row mma tiles and
@@ -412,11 +418,12 @@ def main() -> int:
     from pinnfc_tpu_torch.ops import build
     from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout_sums, mc_dropout_sums_plain
     from pinnfc_tpu_torch.ops.residuals import (
-        all_residuals_kernel, launch_residuals, residual_scalars)
+        all_residuals_kernel, kernel_scalars, launch_floor, launch_residuals)
     from pinnfc_tpu_torch.ops.smoothing import smooth_by_segments
     from pinnfc_tpu_torch.physics.residuals import all_residuals
     from pinnfc_tpu_torch.pipeline.export import default_mc_seed
     from pinnfc_tpu_torch.pipeline.score import run_scoring_pipeline
+    from pinnfc_tpu_torch.pipeline.train_pipeline import evaluate_voltage_metrics
     from pinnfc_tpu_torch.utils.checkpoint import save_checkpoint
 
     # ---- 1. device ----
@@ -462,22 +469,26 @@ def main() -> int:
         u_eval = mlp(dataset.x_test)[0]
     res_err = 0.0
     nan_rows = {}
-    for label, lam_il in (("init", None), ("i_l=1.2", 1.2)):
-        p = dict(params)
-        if lam_il is not None:
-            p["lam_v"] = params["lam_v"].clone()
-            p["lam_v"][2] = lam_il
-        kb = all_residuals_kernel(p, dataset.x_test, u_eval, dataset.scaler_x, dataset.scaler_y)
-        pb = all_residuals(p, dataset.x_test, u_eval, dataset.scaler_x, dataset.scaler_y)
-        torch.cuda.synchronize()
-        for name, a, b in zip(kb._fields, kb, pb):
-            check(torch.equal(torch.isnan(a), torch.isnan(b)), f"residual {name}: NaN sets differ ({label})")
-            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
-            res_err = max(res_err, max_abs_err(a, b))
-        nan_rows[label] = int(torch.isnan(kb.f_v).sum())
-    check(nan_rows["i_l=1.2"] > 0, "the i_l=1.2 case produced no NaN rows to compare")
-    print(f"[check] residual kernel vs plain, N={n}: NaN rows {nan_rows} identical, "
-          f"max abs err {res_err:.3e} (rtol=atol=2e-5): ok")
+    for rows in (n, 37):
+        for label, lam_il in (("init", None), ("i_l=1.2", 1.2)):
+            p = dict(params)
+            if lam_il is not None:
+                p["lam_v"] = params["lam_v"].clone()
+                p["lam_v"][2] = lam_il
+            xr, ur = dataset.x_test[:rows], u_eval[:rows]
+            kb = all_residuals_kernel(p, xr, ur, dataset.scaler_x, dataset.scaler_y)
+            pb = all_residuals(p, xr, ur, dataset.scaler_x, dataset.scaler_y)
+            torch.cuda.synchronize()
+            for name, a, b in zip(kb._fields, kb, pb):
+                check(a.shape == b.shape == (rows, 1), f"residual {name}: shape {a.shape}")
+                check(torch.equal(torch.isnan(a), torch.isnan(b)),
+                      f"residual {name}: NaN sets differ (N={rows}, {label})")
+                torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
+                res_err = max(res_err, max_abs_err(a, b))
+            nan_rows[f"N={rows} {label}"] = int(torch.isnan(kb.f_v).sum())
+    check(nan_rows[f"N={n} i_l=1.2"] > 0, "the i_l=1.2 case produced no NaN rows to compare")
+    print(f"[check] residual kernel vs plain, N={n} and N=37 (ragged): NaN rows {nan_rows} "
+          f"identical, max abs err {res_err:.3e} (rtol=atol=2e-5): ok")
 
     # ---- 4. the scoring slice at full width ----
     cfg = TrainConfig()  # mc_times 2000, dropout 0.4, smoothing 200, seed 42
@@ -506,6 +517,28 @@ def main() -> int:
     print(f"[slice] score N={arr.shape[0]} mc_times={cfg.mc_times}: launches {launches}, "
           f"wall {wall:.3f} s, timings {json.dumps(res.timings)}")
     print(f"[slice] metrics {json.dumps(res.metrics)}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    own = evaluate_voltage_metrics(params, ds)
+    torch.cuda.synchronize()
+    metrics_launches = dict(build.LAUNCHES)
+    check(metrics_launches["residuals"] == 1,
+          f"evaluate_voltage_metrics(results=None) launches {metrics_launches}")
+    from_artifact = evaluate_voltage_metrics(params, ds, results=res.results)
+    check(own.keys() == from_artifact.keys(), f"metric keys {sorted(own)}")
+    metric_rel = 0.0
+    for key, want in from_artifact.items():
+        got = own[key]
+        check(np.isfinite(got) == np.isfinite(want), f"metric {key}: {got} against {want}")
+        if np.isfinite(want):
+            # an R² as 1 − R² = SS_res/SS_tot, the ratio computed
+            g, w = (1.0 - got, 1.0 - want) if "_r2" in key else (got, want)
+            check(abs(g - w) <= 1e-5 * abs(w) + 1e-7,
+                  f"metric {key}: {got} without results, {want} from the artifact")
+            metric_rel = max(metric_rel, abs(g - w) / max(abs(w), 1e-30))
+    print(f"[check] evaluate_voltage_metrics(results=None) on the card: launches "
+          f"{metrics_launches}; every metric within rtol 1e-5 (atol 1e-7; R² as 1 − R²) of "
+          f"the results= path, max relative difference {metric_rel:.3e}: ok")
 
     # ---- 5. the main path's shapes: MC kernel vs plain, and timing ----
     x = ds.x_test
@@ -543,15 +576,23 @@ def main() -> int:
     print(f"[time] mc_dropout kernel at {mc_ms:.3f} ms: {mc_bound / mc_ms:.1%} of its bound "
           f"({mc_bound:.3f} ms: bf16 wide products, float32 rest), {mc_bound_fp32 / mc_ms:.1%} "
           f"of its float32 bound ({mc_bound_fp32:.2f} ms)")
-    u = base[:, 0].contiguous()
-    scal, sx = residual_scalars(params, ds.scaler_x, ds.scaler_y)
-    res_ms = graph_ms(lambda: launch_residuals(x, u, scal, sx), inner=50, repeats=5)
+    u = k_full[:, 0]  # the main path's u: the MC base column, a strided view
+    scalars = kernel_scalars(params, ds.scaler_x, ds.scaler_y)
+    res_ms = graph_ms(lambda: launch_residuals(x, u, scalars), inner=50, repeats=5)
+    res_floor_ms = graph_ms(lambda: launch_floor(n, x.device), inner=50, repeats=5)
+    # one warp's rows: the latency of one row's chain, loads and stores
+    res_37_ms = graph_ms(lambda: launch_residuals(x[:37], u[:37], scalars),
+                         inner=50, repeats=5)
     res_wrapper_ms = cuda_ms(lambda: all_residuals_kernel(params, x, u, ds.scaler_x, ds.scaler_y),
                              repeats=5, inner=50)
-    res_plain_ms = cuda_ms(lambda: all_residuals(params, x, base, ds.scaler_x, ds.scaler_y),
-                           repeats=5, inner=50)
-    res_bytes = 4 * (n * 8 + n + 19 + 16 + 8 * n)
+    res_plain_ms = cuda_ms(lambda: all_residuals(params, x, u[:, None], ds.scaler_x,
+                                                 ds.scaler_y), repeats=5, inner=50)
+    res_bytes = 4 * (n * 8 + n + sum(build.RESIDUAL_SCALAR_SIZES.values()) + 8 * n)
     res_bound = max(res_bytes / HBM_RATE, RESIDUAL_FLOP_PER_ROW * n / FP32_PEAK) * 1e3
+    print(f"[time] residual kernel {res_ms:.5f} ms, launch floor {res_floor_ms:.5f} ms "
+          f"(each 50 launches in one CUDA graph, median of 5), bound {res_bound:.6f} ms "
+          f"(bytes); on 37 rows (one CTA) {res_37_ms:.5f} ms; wrapper {res_wrapper_ms:.4f} ms; "
+          f"plain {res_plain_ms:.4f} ms")
 
     # ---- 6. the training kernel vs plain at the training path's shape ----
     train_ds = combine_and_normalize(normal, faults, device=dev)
@@ -590,9 +631,11 @@ def main() -> int:
         {"name": "residuals", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/residuals.cu",
          "replaces": "pinnfc_tpu/ops/pallas_residuals.py:134",
          "shape": f"x ({n}, 8)", "launches": launches["residuals"],
-         "max_abs_err": res_err, "ms": res_ms, "wrapper_ms": res_wrapper_ms,
-         "plain_ms": res_plain_ms, "bound_ms": res_bound, "bound_by": "bytes",
-         "library_ms": None},
+         "max_abs_err": res_err, "ms": res_ms, "launch_floor_ms": res_floor_ms,
+         "ms_37_rows": res_37_ms,
+         "wrapper_ms": res_wrapper_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound,
+         "bound_by": "bytes",
+         "launches_evaluate_metrics": metrics_launches["residuals"], "library_ms": None},
         {"name": "train_dnn", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/train_dnn.cu",
          "replaces": "pinnfc_tpu/ops/pallas_train.py:239",
          "shape": f"x ({n_tr}, 8), flagship; times per step of a 200-step stage",

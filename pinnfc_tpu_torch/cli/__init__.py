@@ -19,7 +19,8 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="staged PINN training + MC export (stage 01)")
     t.add_argument("--mat-out", default="F01_output.mat")
     t.add_argument("--ckpt", default=None,
-                   help="write the trained checkpoint (<ckpt>.npz and <ckpt>.meta.json)")
+                   help="write the trained checkpoint (<ckpt>.npz and <ckpt>.meta.json; "
+                        "replaces an Orbax directory <ckpt>/)")
     t.add_argument("--small", action="store_true", help="reduced schedule/data")
     t.add_argument("--steps-scale", type=float, default=None,
                    help="multiply every stage's step count (quick experiments)")
@@ -46,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
              "the checkpoint's scalers, MC-dropout export, no retraining",
     )
     sc.add_argument("--ckpt", required=True,
-                    help="checkpoint path (reads <ckpt>.npz and <ckpt>.meta.json)")
+                    help="checkpoint path (reads the JAX package's Orbax directory <ckpt>/ "
+                         "where it exists, else <ckpt>.npz, and <ckpt>.meta.json)")
     sc.add_argument("--mat-out", default="F01_scored.mat")
     sc.add_argument("--small", action="store_true",
                     help="reduced MC sample count / synthetic data size")

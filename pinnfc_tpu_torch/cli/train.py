@@ -83,7 +83,7 @@ def cmd_score(args) -> int:
             args.ckpt, config=cfg, mat_path=args.mat_out, n_normal=n_normal, n_fault=n_fault,
             verbose=True, device=args.device,
         )
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"score: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"metrics": res.metrics, "timings": res.timings}, indent=1))

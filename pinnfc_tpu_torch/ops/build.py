@@ -33,6 +33,16 @@ MC_DROPOUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, *([ctypes.c_void_p] * 18),
                        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32,
                        ctypes.c_float, ctypes.c_void_p]
 
+# csrc/residuals.cu's ResidualScalars: one pointer to each scalar tensor, of this
+# many float32 values, in this order
+RESIDUAL_SCALAR_SIZES = {"lam_v": 4, "lam_t": 5, "lam_h": 4, "lam_o": 4,
+                         "sx_scale": 8, "sx_min": 8, "sy_scale": 1, "sy_min": 1}
+
+
+class ResidualScalars(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in RESIDUAL_SCALAR_SIZES]
+
+
 # launches per kernel; each wrapper adds one where it launches its kernel
 LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0, "train_dnn": 0}
 
@@ -114,8 +124,10 @@ def load() -> ctypes.CDLL:
         return _Library.handle
     handle = ctypes.CDLL(str(build()))
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    handle.pinnfc_residuals.argtypes = [p, p, p, p, p, i, p]
+    handle.pinnfc_residuals.argtypes = [p, p, ctypes.c_longlong, ResidualScalars, p, i, p]
     handle.pinnfc_residuals.restype = i
+    handle.pinnfc_residuals_floor.argtypes = [i, p]
+    handle.pinnfc_residuals_floor.restype = i
     handle.pinnfc_mc_dropout.argtypes = MC_DROPOUT_ARGTYPES
     handle.pinnfc_mc_dropout.restype = i
     handle.pinnfc_train_dnn_layout.argtypes = [ctypes.POINTER(i)]

@@ -3,10 +3,14 @@
 
 ``all_residuals_kernel`` has the ``ResidualBundle`` contract of
 ``physics.residuals.all_residuals``, which is its plain version: a CUDA
-tensor launches the kernel, a CPU tensor runs the plain version.
+tensor launches the kernel, a CPU tensor runs the plain version.  On either
+device the inputs must be what the kernel reads in place: float32,
+contiguous, of the right sizes and on one device, else ``ValueError``.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -15,13 +19,42 @@ from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.physics.residuals import ResidualBundle, all_residuals
 
 
-def _check_rows(x_norm: torch.Tensor, u_norm: torch.Tensor) -> int:
+def kernel_scalars(params, scaler_x: AffineScaler, scaler_y: AffineScaler
+                   ) -> Dict[str, torch.Tensor]:
+    """The tensors the kernel reads its scalars from, in the field order of
+    ``build.ResidualScalars``."""
+    return {"lam_v": params["lam_v"], "lam_t": params["lam_t"], "lam_h": params["lam_h"],
+            "lam_o": params["lam_o"], "sx_scale": scaler_x.scale, "sx_min": scaler_x.min,
+            "sy_scale": scaler_y.scale, "sy_min": scaler_y.min}
+
+
+def check_inputs(x_norm: torch.Tensor, u_norm: torch.Tensor,
+                 scalars: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Raise ``ValueError`` unless the kernel can read every input in place;
+    returns ``u_norm`` as a 1-D view (a column of a wider tensor keeps its
+    stride)."""
     n = x_norm.shape[0]
-    if x_norm.dtype != torch.float32 or x_norm.shape != (n, 8):
-        raise ValueError(f"x_norm must be float32 (N, 8), got {x_norm.dtype} {tuple(x_norm.shape)}")
+    if x_norm.dtype != torch.float32 or x_norm.shape != (n, 8) or not x_norm.is_contiguous():
+        raise ValueError(f"x_norm must be contiguous float32 (N, 8), got {x_norm.dtype} "
+                         f"{tuple(x_norm.shape)} with strides {x_norm.stride()}")
     if u_norm.dtype != torch.float32 or u_norm.numel() != n:
-        raise ValueError(f"u_norm must be float32 with {n} values, got {tuple(u_norm.shape)}")
-    return n
+        raise ValueError(f"u_norm must be float32 with {n} values, got {u_norm.dtype} "
+                         f"{tuple(u_norm.shape)}")
+    try:
+        u_flat = u_norm.view(-1)
+    except RuntimeError as e:
+        raise ValueError(f"u_norm {tuple(u_norm.shape)} with strides {u_norm.stride()} has "
+                         "no 1-D view") from e
+    for name, t in scalars.items():
+        size = build.RESIDUAL_SCALAR_SIZES[name]
+        if (t.dtype != torch.float32 or t.numel() != size or not t.is_contiguous()
+                or t.device != x_norm.device):
+            raise ValueError(f"{name} must be a contiguous float32 tensor of {size} values on "
+                             f"{x_norm.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                             f"{'' if t.is_contiguous() else ', not contiguous'}")
+    if u_norm.device != x_norm.device:
+        raise ValueError(f"u_norm is on {u_norm.device}, x_norm on {x_norm.device}")
+    return u_flat
 
 
 def all_residuals_kernel(
@@ -32,49 +65,42 @@ def all_residuals_kernel(
     scaler_y: AffineScaler,
 ) -> ResidualBundle:
     """x_norm (N, 8) and u_norm (N, 1) or (N,), float32 → ResidualBundle of (N, 1)."""
-    n = _check_rows(x_norm, u_norm)
+    scalars = kernel_scalars(params, scaler_x, scaler_y)
+    n = x_norm.shape[0]
     if x_norm.device.type == "cpu":
-        return all_residuals(params, x_norm, u_norm.reshape(n, 1), scaler_x, scaler_y)
-    if x_norm.device.type != "cuda":
-        raise ValueError(f"unsupported device {x_norm.device}")
-    scal, sx = residual_scalars(params, scaler_x, scaler_y)
-    out = launch_residuals(x_norm, u_norm, scal, sx)
-    return ResidualBundle(*(out[k].reshape(n, 1) for k in range(8)))
+        u_flat = check_inputs(x_norm, u_norm, scalars)
+        return all_residuals(params, x_norm, u_flat.reshape(n, 1), scaler_x, scaler_y)
+    out = launch_residuals(x_norm, u_norm, scalars)
+    return ResidualBundle(*out.view(8, n, 1).unbind(0))
 
 
-def residual_scalars(params, scaler_x: AffineScaler, scaler_y: AffineScaler):
-    """The kernel's two argument arrays: 19 scalars (17 lambdas, then
-    ``scaler_y.scale`` and ``scaler_y.min``) and ``sx`` = [scale(8), min(8)]."""
-    scal = torch.cat([
-        params["lam_v"].reshape(-1), params["lam_t"].reshape(-1),
-        params["lam_h"].reshape(-1), params["lam_o"].reshape(-1),
-        scaler_y.scale.reshape(-1), scaler_y.min.reshape(-1),
-    ]).to(torch.float32).contiguous()
-    sx = torch.cat([scaler_x.scale, scaler_x.min]).to(torch.float32).contiguous()
-    return scal, sx
-
-
-def launch_residuals(x_norm: torch.Tensor, u_norm: torch.Tensor, scal: torch.Tensor,
-                     sx: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors → (8, N) rows
-    [f_v, f_t, f_h, f_o, v_phys_stack, t_phys, ratio_h, ratio_o]."""
-    n = _check_rows(x_norm, u_norm)
-    tensors = (x_norm, u_norm, scal, sx)
-    if (scal.numel() != 19 or sx.numel() != 16
-            or any(t.device != x_norm.device or t.dtype != torch.float32 for t in tensors)):
-        raise ValueError("expected 17 lambdas + scaler_y (19 scalars) and an 8-wide "
-                         "scaler_x, all float32 on x_norm's device")
-    scal, sx = scal.contiguous(), sx.contiguous()
-    if x_norm.device.type != "cuda":
-        raise ValueError(f"the residual kernel needs CUDA tensors, got {x_norm.device}")
-    x = x_norm.contiguous()
-    u = u_norm.reshape(-1).contiguous()
+def launch_residuals(x: torch.Tensor, u: torch.Tensor,
+                     scalars: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Launch the kernel → (8, N) rows [f_v, f_t, f_h, f_o, v_phys_stack,
+    t_phys, ratio_h, ratio_o]; raises ``ValueError`` where ``check_inputs``
+    does.  Issues the output's allocation and the launch on the device,
+    nothing else."""
+    u_flat = check_inputs(x, u, scalars)
+    if x.device.type != "cuda":
+        raise ValueError(f"the residual kernel needs CUDA tensors, got {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("the residual kernel reads x_norm in 16-byte loads: its data must be "
+                         "16-byte aligned")
+    n = x.shape[0]
     out = torch.empty((8, n), dtype=torch.float32, device=x.device)
     lib = build.load()
+    ptrs = build.ResidualScalars(*(scalars[k].data_ptr() for k in build.RESIDUAL_SCALAR_SIZES))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.pinnfc_residuals(
-        x.data_ptr(), u.data_ptr(), scal.data_ptr(), sx.data_ptr(), out.data_ptr(), n, stream
-    )
+    status = lib.pinnfc_residuals(x.data_ptr(), u_flat.data_ptr(), u_flat.stride(0), ptrs,
+                                  out.data_ptr(), n, stream)
     build.check(status, "residuals")
     build.LAUNCHES["residuals"] += 1
     return out
+
+
+def launch_floor(n: int, device) -> None:
+    """Launch the empty kernel on the grid of ``launch_residuals`` for ``n``
+    rows: the launch floor under the kernel's time (timing only; not counted)."""
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    build.check(lib.pinnfc_residuals_floor(n, stream), "residuals_floor")

@@ -25,6 +25,7 @@ from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehens
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.models.pinn import PinnParams, init_pinn
+from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_euler
@@ -59,24 +60,34 @@ def _printed_extras(params: PinnParams, x_test, pred_norm, sx, sy):
 def evaluate_voltage_metrics(
     params: PinnParams,
     dataset: FuelCellDataset,
-    results: ComprehensiveResults,
+    results: Optional[ComprehensiveResults] = None,
 ) -> Dict[str, float]:
     """MAE / RMSE / R² / max-abs-err of the de-normalized voltage prediction
     plus physics-residual statistics (reference metric block, 01:1765-1818).
 
     ``temp_*`` come from the FULL Euler residual as the reference prints them
-    (01:1670); ``temp_mae_simple`` is export column 14's simple model.  The export
-    columns are read from ``results``, the export of the same params and
-    dataset; the extras take one eval forward, a plain float32 matmul chain
-    outside any kernel."""
+    (01:1670); ``temp_mae_simple`` is export column 14's simple model.  With
+    ``results`` (the export of the same params and dataset) the export
+    columns are read from its array.  Without it, one eval forward serves
+    everything, as the JAX ``_metrics_device`` does: ``scaler_y.inverse`` of
+    the targets and of the prediction, and the residual bundle through the
+    fused residual kernel (its plain version on CPU tensors).  Either way the
+    extras take the eval forward, a plain float32 matmul chain outside any
+    kernel."""
     sx, sy = dataset.scaler_x, dataset.scaler_y
     x_test = dataset.x_test
     pred_norm, _ = params["mlp"](x_test)
     f_t_euler, target_h, target_o = _printed_extras(params, x_test, pred_norm, sx, sy)
-    arr = results.array
-    y_real, p_real = arr[:, 8], arr[:, 9]
-    f_v, f_t_col, f_h, f_o = arr[:, 13], arr[:, 14], arr[:, 15], arr[:, 16]
-    ratio_h, ratio_o = arr[:, 20], arr[:, 21]
+    if results is not None:
+        arr = results.array
+        y_real, p_real = arr[:, 8], arr[:, 9]
+        f_v, f_t_col, f_h, f_o = arr[:, 13], arr[:, 14], arr[:, 15], arr[:, 16]
+        ratio_h, ratio_o = arr[:, 20], arr[:, 21]
+    else:
+        y_real = _np(sy.inverse(dataset.y_test)[:, 0])
+        p_real = _np(sy.inverse(pred_norm)[:, 0])
+        bundle = all_residuals_kernel(params, x_test, pred_norm, sx, sy)
+        f_v, f_t_col, f_h, f_o, _, _, ratio_h, ratio_o = (_np(t[:, 0]) for t in bundle)
     err = y_real - p_real
     ss_res = float(np.sum(err**2))
     ss_tot = float(np.sum((y_real - y_real.mean()) ** 2))

@@ -1,17 +1,20 @@
-"""Parameter checkpoints in the JAX package's npz layout
-(counterpart of the npz path of ``pinnfc_tpu/utils/checkpoint.py``).
+"""Parameter checkpoints in the JAX package's layouts
+(counterpart of ``pinnfc_tpu/utils/checkpoint.py``).
 
-A checkpoint at ``path`` is the archive ``<path>.npz`` holding the flat keys
-``params/mlp/hidden/0/w``, …, ``params/lam_v``, ``step``,
-``scaler_x/scale``, …, plus an optional ``<path>.meta.json`` provenance
-sidecar.  The port reads JAX checkpoints saved through the npz fallback and
-writes its own in the same layout, so either package loads the other's.
+The port writes a checkpoint at ``path`` as the archive ``<path>.npz``
+holding the flat keys ``params/mlp/hidden/0/w``, …, ``params/lam_v``,
+``step``, ``scaler_x/scale``, …, plus an optional ``<path>.meta.json``
+provenance sidecar: the JAX package's npz fallback, which it reads too.  The
+port reads both of the JAX package's formats: that npz archive, and the Orbax
+PyTree directory ``<path>/`` that the JAX ``save_checkpoint`` writes whenever
+``orbax.checkpoint`` imports (read with ``tensorstore``, without JAX).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import warnings
 from typing import Any, Dict, Optional
 
@@ -86,7 +89,11 @@ def save_checkpoint(
 ) -> None:
     """Write ``<path>.npz`` (and ``<path>.meta.json`` when ``meta`` is given;
     a save without meta removes a stale sidecar, which must never describe a
-    different model).  The sidecar is written after the arrays."""
+    different model).  The sidecar is written after the arrays.  An Orbax
+    checkpoint directory ``<path>/`` is removed first: both packages' loaders
+    read it before the npz, so it would hide the model written here."""
+    if os.path.isfile(os.path.join(path, "_METADATA")):
+        shutil.rmtree(path)
     payload: Dict[str, Any] = {"params": params_to_numpy(params), "step": np.asarray(step)}
     if scaler_x is not None:
         payload["scaler_x"] = scaler_x.to_numpy()
@@ -108,10 +115,65 @@ def save_checkpoint(
             pass
 
 
+def _orbax_tree(directory: str) -> Dict[str, Any]:
+    """Read the Orbax PyTree checkpoint in ``directory`` into its tree of
+    numpy arrays, without JAX or Orbax.
+
+    ``_METADATA`` (JSON) lists every leaf under ``tree_metadata`` with its
+    key path (``key_type`` 1 a list index, 2 a dict key); each leaf is a
+    zarr array named by the dotted key path inside one OCDBT key-value store,
+    which ``tensorstore`` opens.  Other layouts raise ``ValueError``."""
+    with open(os.path.join(directory, "_METADATA")) as f:
+        metadata = json.load(f)
+    what = f"the Orbax checkpoint {directory!r}"
+    npz = (f"; or write its tree as {directory + '.npz'!r} with the JAX package's "
+           "save_params_npz, which the port reads")
+    if not metadata.get("use_ocdbt", False):
+        raise ValueError(f"{what} is not OCDBT-backed (use_ocdbt false): the port reads only "
+                         f"Orbax's default OCDBT layout{npz}")
+    if metadata.get("use_zarr3", False):
+        raise ValueError(f"{what} stores zarr3 arrays (use_zarr3 true): the port reads only "
+                         f"zarr v2 arrays, Orbax's default{npz}")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ValueError(f"{what} needs the tensorstore package to be read{npz}") from e
+    base = {"driver": "file", "path": os.path.abspath(directory) + "/"}
+    store = {"driver": "ocdbt", "base": base}
+    root: Dict[str, Any] = {}
+    lists = set()  # ids of the nodes whose keys are list indices
+    for entry in metadata["tree_metadata"].values():
+        keys = [(str(k["key"]), k["key_type"]) for k in entry["key_metadata"]]
+        node = root
+        for (key, _), (_, child_type) in zip(keys, keys[1:]):
+            node = node.setdefault(key, {})
+            if child_type == 1:
+                lists.add(id(node))
+        spec = {"driver": "zarr", "kvstore": store, "path": ".".join(k for k, _ in keys)}
+        node[keys[-1][0]] = ts.open(spec, open=True, read=True).result().read().result()
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if id(node) in lists:
+            if set(node) != {str(i) for i in range(len(node))}:
+                raise ValueError(f"{what} has a list with indices {sorted(node)}")
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
 def load_checkpoint(path: str, device="cuda") -> Dict[str, Any]:
-    """Load ``<path>.npz``: ``params`` as port params on ``device``, scalers as
-    ``AffineScaler`` on ``device``, provenance (if any) under ``'meta'``."""
-    tree = load_params_npz(path + ".npz")
+    """Load the JAX package's Orbax directory ``<path>/`` where it holds
+    ``_METADATA``, else ``<path>.npz``, in the JAX ``load_checkpoint``'s order
+    (where both exist, both packages read the Orbax tree): ``params`` as port
+    params on ``device``, scalers as ``AffineScaler`` on ``device``, ``step``
+    as a numpy scalar array, provenance (if any) under ``'meta'``."""
+    if os.path.isfile(os.path.join(path, "_METADATA")):
+        tree = _orbax_tree(path)
+    else:
+        tree = load_params_npz(path + ".npz")
     out: Dict[str, Any] = dict(tree)
     out["params"] = params_from_jax(tree["params"], device=device)
     for name in ("scaler_x", "scaler_y"):

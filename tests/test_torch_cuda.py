@@ -14,16 +14,23 @@ tests/test_pallas_train.py:47-49).  The MC-dropout kernel against its plain
 version with bf16 sample passes: base at rtol 2e-5, atol 1e-6 (float32 in
 both), statistics at rtol 1e-3, atol 1e-5 (summation order, and the bf16
 roundings that it flips); against the float32 plain version at rtol 1e-2,
-atol 1e-4."""
+atol 1e-4.  The residual kernel against its plain version: rtol = atol = 2e-5
+(float32 in both, each op in the same order; the accurate powf/expf/logf of
+the card and of torch differ in the last ulps), NaN sets identical."""
 
 import numpy as np
 import pytest
 import torch
 
+from pinnfc_tpu_torch.data.combine import combine_and_normalize
+from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.models.mlp import MLP
+from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops import train_dnn as td
 from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout_sums, mc_dropout_sums_plain
+from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
+from pinnfc_tpu_torch.physics.residuals import all_residuals
 from pinnfc_tpu_torch.training.stages import train_dnn_stage
 from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats
 
@@ -98,3 +105,37 @@ def test_mc_kernel_refuses_a_non_flagship_mlp(cuda_device):
     with pytest.raises(ValueError, match="flagship"):
         mc_dropout_sums(MLP((8, 64, 64, 1), device=cuda_device),
                         torch.zeros(16, 8, device=cuda_device), 0, mc_times=2)
+
+
+@pytest.fixture(scope="module")
+def campaign_rows():
+    """The default synthetic campaign's 15,600 normalized rows, on the CPU."""
+    normal, faults = synthesize_stack_data(n_normal=6000, n_fault=800, seed=42)
+    return combine_and_normalize(normal, faults, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15600, 37])
+@pytest.mark.parametrize("i_l", [None, 1.2])
+def test_residual_kernel_matches_plain(cuda_device, campaign_rows, n, i_l):
+    """The campaign's rows, and their first 37 (ragged against the 32-row
+    CTAs); i_l = 1.2 puts rows past the limiting current, whose f_v and
+    v_phys_stack are NaN in both."""
+    ds = campaign_rows
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    if i_l is not None:
+        params["lam_v"][2] = i_l
+    sx, sy = ds.scaler_x.to(cuda_device), ds.scaler_y.to(cuda_device)
+    x = ds.x_test[:n].to(cuda_device)
+    with torch.no_grad():
+        u = params["mlp"](x)[0]
+    before = build.LAUNCHES["residuals"]
+    got = all_residuals_kernel(params, x, u, sx, sy)
+    assert build.LAUNCHES["residuals"] == before + 1
+    want = all_residuals(params, x, u, sx, sy)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.shape == b.shape == (n, 1), name
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name}: NaN sets differ"
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True, msg=name)
+    if i_l is not None and n == 15600:
+        assert bool(torch.isnan(got.f_v).any())

@@ -35,6 +35,7 @@ from pinnfc_tpu_torch.ops.mc_dropout import (
 )
 from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats
 from pinnfc_tpu_torch.utils.jax_params import params_from_jax
+from pinnfc_tpu_torch.utils.threads import one_thread
 
 FLAGSHIP = (8, 256, 256, 256, 1)
 NARROW = (8, 64, 64, 1)
@@ -64,8 +65,9 @@ def flagship():
 def test_base_column_is_float32_bitwise(layers, n):
     mlp = _port_mlp(_jax_mlp(layers))
     x = torch.as_tensor(_x(n))
-    f = mc_dropout_sums_plain(mlp, x, 9, mc_times=2)
-    b = mc_dropout_sums_plain(mlp, x, 9, mc_times=2, sample_dtype=torch.bfloat16)
+    with one_thread():
+        f = mc_dropout_sums_plain(mlp, x, 9, mc_times=2)
+        b = mc_dropout_sums_plain(mlp, x, 9, mc_times=2, sample_dtype=torch.bfloat16)
     assert torch.equal(b[:, 0], f[:, 0])
     assert not torch.equal(b[:, 1:], f[:, 1:])
 
@@ -153,9 +155,11 @@ def test_wrapper_on_cpu_keeps_float32_samples(flagship):
     _, mlp = flagship
     x = torch.as_tensor(_x(90, seed=5))
     before = dict(build.LAUNCHES)
-    got = mc_dropout_sums(mlp, x, 21, mc_times=3)
+    with one_thread():
+        got = mc_dropout_sums(mlp, x, 21, mc_times=3)
+        plain = mc_dropout_sums_plain(mlp, x, 21, mc_times=3)
     assert build.LAUNCHES == before
-    assert torch.equal(got, mc_dropout_sums_plain(mlp, x, 21, mc_times=3))
+    assert torch.equal(got, plain)
     bf = mc_dropout_sums_plain(mlp, x, 21, mc_times=3, sample_dtype=torch.bfloat16)
     assert not torch.equal(got[:, 1:], bf[:, 1:])
 

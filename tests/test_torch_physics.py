@@ -4,6 +4,8 @@ pinnfc_tpu.physics and the Pallas kernel in interpret mode.  float32 on both
 sides: NaN sets identical, rtol 2e-5 elsewhere (the tolerance of
 tests/test_pallas.py); atol 1e-5 absorbs the cancellation in f_v = v_est − v_out."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from pinnfc_tpu.physics import voltage as jax_v
 from pinnfc_tpu_torch.data.scaling import AffineScaler
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.ops import build
+from pinnfc_tpu_torch.ops import residuals as residuals_op
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.physics import hydrogen, oxygen, residuals, thermal, voltage
 
@@ -126,3 +129,64 @@ def test_kernel_wrapper_rejects_bad_inputs(case):
     with pytest.raises(ValueError):
         all_residuals_kernel(lams, torch.as_tensor(x, dtype=torch.float64),
                              torch.as_tensor(u), sx, sy)
+
+
+def _bad_lam_v_strided(lams, sx, sy):
+    lams["lam_v"] = torch.stack([lams["lam_v"], lams["lam_v"]], dim=1)[:, 0]
+    return lams, sx, sy
+
+
+def _bad_lam_t_size(lams, sx, sy):
+    lams["lam_t"] = lams["lam_t"][:4]
+    return lams, sx, sy
+
+
+def _bad_scaler_x_float64(lams, sx, sy):
+    return lams, dataclasses.replace(sx, scale=sx.scale.double()), sy
+
+
+def _bad_scaler_y_device(lams, sx, sy):
+    return lams, sx, dataclasses.replace(sy, min=torch.empty(1, device="meta"))
+
+
+@pytest.mark.parametrize("spoil", [_bad_lam_v_strided, _bad_lam_t_size, _bad_scaler_x_float64,
+                                   _bad_scaler_y_device])
+def test_kernel_wrapper_rejects_scalars_it_cannot_read_in_place(case, spoil):
+    """The kernel reads the λ's and the scalers' constants in place, so on
+    either device the wrapper raises on a tensor it could not pass as is."""
+    _, x, u, sx, sy = case
+    lams, sx, sy = spoil({k: torch.as_tensor(v) for k, v in _lams().items()}, sx, sy)
+    with pytest.raises(ValueError):
+        all_residuals_kernel(lams, torch.as_tensor(x), torch.as_tensor(u), sx, sy)
+
+
+def test_kernel_wrapper_takes_a_strided_column_on_the_cpu(case):
+    """u as a column of a wider tensor (the exporter passes the MC sums' base
+    column): the plain version's values, and nothing launched."""
+    _, x, u, sx, sy = case
+    lams = {k: torch.as_tensor(v) for k, v in _lams(1.2).items()}
+    wide = torch.as_tensor(np.repeat(u, 4, axis=1))
+    before = dict(build.LAUNCHES)
+    got = all_residuals_kernel(lams, torch.as_tensor(x), wide[:, 0], sx, sy)
+    assert build.LAUNCHES == before
+    want = residuals.all_residuals(lams, torch.as_tensor(x), torch.as_tensor(u), sx, sy)
+    for name, a, b in zip(residuals.ResidualBundle._fields, got, want):
+        assert a.shape == b.shape == (x.shape[0], 1), name
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=name)
+
+
+def test_launch_checks_its_inputs_before_the_device(case):
+    """``launch_residuals`` is public: it runs ``check_inputs`` itself, so a
+    caller that skips the wrapper gets a ValueError, never a read out of
+    bounds, and a CPU tensor is refused rather than launched."""
+    _, x, u, sx, sy = case
+    lams = {k: torch.as_tensor(v) for k, v in _lams().items()}
+    scalars = residuals_op.kernel_scalars(lams, sx, sy)
+    x, u = torch.as_tensor(x), torch.as_tensor(u)
+    with pytest.raises(ValueError, match="u_norm must be float32 with"):
+        residuals_op.launch_residuals(x, u[:-1], scalars)
+    with pytest.raises(ValueError, match="lam_h"):
+        residuals_op.launch_residuals(x, u, {**scalars, "lam_h": scalars["lam_h"][:3]})
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        residuals_op.launch_residuals(x, u, scalars)

@@ -29,6 +29,7 @@ from pinnfc_tpu_torch.config import TrainConfig, train_config_to_dict
 from pinnfc_tpu_torch.data.combine import combine_and_normalize
 from pinnfc_tpu_torch.data.contract import load_comprehensive_results
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results, default_mc_seed
 from pinnfc_tpu_torch.pipeline.score import run_scoring_pipeline
 from pinnfc_tpu_torch.pipeline.train_pipeline import evaluate_voltage_metrics
@@ -83,6 +84,37 @@ def test_metrics_match_jax(both):
         assert np.isfinite(got[k]) == np.isfinite(want[k]), k
         if np.isfinite(want[k]):
             assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+def _assert_metrics_close(got, want, rtol):
+    """Each metric at ``rtol`` (atol 1e-7); an R² as 1 − R² = SS_res/SS_tot,
+    the ratio computed, whose relative error a near-zero R² would magnify."""
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.isfinite(got[k]) == np.isfinite(want[k]), k
+        if np.isfinite(want[k]):
+            g, w = (1.0 - got[k], 1.0 - want[k]) if "_r2" in k else (got[k], want[k])
+            assert g == pytest.approx(w, rel=rtol, abs=1e-7), k
+
+
+def test_metrics_without_results_match_jax(both):
+    """``results=None``: one eval forward and the residual bundle in each
+    package (the JAX ``_metrics_device``); float32 on both sides, rtol 1e-5."""
+    jparams, jds, _, _, params, ds = both
+    before = dict(build.LAUNCHES)
+    got = evaluate_voltage_metrics(params, ds)
+    assert build.LAUNCHES == before
+    _assert_metrics_close(got, jax_metrics(jparams, jds), rtol=1e-5)
+
+
+def test_metrics_without_results_match_the_export_path(both):
+    """The port's two paths describe the same eval forward: the export's base
+    column is the plain float32 forward on the CPU (rtol 1e-5)."""
+    _, _, _, seed, params, ds = both
+    res = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
+                                      smooth_window=50)
+    _assert_metrics_close(evaluate_voltage_metrics(params, ds),
+                          evaluate_voltage_metrics(params, ds, results=res), rtol=1e-5)
 
 
 def _port_checkpoint(tmp_path, params, ds, mc_times):

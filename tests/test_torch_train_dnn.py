@@ -30,6 +30,7 @@ from pinnfc_tpu_torch.ops.mc_dropout import dropout_constants, random_bits
 from pinnfc_tpu_torch.training.adam import adam_init, adam_step
 from pinnfc_tpu_torch.training.stages import train_dnn_stage
 from pinnfc_tpu_torch.utils.jax_params import mlp_from_jax
+from pinnfc_tpu_torch.utils.threads import one_thread
 
 FLAGSHIP = (8, 256, 256, 256, 1)
 
@@ -124,8 +125,9 @@ def test_hand_derived_gradients_match_autograd(setup):
 
 def test_deterministic_given_seed(setup):
     jm, x, y = setup
-    runs = [td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y), 7, 3,
-                                     dropout_p=0.3) for _ in range(2)]
+    with one_thread():
+        runs = [td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y), 7,
+                                         3, dropout_p=0.3) for _ in range(2)]
     assert torch.equal(runs[0][1], runs[1][1])
     for a, b in zip(td.mlp_weights(runs[0][0]), td.mlp_weights(runs[1][0])):
         assert torch.equal(a, b)
@@ -167,8 +169,9 @@ def test_skipped_step_does_not_advance_the_adam_count(setup, monkeypatch):
         return loss, grads
 
     monkeypatch.setattr(td, "loss_and_grads", poisoned)
-    mlp, _ = td.train_dnn_stage_plain(_port(jm), xt, yt, 21, 4, lr=0.01, lr_step=1,
-                                      lr_gamma=0.5, dropout_p=0.2, skip_nonfinite=True)
+    with one_thread():
+        mlp, _ = td.train_dnn_stage_plain(_port(jm), xt, yt, 21, 4, lr=0.01, lr_step=1,
+                                          lr_gamma=0.5, dropout_p=0.2, skip_nonfinite=True)
     monkeypatch.setattr(td, "loss_and_grads", real)
 
     thresh, inv_keep = dropout_constants(0.2)
@@ -179,7 +182,8 @@ def test_skipped_step_does_not_advance_the_adam_count(setup, monkeypatch):
     for t in (0, 2, 3):
         views = [v.view(w.shape) for v, w in zip(torch.split(flat, sizes), ws)]
         keep = td.keep_masks(300, [256, 256, 256, 128], 21, t, thresh, "cpu")
-        _, grads = real(views, xt, yt, keep, inv_keep, td._inv_n(300))
+        with one_thread():
+            _, grads = real(views, xt, yt, keep, inv_keep, td._inv_n(300))
         flat, state = adam_step(flat, torch.cat([g.reshape(-1) for g in grads]), state,
                                 0.01, 1, 0.5)
     assert int(state.count) == 3
@@ -192,9 +196,10 @@ def test_cpu_wrapper_is_the_plain_version_and_does_not_count(setup):
     jm, x, y = setup
     xt, yt = torch.as_tensor(x[:200]), torch.as_tensor(y[:200])
     before = dict(build.LAUNCHES)
-    a = td.train_dnn(_port(jm), xt, yt, 4, 2)
-    b = td.train_dnn_stage_plain(_port(jm), xt, yt, 4, 2)
-    res = train_dnn_stage(_port(jm), xt, yt, 4, 2, precision="default")
+    with one_thread():
+        a = td.train_dnn(_port(jm), xt, yt, 4, 2)
+        b = td.train_dnn_stage_plain(_port(jm), xt, yt, 4, 2)
+        res = train_dnn_stage(_port(jm), xt, yt, 4, 2, precision="default")
     assert build.LAUNCHES == before
     assert torch.equal(a[1], b[1]) and torch.equal(res.losses, b[1])
     for u, v in zip(td.mlp_weights(a[0]), td.mlp_weights(b[0])):

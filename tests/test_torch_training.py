@@ -43,6 +43,7 @@ from pinnfc_tpu_torch.pipeline.train_pipeline import run_training_pipeline
 from pinnfc_tpu_torch.training import stages
 from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pinnfc_tpu_torch.utils.jax_params import params_from_jax, params_to_numpy
+from pinnfc_tpu_torch.utils.threads import one_thread
 
 
 @pytest.fixture(scope="module")
@@ -142,11 +143,12 @@ def test_resume_reproduces_the_uninterrupted_run(campaign, tmp_path):
     def fresh():
         return init_pinn(generator=torch.Generator().manual_seed(1), device="cpu")
 
-    full, _ = stages.run_schedule(fresh(), *args, schedule=sched, seed=5)
     ck = str(tmp_path / "resume")
-    stages.run_schedule(fresh(), *args, schedule=sched[:3], seed=5, checkpoint_dir=ck)
-    resumed, log = stages.run_schedule(fresh(), *args, schedule=sched, seed=5,
-                                       checkpoint_dir=ck)
+    with one_thread():
+        full, _ = stages.run_schedule(fresh(), *args, schedule=sched, seed=5)
+        stages.run_schedule(fresh(), *args, schedule=sched[:3], seed=5, checkpoint_dir=ck)
+        resumed, log = stages.run_schedule(fresh(), *args, schedule=sched, seed=5,
+                                           checkpoint_dir=ck)
     assert [n for n, _ in log.stages] == ["3:dnn", "4:thermal", "5:hydrogen", "6:oxygen"]
     a, b = params_to_numpy(full), params_to_numpy(resumed)
     for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
@@ -185,8 +187,9 @@ def test_training_pipeline_on_cpu_feeds_the_jax_consumers(tmp_path):
 
 def test_cli_train_then_score_reproduces_the_artifact(tmp_path, capsys):
     ck, mat, scored = (str(tmp_path / n) for n in ("ck", "train.mat", "scored.mat"))
-    assert cli.main(["train", "--device", "cpu", "--small", "--n-normal", "300",
-                     "--n-fault", "40", "--ckpt", ck, "--mat-out", mat]) == 0
+    with one_thread():
+        assert cli.main(["train", "--device", "cpu", "--small", "--n-normal", "300",
+                         "--n-fault", "40", "--ckpt", ck, "--mat-out", mat]) == 0
     out = capsys.readouterr().out
     assert "identified physics parameters" in out and "train_s" in out
     with open(ck + ".meta.json") as f:
@@ -195,7 +198,8 @@ def test_cli_train_then_score_reproduces_the_artifact(tmp_path, capsys):
     assert (meta["n_normal"], meta["n_fault"]) == (300, 40)
     assert [s["n_iter"] for s in meta["config"]["schedule"]] == \
         [s.n_iter for s in _small_schedule()]
-    assert cli.main(["score", "--ckpt", ck, "--device", "cpu", "--mat-out", scored]) == 0
+    with one_thread():
+        assert cli.main(["score", "--ckpt", ck, "--device", "cpu", "--mat-out", scored]) == 0
     a = load_comprehensive_results(mat).array
     b = load_comprehensive_results(scored).array
     assert a.shape == (780, 22)
