@@ -50,9 +50,24 @@ Phases, any failure exits non-zero before the result line:
    200-step stage, its plain version, each λ-stage kind per step, the slice's
    per-stage seconds; the device launches and per-kernel device time of a
    50-step stage, counted from a torch.profiler trace; the kernel's share of
-   its 3xTF32 and float32 bounds), then one JSON line
-   ``{"kernels": [...]}``;
-9. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+   its 3xTF32 and float32 bounds; the kernel as a chunk from step 200 with a
+   carried Adam state);
+9. the campaign slice through the command line, each step a subprocess on
+   the card that prints its launch counts: ``cli synth`` writes the default
+   campaign (6,000 normal rows, 12 x 800 fault rows, seed 0) as .mat files;
+   ``cli train --normal-mat --fault-dir`` trains on them (schedule x 0.1,
+   ``--ckpt-every 100`` so the DNN stages run as 12 chunk launches of the
+   training kernel, ``--metrics-jsonl``, ``--tensorboard-dir`` and
+   ``--profile-dir``), and ``cli score`` on the same files must reproduce the
+   train-time artifact column for column; the JSONL rows, the event file (read
+   back by the port's ``read_events``) and the profiler trace are checked;
+10. kill and resume on the card: the default dnn and lambda_v stages at 0.05
+   of their steps, chunks of 70, a preemption simulated by raising from the
+   snapshot writer after chunk 2 (inside the DNN stage) or 5 (inside the λ
+   stage): the resumed run, restarted with ``ckpt_every`` or without, equals
+   the uninterrupted chunked run bitwise, which equals the unchunked one;
+   then one JSON line ``{"kernels": [...]}``;
+11. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch and the port only.
 """
@@ -219,8 +234,8 @@ def check_train_kernel(mlp, x: torch.Tensor, y: torch.Tensor) -> float:
     err = 0.0
     for xn, yn in ((x, y), (x[:37], y[:37])):
         for p in (0.2, 0.0):
-            k_mlp, k_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
-            p_mlp, p_loss = train_dnn_stage_plain(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
+            k_mlp, k_loss, _ = train_dnn(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
+            p_mlp, p_loss, _ = train_dnn_stage_plain(mlp, xn, yn, seed, steps, dropout_p=p, **hp)
             torch.cuda.synchronize()
             torch.testing.assert_close(k_loss[0], p_loss[0], rtol=2e-5, atol=0)
             torch.testing.assert_close(k_loss, p_loss, rtol=5e-3, atol=1e-5)
@@ -234,14 +249,15 @@ def check_train_kernel(mlp, x: torch.Tensor, y: torch.Tensor) -> float:
             print(f"[check] train_dnn kernel vs plain, N={xn.shape[0]} (ragged), {steps} steps, "
                   f"dropout {p}: |Δloss[0]| {l0:.3e} (rtol 2e-5), max |Δloss| {l_err:.3e} "
                   f"(rtol 5e-3 atol 1e-5), max |Δweight| {w_err:.3e} (rtol=atol=5e-3): ok")
-        a_mlp, a_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
-        b_mlp, b_loss = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
+        a_mlp, a_loss, _ = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
+        b_mlp, b_loss, _ = train_dnn(mlp, xn, yn, seed, steps, dropout_p=0.2, **hp)
         same = torch.equal(a_loss, b_loss) and all(
             torch.equal(u, v) for u, v in zip(mlp_weights(a_mlp), mlp_weights(b_mlp)))
         check(same, f"two training-kernel runs with one seed differ at N={xn.shape[0]}")
     x_nan = x.clone()
     x_nan[17, 3] = float("nan")
-    s_mlp, s_loss = train_dnn(mlp, x_nan, y, seed, 5, dropout_p=0.2, skip_nonfinite=True, **hp)
+    s_mlp, s_loss, _ = train_dnn(mlp, x_nan, y, seed, 5, dropout_p=0.2, skip_nonfinite=True,
+                                 **hp)
     kept = all(torch.equal(u, v) for u, v in zip(mlp_weights(s_mlp), mlp_weights(mlp)))
     check(kept and bool(torch.isnan(s_loss).all()),
           "skip_nonfinite with a NaN row changed the weights")
@@ -314,6 +330,10 @@ def time_training(mlp, params, ds):
     x, y = ds.x_train, ds.y_train
     steps = 200
     kernel_ms = cuda_ms(lambda: train_dnn(mlp, x, y, 7, steps), repeats=3) / steps
+    # a chunk of a stage: from step 200 with the Adam state carried in
+    _, _, carried = train_dnn(mlp, x, y, 7, 10)
+    chunk_ms = cuda_ms(lambda: train_dnn(mlp, x, y, 7, steps, t0=200, state=carried),
+                       repeats=3) / steps
     plain_ms = cuda_ms(lambda: train_dnn_stage_plain(mlp, x, y, 7, 20), repeats=2) / 20
     breakdown, traced, per_step = kernel_breakdown(lambda: train_dnn(mlp, x, y, 7, 50), 50)
     with torch.no_grad():
@@ -338,12 +358,13 @@ def time_training(mlp, params, ds):
         fn().losses.cpu()
         lam_ms[name] = (time.perf_counter() - t0) / steps * 1e3
     print(f"[time] train_dnn kernel {kernel_ms:.4f} ms/step (median of 3 {steps}-step stages, "
-          f"N={x.shape[0]}); plain {plain_ms:.4f} ms/step; profiler trace of a 50-step stage: "
+          f"N={x.shape[0]}); as a chunk from step 200 with carried Adam state {chunk_ms:.4f} "
+          f"ms/step; plain {plain_ms:.4f} ms/step; profiler trace of a 50-step stage: "
           f"{per_step} device launches per step, launches {json.dumps(traced)}, "
           f"per-kernel device ms/step {json.dumps(breakdown)}")
     print(f"[time] λ stages, plain PyTorch on the card, host clock, ms/step: "
           f"{json.dumps({k: round(v, 4) for k, v in lam_ms.items()})}")
-    return kernel_ms, plain_ms, per_step, traced, breakdown, lam_ms
+    return kernel_ms, chunk_ms, plain_ms, per_step, traced, breakdown, lam_ms
 
 
 # the kernels of csrc/train_dnn.cu: launched every step, and once per stage
@@ -404,6 +425,187 @@ def kernel_breakdown(fn, steps: int):
     check(not missing, f"the profiler trace shows no device time for {missing}")
     per_step = sum(launches[k] for k in STEP_KERNELS) / steps
     return ms, launches, per_step
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# runs the port's command line in a fresh process and prints its launch counts
+CLI_RUNNER = (
+    "import json, sys\n"
+    "from pinnfc_tpu_torch.cli import main\n"
+    "from pinnfc_tpu_torch.ops import build\n"
+    "build.reset_launches()\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(build.LAUNCHES))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def run_cli(*argv: str, timeout: int = 600):
+    """``python -m pinnfc_tpu_torch.cli <argv>`` in a subprocess: (its standard
+    output, the launch counts of its run, its wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, *argv], cwd=REPO,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli {argv[0]} exited {proc.returncode}:\n{proc.stdout[-4000:]}")
+    counts = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    check(len(counts) == 1, f"cli {argv[0]} printed no launch counts")
+    return proc.stdout, json.loads(counts[0][len("LAUNCHES "):]), wall
+
+
+def run_campaign_slice(dev):
+    """Phase 9: ``cli synth`` writes the default campaign as .mat files;
+    ``cli train`` trains on them (schedule × 0.1, mid-stage snapshots every 100
+    steps, all three reports); ``cli score`` scores them from the checkpoint.
+    Returns the launch counts of the train and score runs."""
+    import re
+
+    from pinnfc_tpu_torch.data.campaign import CampaignConfig, load_campaign_dataset
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint, load_params_npz
+    from pinnfc_tpu_torch.utils.tbevents import read_events
+
+    with tempfile.TemporaryDirectory() as tmp:
+        camp, ck = os.path.join(tmp, "campaign"), os.path.join(tmp, "ck")
+        mats = {k: os.path.join(tmp, f"{k}.mat") for k in ("train", "score")}
+        jsonl, tb, prof = (os.path.join(tmp, n) for n in ("m.jsonl", "tb", "prof"))
+        _, _, synth_s = run_cli("synth", "--out-dir", camp)
+        files = sorted(os.listdir(camp))
+        check(len(files) == 13 and "Polar-1.mat" in files, f"synth wrote {files}")
+        flags = ["--normal-mat", os.path.join(camp, "Polar-1.mat"), "--fault-dir", camp]
+        out, train_l, train_wall = run_cli(
+            "train", *flags, "--steps-scale", "0.1", "--resume-dir", os.path.join(tmp, "rd"),
+            "--ckpt-every", "100", "--ckpt", ck, "--mat-out", mats["train"],
+            "--metrics-jsonl", jsonl, "--tensorboard-dir", tb, "--profile-dir", prof)
+        rows = re.search(r"campaign: (\d+) normal rows \+ (\d+) fault segments \((\d+) rows\)",
+                         out)
+        check(rows is not None and tuple(map(int, rows.groups())) == (6000, 12, 9600),
+              f"campaign rows {rows and rows.groups()}")
+        stage_s = {f"{k}:{n}": float(t) for k, n, t in re.findall(
+            r"stage (\d+) \[(\w+)\s*\].*\(([\d.]+) s\)", out)}
+        check(len(stage_s) == 7, f"per-stage seconds {stage_s}")
+        # the DNN stages run in chunks of 100 steps: 4 + 8 kernel launches
+        check(train_l["train_dnn"] == 12 and train_l["mc_dropout"] == 1
+              and train_l["residuals"] >= 1, f"cli train launches {train_l}")
+        report = [json.loads(ln) for ln in open(jsonl)]
+        check([r["event"] for r in report] == ["stage"] * 7 + ["final"],
+              f"metrics JSONL events {[r['event'] for r in report]}")
+        timings = {k: report[-1][k] for k in ("data_s", "train_s", "export_s")}
+        events = [e for f in os.listdir(tb) for e in read_events(os.path.join(tb, f))]
+        n_steps = sum(r["n_iter"] for r in report[:-1])
+        check(n_steps == 4600 and sum(e.tag.startswith("loss/") for e in events) == n_steps,
+              f"event file: {len(events)} events for {n_steps} steps")
+        traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json.gz")]
+        check(len(traces) == 1, f"profile directory holds {os.listdir(prof)}")
+        trace_mb = os.path.getsize(os.path.join(prof, traces[0])) / 2**20
+        snap = load_params_npz(os.path.join(tmp, "rd", "schedule_ckpt.npz"))
+        check((int(snap["stage"]), int(snap["step"])) == (6, 800), "last snapshot")
+        with open(ck + ".meta.json") as f:
+            meta = json.load(f)
+        check(meta["campaign"] == {"normal_mat": flags[1], "fault_dir": camp}
+              and "framework_version" in meta, f"sidecar {sorted(meta)}")
+
+        _, score_l, score_wall = run_cli("score", "--ckpt", ck, *flags, "--mat-out",
+                                         mats["score"])
+        check(score_l["mc_dropout"] == 1 and score_l["residuals"] >= 1 and
+              score_l["train_dnn"] == 0, f"cli score launches {score_l}")
+        arr, scored = (load_comprehensive_results(mats[k]).array for k in ("train", "score"))
+        check(np.array_equal(scored, arr, equal_nan=True),
+              "cli score on the campaign does not reproduce the train-time artifact")
+        trained = load_checkpoint(ck, device=dev)
+        ds = load_campaign_dataset(CampaignConfig.from_dir(flags[1], camp),
+                                   scalers=(trained["scaler_x"], trained["scaler_y"]),
+                                   device=dev)
+        metrics = {k: v for k, v in report[-1].items() if k not in
+                   ("step", "time", "event", *timings) and isinstance(v, float)}
+        check_artifact(arr, trained["params"], ds, metrics, 15600)
+    print(f"[slice] campaign: synth {synth_s:.1f} s; cli train on 6000 normal + 12 x 800 fault "
+          f"rows (wall {train_wall:.1f} s, torch.profiler on): launches {json.dumps(train_l)}, "
+          f"timings {json.dumps(timings)}; per stage (s) {json.dumps(stage_s)}; "
+          f"{len(report)} JSONL rows, {len(events)} events, gzipped trace {trace_mb:.1f} MiB")
+    print(f"[slice] campaign: cli score (wall {score_wall:.1f} s): launches {json.dumps(score_l)}; "
+          "its artifact equals the train-time one column for column and passes the "
+          "plain-function checks")
+    return {"train": train_l, "score": score_l}
+
+
+def check_kill_and_resume(train_ds) -> None:
+    """Phase 10: the default dnn and lambda_v stages at 0.05 of their steps
+    (200 each) on the training path's rows, in chunks of 70 (dividing
+    neither): the chunked run equals the unchunked one, and a run killed after
+    its 2nd snapshot (DNN stage, step 140) or its 5th (λ stage, step 140) and
+    restarted, with ckpt_every or without, equals the uninterrupted chunked
+    run, bit for bit."""
+    import dataclasses
+
+    from pinnfc_tpu_torch.config import default_schedule
+    from pinnfc_tpu_torch.models.pinn import init_pinn
+    from pinnfc_tpu_torch.training.stages import run_schedule
+    from pinnfc_tpu_torch.utils import checkpoint
+    from pinnfc_tpu_torch.utils.jax_params import params_to_numpy
+
+    sched = tuple(dataclasses.replace(s, n_iter=int(s.n_iter * 0.05))
+                  for s in default_schedule()[:2])
+    check([s.n_iter for s in sched] == [200, 200], f"two-stage schedule {sched}")
+    args = (train_ds.x_train, train_ds.y_train, train_ds.scaler_x, train_ds.scaler_y)
+
+    def fresh():
+        return init_pinn(generator=torch.Generator().manual_seed(42),
+                         device=train_ds.x_train.device)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [v for k in sorted(tree) for v in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [v for t in tree for v in leaves(t)]
+        return [tree]
+
+    def same(a, b):
+        """(params, log) pairs: every weight and λ, and every loss trace, bitwise."""
+        pa, pb = leaves(params_to_numpy(a[0])), leaves(params_to_numpy(b[0]))
+        return (all(np.array_equal(u, v) for u, v in zip(pa, pb))
+                and [n for n, _ in a[1].stages] == [n for n, _ in b[1].stages]
+                and all(np.array_equal(u, v) for (_, u), (_, v) in zip(a[1].stages, b[1].stages)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = run_schedule(fresh(), *args, schedule=sched, seed=9,
+                            checkpoint_dir=os.path.join(tmp, "full"), ckpt_every=70)
+        whole = run_schedule(fresh(), *args, schedule=sched, seed=9)
+        check(same(full, whole), "the chunked run differs from the unchunked one")
+        real = checkpoint.save_params_npz
+        for kill_after, every in ((2, 70), (5, 70), (2, None)):
+            ck = os.path.join(tmp, f"killed_{kill_after}_{every}")
+            calls = [0]
+
+            def killing_save(payload, path):
+                real(payload, path)
+                calls[0] += 1
+                if calls[0] == kill_after:
+                    raise KeyboardInterrupt("simulated preemption")
+
+            checkpoint.save_params_npz = killing_save
+            try:
+                run_schedule(fresh(), *args, schedule=sched, seed=9, checkpoint_dir=ck,
+                             ckpt_every=70)
+                fail("the simulated preemption did not happen")
+            except KeyboardInterrupt:
+                pass
+            finally:
+                checkpoint.save_params_npz = real
+            snap = checkpoint.load_params_npz(os.path.join(ck, "schedule_ckpt.npz"))
+            where = (int(snap["stage"]), int(snap["step"]))
+            check(where == ((0, 140) if kill_after == 2 else (1, 140)), f"killed at {where}")
+            resumed = run_schedule(fresh(), *args, schedule=sched, seed=9, checkpoint_dir=ck,
+                                   ckpt_every=every)
+            stitched = (full[0], type(full[1])(stages=full[1].stages[where[0]:]))
+            check(same(resumed, stitched),
+                  f"resumed at stage {where[0]} step {where[1]} (ckpt_every {every}): differs "
+                  "from the uninterrupted chunked run")
+    print("[check] kill and resume on the card (dnn and lambda_v, 200 steps each, chunks of "
+          "70): chunked = unchunked, and killed after chunk 2 (DNN stage, step 140) or 5 (λ "
+          "stage, step 140) then resumed, with ckpt_every or without, = the uninterrupted "
+          "chunked run, params and stitched losses bitwise: ok")
 
 
 def main() -> int:
@@ -603,7 +805,7 @@ def main() -> int:
     trained, train_launches = run_training_slice()
 
     # ---- 8. timing at the training path's shapes ----
-    t_ms, t_plain_ms, t_per_step, t_traced, t_breakdown, lam_ms = time_training(
+    t_ms, t_chunk_ms, t_plain_ms, t_per_step, t_traced, t_breakdown, lam_ms = time_training(
         mlp, trained.params, train_ds)
     n_tr = train_ds.x_train.shape[0]
     t_flop = TRAIN_FLOP_PER_ROW_STEP * n_tr
@@ -616,6 +818,12 @@ def main() -> int:
           f"bound ({t_bound:.4f} ms), {t_bound_fp32 / t_ms:.1%} of its float32 bound "
           f"({t_bound_fp32:.4f} ms)")
 
+    # ---- 9. the campaign slice through the command line ----
+    campaign_launches = run_campaign_slice(dev)
+
+    # ---- 10. kill and resume on the card ----
+    check_kill_and_resume(train_ds)
+
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
          "replaces": "pinnfc_tpu/ops/pallas_mc_dropout.py:140",
@@ -627,7 +835,10 @@ def main() -> int:
                      "their layer 0 and heads and for the base pass",
          "bound_fp32_ms": mc_bound_fp32, "bound_tf32_ms": mc_flop / TF32_PEAK * 1e3,
          "sass_hmma": {k: v for k, v in hmma.items() if k.startswith("mc_")},
-         "bitwise_equal_runs": True, "library_ms": None},
+         "bitwise_equal_runs": True,
+         "launches_campaign_slice": {k: campaign_launches[k]["mc_dropout"]
+                                     for k in ("train", "score")},
+         "library_ms": None},
         {"name": "residuals", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/residuals.cu",
          "replaces": "pinnfc_tpu/ops/pallas_residuals.py:134",
          "shape": f"x ({n}, 8)", "launches": launches["residuals"],
@@ -635,11 +846,16 @@ def main() -> int:
          "ms_37_rows": res_37_ms,
          "wrapper_ms": res_wrapper_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound,
          "bound_by": "bytes",
-         "launches_evaluate_metrics": metrics_launches["residuals"], "library_ms": None},
+         "launches_evaluate_metrics": metrics_launches["residuals"],
+         "launches_campaign_slice": {k: campaign_launches[k]["residuals"]
+                                     for k in ("train", "score")},
+         "library_ms": None},
         {"name": "train_dnn", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/train_dnn.cu",
          "replaces": "pinnfc_tpu/ops/pallas_train.py:239",
          "shape": f"x ({n_tr}, 8), flagship; times per step of a 200-step stage",
-         "launches": train_launches["train_dnn"], "device_launches_per_step": t_per_step,
+         "launches": train_launches["train_dnn"],
+         "launches_campaign_slice": campaign_launches["train"]["train_dnn"],
+         "ms_chunk_from_t0": t_chunk_ms, "device_launches_per_step": t_per_step,
          "traced_launches_50_steps": t_traced, "max_abs_err": train_err, "ms": t_ms,
          "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": "operations",
          "bound_is": "3xTF32 on the tensor cores", "bound_fp32_ms": t_bound_fp32,

@@ -10,4 +10,6 @@ versions.
 
 from pinnfc_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

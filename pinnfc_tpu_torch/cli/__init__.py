@@ -1,7 +1,8 @@
-"""Command line of the port: ``python -m pinnfc_tpu_torch.cli {train,score} ...``.
+"""Command line of the port: ``python -m pinnfc_tpu_torch.cli {train,score,synth} ...``.
 
-Both run on the card by default (``--device cuda``) and exit with an error
-when CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
+``train`` and ``score`` run on the card by default (``--device cuda``) and
+exit with an error when CUDA is absent; ``--device cpu`` runs the plain
+PyTorch path.  ``synth`` writes a synthetic campaign as .mat files.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from pinnfc_tpu_torch.cli.train import cmd_score, cmd_train
+from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,9 +36,27 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--precision", choices=("highest", "default"), default=None,
                    help="'highest' = full float32 (the default and the only one the "
                         "CUDA training kernel has); 'default' runs only with --device cpu")
+    t.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the pipeline (a Chrome trace "
+                        "in this directory)")
+    t.add_argument("--metrics-jsonl", default=None,
+                   help="write structured run metrics: one JSONL row per stage (final loss "
+                        "+ subsampled loss trace) plus a final row with the metric/timing "
+                        "tables")
+    t.add_argument("--tensorboard-dir", default=None,
+                   help="write TensorBoard scalar event files (per-stage loss curves + final "
+                        "metrics; no TensorFlow needed)")
     t.add_argument("--resume-dir", default=None,
                    help="schedule snapshot dir: a killed run restarted with the same flags "
-                        "resumes at the first unfinished stage")
+                        "resumes and reproduces the trajectory")
+    t.add_argument("--ckpt-every", type=int, default=None,
+                   help="with --resume-dir: snapshot every N steps WITHIN each stage "
+                        "(mid-stage preemption safety)")
+    t.add_argument("--normal-mat", default=None,
+                   help="real campaign: normal-operation .mat (e.g. Polar-1.mat)")
+    t.add_argument("--fault-dir", default=None,
+                   help="real campaign: directory with the 12 fault .mat files "
+                        "(<type>_<108|270|405>A.mat, Chinese or ASCII stems)")
     t.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     t.set_defaults(fn=cmd_train)
 
@@ -62,8 +81,30 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--n-fault", type=int, default=None,
                     help="rows per fault segment (default: the checkpoint's training "
                          "campaign, else 800; 200 with --small)")
+    sc.add_argument("--ignore-ckpt-config", action="store_true",
+                    help="ignore the checkpoint's stored training config and build the "
+                         "MC-export settings from CLI flags alone")
+    sc.add_argument("--normal-mat", default=None,
+                    help="new campaign: normal-operation .mat")
+    sc.add_argument("--fault-dir", default=None,
+                    help="new campaign: directory with the 12 fault .mat files")
     sc.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sc.set_defaults(fn=cmd_score)
+
+    sy = sub.add_parser(
+        "synth",
+        help="write a synthetic campaign in the reference's 13-file .mat layout — a "
+             "runnable stand-in for the measurement data, which is not redistributed",
+    )
+    sy.add_argument("--out-dir", required=True)
+    sy.add_argument("--n-normal", type=int, default=6000,
+                    help="normal-operation rows (before the loader's 50<I<800 filter)")
+    sy.add_argument("--n-fault", type=int, default=800, help="rows per fault segment")
+    sy.add_argument("--seed", type=int, default=0)
+    sy.add_argument("--zh-names", action="store_true",
+                    help="use the Chinese fault-file stems the reference ships (default: "
+                         "ASCII aliases)")
+    sy.set_defaults(fn=cmd_synth)
     return p
 
 

@@ -1,5 +1,6 @@
 """Shared CLI helpers (counterpart of ``pinnfc_tpu/cli/_common.py``): the
-reduced schedule, the training config from flags, the λ table."""
+reduced schedule, the training config from flags, the campaign from flags,
+the checkpoint's provenance line, the λ table."""
 
 from __future__ import annotations
 
@@ -42,6 +43,39 @@ def _train_config(args) -> TrainConfig:
     if getattr(args, "skip_nonfinite", False):
         cfg = dataclasses.replace(cfg, skip_nonfinite=True)
     return cfg
+
+
+def _print_ckpt_provenance(ckpt_path: str) -> None:
+    """One line saying which model is about to score, from the checkpoint's
+    ``.meta.json`` sidecar if it has one."""
+    from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint_meta
+
+    meta = load_checkpoint_meta(ckpt_path)
+    if meta is None:
+        return
+    summary = {key: meta[key] for key in ("created", "framework_version") if key in meta}
+    if isinstance(meta.get("config"), dict) and "seed" in meta["config"]:
+        summary["seed"] = meta["config"]["seed"]
+    if isinstance(meta.get("metrics"), dict) and isinstance(
+            meta["metrics"].get("voltage_mae"), float):
+        summary["voltage_mae"] = meta["metrics"]["voltage_mae"]
+    if summary:
+        print("checkpoint provenance: " + " ".join(f"{k}={v}" for k, v in summary.items()))
+
+
+def _campaign_from_args(args):
+    """--normal-mat/--fault-dir → ``CampaignConfig`` (None when neither is
+    given; ValueError when only one is)."""
+    normal_mat, fault_dir = getattr(args, "normal_mat", None), getattr(args, "fault_dir", None)
+    if not (normal_mat or fault_dir):
+        return None
+    from pinnfc_tpu_torch.data.campaign import CampaignConfig
+
+    if not (normal_mat and fault_dir):
+        raise ValueError("real campaigns need BOTH --normal-mat and --fault-dir")
+    campaign = CampaignConfig.from_dir(normal_mat, fault_dir, seed=args.seed)
+    print(f"campaign: {normal_mat} + faults from {fault_dir}")
+    return campaign
 
 
 def _print_lambda_table(params) -> None:

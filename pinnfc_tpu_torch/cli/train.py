@@ -1,13 +1,21 @@
-"""``train`` and ``score`` subcommands (counterpart of ``pinnfc_tpu/cli/train.py``)."""
+"""``train``, ``score`` and ``synth`` subcommands (counterpart of
+``pinnfc_tpu/cli/train.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
+import os
 import sys
 
-from pinnfc_tpu_torch.cli._common import _print_lambda_table, _train_config
+from pinnfc_tpu_torch.cli._common import (
+    _campaign_from_args,
+    _print_ckpt_provenance,
+    _print_lambda_table,
+    _train_config,
+)
 
 
 def _sizes(args):
@@ -17,17 +25,37 @@ def _sizes(args):
 
 
 def cmd_train(args) -> int:
+    import pinnfc_tpu_torch
     from pinnfc_tpu_torch.config import train_config_to_dict
     from pinnfc_tpu_torch.pipeline.train_pipeline import run_training_pipeline
     from pinnfc_tpu_torch.utils.checkpoint import save_checkpoint
 
     cfg = _train_config(args)
     n_normal, n_fault = _sizes(args)
+    if args.ckpt_every is not None and not args.resume_dir:
+        # chunks without a snapshot directory buy no preemption safety
+        print("--ckpt-every requires --resume-dir (nowhere to snapshot)", file=sys.stderr)
+        return 2
     try:
-        res = run_training_pipeline(
-            cfg, mat_path=args.mat_out, n_normal=n_normal, n_fault=n_fault, verbose=True,
-            checkpoint_dir=args.resume_dir, device=args.device,
-        )
+        campaign = _campaign_from_args(args)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+
+    if args.profile_dir:
+        from pinnfc_tpu_torch.utils.observability import trace_profiler
+
+        prof_cm = trace_profiler()
+        print(f"capturing a torch.profiler trace → {args.profile_dir}")
+    else:
+        prof_cm = contextlib.nullcontext()
+    try:
+        with prof_cm as prof:
+            res = run_training_pipeline(
+                cfg, campaign=campaign, mat_path=args.mat_out, n_normal=n_normal,
+                n_fault=n_fault, verbose=True, checkpoint_dir=args.resume_dir,
+                ckpt_every=args.ckpt_every, device=args.device,
+            )
     except (RuntimeError, ValueError) as e:
         print(f"train: {e}", file=sys.stderr)
         return 1
@@ -37,31 +65,83 @@ def cmd_train(args) -> int:
         save_checkpoint(
             args.ckpt, res.params, res.dataset.scaler_x, res.dataset.scaler_y,
             meta={
+                "framework_version": pinnfc_tpu_torch.__version__,
                 "created": datetime.datetime.now(datetime.timezone.utc).isoformat(
                     timespec="seconds"),
                 "config": train_config_to_dict(cfg),
                 "n_normal": n_normal,
                 "n_fault": n_fault,
+                "campaign": ({"normal_mat": args.normal_mat, "fault_dir": args.fault_dir}
+                             if campaign is not None else None),
                 "metrics": res.metrics,
             },
         )
         print(f"checkpoint → {args.ckpt}")
+    # the reports come after the checkpoint: a bad report path must not cost
+    # the trained model
+    if args.metrics_jsonl:
+        _write_metrics_jsonl(args.metrics_jsonl, res)
+    if args.tensorboard_dir:
+        _write_tensorboard(args.tensorboard_dir, res)
+    if prof is not None:
+        from pinnfc_tpu_torch.utils.observability import write_chrome_trace
+
+        print(f"profiler trace → {write_chrome_trace(prof, args.profile_dir)}")
     if args.mat_out:
         print(f"comprehensive_results → {args.mat_out}")
     return 0
 
 
+def _write_metrics_jsonl(path: str, res) -> None:
+    """One row per stage (final loss and at most ~100 points of its loss
+    trace), then a final row with the metric and timing tables."""
+    import numpy as np
+
+    from pinnfc_tpu_torch.utils.observability import MetricsLogger
+
+    ml = MetricsLogger()
+    for i, (name, losses) in enumerate(res.log.stages):
+        losses = np.asarray(losses)
+        stride = max(1, losses.shape[0] // 100)
+        ml.log(step=i, event="stage", stage=name, n_iter=int(losses.shape[0]),
+               final_loss=float(losses[-1]), loss_trace=[float(v) for v in losses[::stride]])
+    ml.log(step=len(res.log.stages), event="final", **res.metrics, **res.timings)
+    ml.to_jsonl(path)
+    print(f"metrics JSONL → {path}")
+
+
+def _write_tensorboard(logdir: str, res) -> None:
+    """Scalar event files for the run: every stage's loss at every step on one
+    global step axis (``loss/<k:stage>``), then the final metric and timing
+    tables (``final/<metric>``, ``time/<timing>``) at the last step."""
+    import numpy as np
+
+    from pinnfc_tpu_torch.utils.tbevents import EventFileWriter
+
+    with EventFileWriter(logdir) as w:
+        step = 0
+        for name, losses in res.log.stages:
+            for v in np.asarray(losses):
+                w.add_scalar(f"loss/{name}", float(v), step=step)
+                step += 1
+        finals = {f"final/{k}": float(v) for k, v in res.metrics.items()}
+        finals.update({f"time/{k}": float(v) for k, v in res.timings.items()})
+        w.add_scalars(finals, step=max(step - 1, 0))
+    print(f"tensorboard events → {logdir}")
+
+
 def cmd_score(args) -> int:
-    """Score a campaign with an existing checkpoint, no retraining.  The MC
-    settings, the seed and the synthetic campaign's sizes default to the ones
-    the checkpoint's sidecar records (``pinnfc_tpu/cli/train.py:188-218``), so
-    scoring the training campaign reproduces the train-time artifact."""
+    """Score a campaign with an existing checkpoint, no retraining.  Unless
+    ``--ignore-ckpt-config``, the MC settings, the seed and the synthetic
+    campaign's sizes default to the ones the checkpoint's sidecar records
+    (``pinnfc_tpu/cli/train.py:188-218``), so scoring the training campaign
+    reproduces the train-time artifact."""
     from pinnfc_tpu_torch.config import train_config_from_dict
     from pinnfc_tpu_torch.pipeline.score import run_scoring_pipeline
     from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint_meta
 
     meta = load_checkpoint_meta(args.ckpt)
-    if meta is not None and "config" in meta:
+    if meta is not None and "config" in meta and not args.ignore_ckpt_config:
         cfg = train_config_from_dict(meta["config"])
         if args.small:
             cfg = dataclasses.replace(cfg, mc_times=200)
@@ -72,6 +152,11 @@ def cmd_score(args) -> int:
                 args.n_normal = meta.get("n_normal")
             if args.n_fault is None:
                 args.n_fault = meta.get("n_fault")
+        print(f"config from checkpoint meta: mc_times={cfg.mc_times} "
+              f"dropout={cfg.mc_dropout} seed={cfg.seed} "
+              f"(--ignore-ckpt-config for CLI flags only)")
+        # the campaign is built from args.seed: keep it the resolved seed
+        args.seed = cfg.seed
     else:
         args.seed = 42 if args.seed is None else args.seed
         cfg = _train_config(args)
@@ -79,13 +164,39 @@ def cmd_score(args) -> int:
         cfg = dataclasses.replace(cfg, mc_times=args.mc_times)
     n_normal, n_fault = _sizes(args)
     try:
+        campaign = _campaign_from_args(args)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+    _print_ckpt_provenance(args.ckpt)
+    try:
         res = run_scoring_pipeline(
-            args.ckpt, config=cfg, mat_path=args.mat_out, n_normal=n_normal, n_fault=n_fault,
-            verbose=True, device=args.device,
+            args.ckpt, config=cfg, campaign=campaign, mat_path=args.mat_out,
+            n_normal=n_normal, n_fault=n_fault, verbose=True, device=args.device,
         )
     except (RuntimeError, ValueError) as e:
         print(f"score: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"metrics": res.metrics, "timings": res.timings}, indent=1))
     print("artifact →", args.mat_out)
+    return 0
+
+
+def cmd_synth(args) -> int:
+    """Write a synthetic measurement campaign to disk in the reference's
+    13-file .mat layout: ``Polar-1.mat`` with the normal channel variables
+    (01:126-140) and the 12 fault ``segment_double`` files (01:168-176) in the
+    load order 水淹/氧饥饿/膜干/氢饥饿 × 108/270/405 A (01:2097-2110).  A
+    stand-in for the measurement data, which is not redistributed, to drive
+    ``train --normal-mat/--fault-dir``."""
+    from pinnfc_tpu_torch.data.campaign import write_campaign_mats
+    from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+
+    normal, faults = synthesize_stack_data(n_normal=args.n_normal, n_fault=args.n_fault,
+                                           seed=args.seed)
+    cfg = write_campaign_mats(args.out_dir, normal, faults, ascii_names=not args.zh_names)
+    print(f"campaign → {args.out_dir} ({os.path.basename(cfg.normal_path)} with "
+          f"{len(normal[0])} rows + {len(faults)} fault segments × {args.n_fault} rows)")
+    print("train on it: python -m pinnfc_tpu_torch.cli train "
+          f"--normal-mat {cfg.normal_path} --fault-dir {args.out_dir}")
     return 0

@@ -899,13 +899,19 @@ extern "C" long long pinnfc_train_dnn_workspace_floats(int n) {
   return (long long)carve(nullptr, n, &w);
 }
 
-// Run n_iter steps on `stream`; returns the first CUDA error (0 on success).
-// params, m, v: flat buffers of the layout above (m, v zero at the start of a
-// stage), updated in place.  work: workspace_floats(n) floats.  ints: 2 n_iter
-// + 1 zeroed int32 (flags, then the Adam counts).  losses: (n_iter,).
+// Run steps t0 .. t0 + n_iter - 1 of a stage on `stream`; returns the first
+// CUDA error (0 on success).  A stage may run as several calls (chunks): t0 is
+// the index inside the stage of the call's first step, and it alone sets the
+// masks' step salt, so a chunk starting at step s draws step s's masks.
+// params, m, v: flat buffers of the layout above, updated in place; m and v
+// hold the Adam moments carried into the call (zero at the start of a stage).
+// work: workspace_floats(n) floats.  ints: 2 n_iter + 1 int32: the step flags
+// (zeroed), then the Adam count before each step, ints[n_iter] holding the
+// count carried into the call (0 at the start of a stage) and ints[2 n_iter]
+// receiving the count after the last step.  losses: (n_iter,), by local step.
 extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* params, float* m,
                                 float* v, float* work, int* ints, float* losses, uint32_t seed,
-                                int n_iter, float lr, int lr_step, float lr_gamma,
+                                int t0, int n_iter, float lr, int lr_step, float lr_gamma,
                                 uint32_t thresh, float inv_keep, float inv_n, int skip,
                                 void* stream_ptr) {
   if (n <= 0 || n_iter <= 0) return 0;
@@ -963,7 +969,7 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   const int row_blocks = (n + ROWS - 1) / ROWS;
   const dim3 wgrid(gp.unit0[NT], SPLIT);
   for (int t = 0; t < n_iter; ++t) {
-    st.t = t;
+    st.t = t0 + t;  // the step inside the stage: the mask salt
     fwd_bwd_kernel<<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
     wgrad_kernel<<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
     finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, w.grad, w.s.lossrow, n, inv_n,

@@ -134,7 +134,10 @@ def load() -> ctypes.CDLL:
     handle.pinnfc_train_dnn_layout.restype = None
     handle.pinnfc_train_dnn_workspace_floats.argtypes = [i]
     handle.pinnfc_train_dnn_workspace_floats.restype = ctypes.c_longlong
-    handle.pinnfc_train_dnn.argtypes = [p, p, i, p, p, p, p, p, p, u, i, f, i, f, u, f, f, i, p]
+    # x, y, n, params, m, v, work, ints, losses, seed, t0, n_iter, lr, lr_step,
+    # lr_gamma, thresh, inv_keep, inv_n, skip, stream
+    handle.pinnfc_train_dnn.argtypes = [p, p, i, p, p, p, p, p, p, u, i, i, f, i, f, u, f, f,
+                                        i, p]
     handle.pinnfc_train_dnn.restype = i
     _Library.handle = handle
     return handle

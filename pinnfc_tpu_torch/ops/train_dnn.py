@@ -20,6 +20,11 @@ With ``skip_nonfinite`` a step whose loss or any gradient element is not
 finite leaves the weights, both Adam moments and the Adam count as they were;
 its loss is still recorded and the masks still advance with t.
 
+A stage can run in chunks: a call with start step ``t0`` and the carried Adam
+state (moments and count) draws the masks of steps t0, t0 + 1, … and continues
+the StepLR staircase and the bias correction from the carried count, so the
+chunks of a stage walk the trajectory of the whole stage.
+
 ``train_dnn`` launches the kernel for CUDA tensors (flagship topology only)
 and runs the plain version only for CPU tensors.
 """
@@ -28,7 +33,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +41,8 @@ import torch
 from pinnfc_tpu_torch.models.mlp import MLP, softplus
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops.mc_dropout import _U32, dropout_constants, random_bits
-from pinnfc_tpu_torch.training.adam import adam_init, adam_step, all_finite, keep_if_nonfinite
+from pinnfc_tpu_torch.training.adam import (
+    AdamState, adam_init, adam_step, all_finite, keep_if_nonfinite)
 
 MASK_BLOCK = 512  # rows per mask block: part of the random stream's contract
 REG_WEIGHT = 0.01  # |logvar| regularizer of the loss (01:916-927)
@@ -131,7 +137,24 @@ def loss_and_grads(ws: Sequence[torch.Tensor], x: torch.Tensor, y: torch.Tensor,
     return loss, g
 
 
-def _check_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int) -> None:
+class DnnStageOut(NamedTuple):
+    mlp: MLP  # trained copy of the input MLP
+    losses: torch.Tensor  # per-step losses (n_iter,)
+    state: AdamState  # Adam state after the last step, over flat_weights' layout
+
+
+def flat_weights(mlp: MLP) -> torch.Tensor:
+    """The flat float32 vector the Adam state runs over: ``mlp_weights(mlp)``
+    flattened and concatenated (w (in, out) row-major, then b, per Linear)."""
+    return torch.cat([w.reshape(-1) for w in mlp_weights(mlp)])
+
+
+def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    return [v.view(w.shape) for v, w in zip(torch.split(flat, [w.numel() for w in like]), like)]
+
+
+def _check_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, t0: int,
+                  state: Optional[AdamState]) -> None:
     n = x.shape[0] if x.dim() == 2 else -1
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != mlp.layers[0] or n < 1:
         raise ValueError(f"x must be float32 (N, {mlp.layers[0]}) with N >= 1, "
@@ -144,6 +167,17 @@ def _check_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int) -> No
             raise ValueError("MLP weights must be float32 on x's device")
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
+    if t0 < 0:
+        raise ValueError(f"t0 must be >= 0, got {t0}")
+    if state is not None:
+        size = sum(p.numel() for p in mlp.parameters())
+        for name in ("m", "v"):
+            t = getattr(state, name)
+            if t.dtype != torch.float32 or tuple(t.shape) != (size,) or t.device != x.device:
+                raise ValueError(f"state.{name} must be float32 ({size},) on x's device, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if state.count.numel() != 1 or state.count.device != x.device:
+            raise ValueError("state.count must be one integer on x's device")
 
 
 def _inv_n(n: int) -> float:
@@ -154,44 +188,65 @@ def _inv_n(n: int) -> float:
 def train_dnn_stage_plain(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
-    skip_nonfinite: bool = False,
-) -> Tuple[MLP, torch.Tensor]:
-    """Plain PyTorch version, step by step, any topology: (trained copy of
-    ``mlp``, per-step losses (n_iter,))."""
-    _check_inputs(mlp, x, y, n_iter)
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Plain PyTorch version, step by step, any topology: steps t0 .. t0 +
+    n_iter − 1 of a stage (the masks of step t0 + t), from the carried Adam
+    ``state`` (fresh when None)."""
+    _check_inputs(mlp, x, y, n_iter, t0, state)
     thresh, inv_keep = dropout_constants(dropout_p)
     n = x.shape[0]
     widths = [lin.out_features for lin in mlp.hidden] + [mlp.var[0].out_features]
     ws = mlp_weights(mlp)
-    sizes = [w.numel() for w in ws]
-    flat = torch.cat([w.reshape(-1) for w in ws])
-    state = adam_init(flat)
+    flat = flat_weights(mlp)
+    state = adam_init(flat) if state is None else state._replace(
+        count=state.count.reshape(()).to(torch.int64))
     losses = []
-    for t in range(n_iter):
+    for t in range(t0, t0 + n_iter):
         keep = keep_masks(n, widths, seed, t, thresh, x.device) if thresh > 0 else None
-        views = [v.view(w.shape) for v, w in zip(torch.split(flat, sizes), ws)]
-        loss, grads = loss_and_grads(views, x, y, keep, inv_keep, _inv_n(n))
+        loss, grads = loss_and_grads(_unflat(flat, ws), x, y, keep, inv_keep, _inv_n(n))
         g = torch.cat([gi.reshape(-1) for gi in grads])
         new = adam_step(flat, g, state, lr, lr_step, lr_gamma)
         if skip_nonfinite:
             new = keep_if_nonfinite(all_finite(loss, g), new, (flat, state))
         flat, state = new
         losses.append(loss)
-    trained = [v.view(w.shape) for v, w in zip(torch.split(flat, sizes), ws)]
-    return mlp_with_weights(mlp, trained), torch.stack(losses)
+    return DnnStageOut(mlp_with_weights(mlp, _unflat(flat, ws)), torch.stack(losses), state)
+
+
+def _kernel_layout(flat: torch.Tensor, ws: Sequence[torch.Tensor], offsets: Sequence[int],
+                   total: int) -> torch.Tensor:
+    """``flat`` (flat_weights' layout) → the kernel's buffer: tensor block i at
+    ``offsets[i]``, its w then its b; the gaps between blocks stay zero."""
+    out = torch.zeros(total, dtype=torch.float32, device=flat.device)
+    src = 0
+    for off, w, b in zip(offsets, ws[0::2], ws[1::2]):
+        size = w.numel() + b.numel()
+        out[off:off + size] = flat[src:src + size]
+        src += size
+    return out
+
+
+def _flat_layout(buf: torch.Tensor, ws: Sequence[torch.Tensor],
+                 offsets: Sequence[int]) -> torch.Tensor:
+    """Inverse of ``_kernel_layout``."""
+    return torch.cat([buf[off:off + w.numel() + b.numel()]
+                      for off, w, b in zip(offsets, ws[0::2], ws[1::2])])
 
 
 def train_dnn(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
-    skip_nonfinite: bool = False,
-) -> Tuple[MLP, torch.Tensor]:
-    """(trained copy of ``mlp``, per-step losses): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor.  ``seed`` is a uint32."""
-    _check_inputs(mlp, x, y, n_iter)
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Steps t0 .. t0 + n_iter − 1 of a DNN stage from the carried Adam
+    ``state`` (fresh when None): the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor.  ``seed`` is a uint32.  Returns the trained copy
+    of ``mlp``, the per-step losses and the Adam state after the last step."""
+    _check_inputs(mlp, x, y, n_iter, t0, state)
     if x.device.type == "cpu":
         return train_dnn_stage_plain(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma,
-                                     dropout_p, skip_nonfinite)
+                                     dropout_p, skip_nonfinite, t0, state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not mlp.is_flagship():
@@ -207,27 +262,31 @@ def train_dnn(
     lib.pinnfc_train_dnn_layout(layout)
     offsets, total = list(layout)[:7], layout[7]
     ws = mlp_weights(mlp)
-    params = torch.zeros(total, dtype=torch.float32, device=dev)
-    for off, w, b in zip(offsets, ws[0::2], ws[1::2]):
-        params[off:off + w.numel()] = w.reshape(-1)
-        params[off + w.numel():off + w.numel() + b.numel()] = b
-    m = torch.zeros_like(params)
-    v = torch.zeros_like(params)
+    params = _kernel_layout(flat_weights(mlp), ws, offsets, total)
+    if state is None:
+        m = torch.zeros_like(params)
+        v = torch.zeros_like(params)
+    else:
+        m = _kernel_layout(state.m, ws, offsets, total)
+        v = _kernel_layout(state.v, ws, offsets, total)
     work = torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(n)), dtype=torch.float32,
                        device=dev)
+    # the step flags, then the Adam count before each step: counts[0] =
+    # ints[n_iter] is the carried count, counts[n_iter] = ints[2 n_iter] the last
     ints = torch.zeros(2 * n_iter + 1, dtype=torch.int32, device=dev)
+    if state is not None:
+        ints[n_iter:n_iter + 1].copy_(state.count.reshape(1))
     losses = torch.empty(n_iter, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.pinnfc_train_dnn(
         x.data_ptr(), y.data_ptr(), n, params.data_ptr(), m.data_ptr(), v.data_ptr(),
-        work.data_ptr(), ints.data_ptr(), losses.data_ptr(), int(seed) & _U32, int(n_iter),
-        float(lr), int(lr_step), float(lr_gamma), thresh, inv_keep, _inv_n(n),
+        work.data_ptr(), ints.data_ptr(), losses.data_ptr(), int(seed) & _U32, int(t0),
+        int(n_iter), float(lr), int(lr_step), float(lr_gamma), thresh, inv_keep, _inv_n(n),
         int(bool(skip_nonfinite)), stream,
     )
     build.check(status, "train_dnn")
     build.LAUNCHES["train_dnn"] += 1
-    trained = []
-    for off, w, b in zip(offsets, ws[0::2], ws[1::2]):
-        trained.append(params[off:off + w.numel()].view(w.shape))
-        trained.append(params[off + w.numel():off + w.numel() + b.numel()])
-    return mlp_with_weights(mlp, trained), losses
+    new_state = AdamState(_flat_layout(m, ws, offsets), _flat_layout(v, ws, offsets),
+                          ints[2 * n_iter].to(torch.int64))
+    trained = _unflat(_flat_layout(params, ws, offsets), ws)
+    return DnnStageOut(mlp_with_weights(mlp, trained), losses, new_state)

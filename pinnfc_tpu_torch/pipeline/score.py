@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from pinnfc_tpu_torch.config import TrainConfig, train_config_from_dict
+from pinnfc_tpu_torch.data.campaign import CampaignConfig, load_campaign_dataset
 from pinnfc_tpu_torch.data.combine import FuelCellDataset, combine_and_normalize
 from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehensive_results
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
@@ -57,6 +58,7 @@ def run_scoring_pipeline(
     ckpt_path: str,
     config: Optional[TrainConfig] = None,
     dataset: Optional[FuelCellDataset] = None,
+    campaign: Optional[CampaignConfig] = None,
     mat_path: Optional[str] = None,
     n_normal: int = 6000,
     n_fault: int = 800,
@@ -66,9 +68,11 @@ def run_scoring_pipeline(
 ) -> ScoreResult:
     """Checkpoint + new measurements → ``comprehensive_results`` artifact.
 
-    ``dataset`` (pre-built, already in the checkpoint's normalized space and
-    on ``device``) takes precedence over the synthetic generator, whose output
-    is normalized through the CHECKPOINT's scalers, never re-fit.  ``config``
+    Data source precedence: ``dataset`` (pre-built, already in the
+    checkpoint's normalized space and on ``device``) > ``campaign`` (a
+    ``CampaignConfig`` pointing at real .mat files) > the synthetic generator;
+    a campaign and the generator's output are normalized through the
+    CHECKPOINT's scalers, never re-fit.  ``config``
     supplies the MC export settings and the seed; None adopts the
     checkpoint's ``.meta.json`` training config, else ``TrainConfig()``.
     ``mc_seed`` defaults to ``default_mc_seed(config.seed)``.  ``device``
@@ -96,6 +100,13 @@ def run_scoring_pipeline(
     timings["ckpt_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    if dataset is None and campaign is not None:
+        dataset = load_campaign_dataset(campaign, scalers=scalers, device=dev)
+        if verbose:
+            print(f"campaign: {dataset.info.normal_samples} normal rows + "
+                  f"{len(dataset.info.segment_labels)} fault segments "
+                  f"({dataset.info.fault_samples} rows), normalized through "
+                  "the checkpoint's scalers")
     if dataset is None:
         normal, faults = synthesize_stack_data(
             n_normal=n_normal, n_fault=n_fault, seed=config.seed

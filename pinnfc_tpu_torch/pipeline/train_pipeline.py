@@ -2,7 +2,7 @@
 (counterpart of ``pinnfc_tpu/pipeline/train_pipeline.py``; the reference's
 ``__main__``, 01:2055-2228).
 
-``run_training_pipeline`` synthesizes (or takes) the campaign, initialises the
+``run_training_pipeline`` synthesizes, loads from .mat files, or takes the campaign, initialises the
 PINN from a ``torch.Generator`` seeded with ``config.seed``, runs the staged
 schedule (``training/stages.py``: the DNN stages through the training kernel),
 exports the 22-column artifact through the MC-dropout and residual kernels
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pinnfc_tpu_torch.config import TrainConfig
+from pinnfc_tpu_torch.data.campaign import CampaignConfig, load_campaign_dataset
 from pinnfc_tpu_torch.data.combine import FuelCellDataset, combine_and_normalize
 from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehensive_results
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
@@ -141,23 +142,34 @@ def evaluate_voltage_metrics(
 def run_training_pipeline(
     config: TrainConfig = TrainConfig(),
     dataset: Optional[FuelCellDataset] = None,
+    campaign: Optional[CampaignConfig] = None,
     mat_path: Optional[str] = None,
     n_normal: int = 6000,
     n_fault: int = 800,
     verbose: bool = False,
     checkpoint_dir: Optional[str] = None,
+    ckpt_every: Optional[int] = None,
     device="cuda",
 ) -> PipelineResult:
     """Execute the stage-01 pipeline on ``device`` (the card by default; it
-    raises when CUDA is absent).  ``dataset`` (pre-built, on ``device``) takes
-    precedence over the synthetic generator.  ``checkpoint_dir`` saves the
-    params after every stage and resumes a restarted run (see
-    ``run_schedule``).  ``timings`` holds ``data_s``, ``train_s`` and
-    ``export_s``; the metric block gains ``final_loss/<k:stage>``."""
+    raises when CUDA is absent).  Data source precedence: ``dataset``
+    (pre-built, on ``device``) > ``campaign`` (a ``CampaignConfig`` pointing
+    at real .mat files, reference 01:2055-2135) > the synthetic generator.
+    ``checkpoint_dir`` saves the params after every stage, or with
+    ``ckpt_every`` after every ``ckpt_every`` steps inside each stage, and
+    resumes a restarted run (see ``run_schedule``).  ``timings`` holds
+    ``data_s``, ``train_s`` and ``export_s``; the metric block gains
+    ``final_loss/<k:stage>``."""
     dev = resolve_device(device)
     timings: Dict[str, float] = {}
 
     t0 = time.perf_counter()
+    if dataset is None and campaign is not None:
+        dataset = load_campaign_dataset(campaign, device=dev)
+        if verbose:
+            print(f"campaign: {dataset.info.normal_samples} normal rows + "
+                  f"{len(dataset.info.segment_labels)} fault segments "
+                  f"({dataset.info.fault_samples} rows)")
     if dataset is None:
         normal, faults = synthesize_stack_data(n_normal=n_normal, n_fault=n_fault,
                                                seed=config.seed)
@@ -171,7 +183,8 @@ def run_training_pipeline(
     params, log = run_schedule(
         params, dataset.x_train, dataset.y_train, dataset.scaler_x, dataset.scaler_y,
         schedule=config.schedule, seed=config.seed, dropout_p=config.model.dropout_p,
-        verbose=verbose, checkpoint_dir=checkpoint_dir, precision=config.model.precision,
+        verbose=verbose, checkpoint_dir=checkpoint_dir, ckpt_every=ckpt_every,
+        precision=config.model.precision,
         skip_nonfinite=config.skip_nonfinite,
     )  # each stage ends by copying its losses to the host, which syncs the device
     timings["train_s"] = time.perf_counter() - t0

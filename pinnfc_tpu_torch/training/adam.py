@@ -8,13 +8,16 @@ staircase=True))`` as the JAX package builds it (``training/stages.py:64-71``):
 
 with ε outside the root.  The count lives on the parameters' device as an
 int64 scalar, so a stage never syncs with the host, and ``keep_if_nonfinite``
-can hold it back together with the moments.
+can hold it back together with the moments.  An ``AdamState`` carries a stage
+across chunks (the role of the optax state that the JAX package's ``_opt_init``
+builds), and a mid-stage snapshot stores it through ``adam_state_to_numpy``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -29,6 +32,40 @@ class AdamState(NamedTuple):
 def adam_init(w: torch.Tensor) -> AdamState:
     return AdamState(torch.zeros_like(w), torch.zeros_like(w),
                      torch.zeros((), dtype=torch.int64, device=w.device))
+
+
+# marks a snapshot's optimizer state as this package's (the JAX package stores
+# an optax state tree there, which the port cannot resume)
+SNAPSHOT_WRITER = "pinnfc_tpu_torch"
+
+
+def adam_state_to_numpy(state: AdamState,
+                        tree_of: Optional[Callable[[np.ndarray], Any]] = None) -> Dict[str, Any]:
+    """The snapshot payload of ``state``: the writer mark, the count, and both
+    moments, each as ``tree_of(moment)`` when given (a layout for the file)."""
+    tree_of = tree_of or (lambda a: a)
+    return {"writer": np.asarray(SNAPSHOT_WRITER),
+            "count": np.asarray(int(state.count), np.int64),
+            "m": tree_of(state.m.detach().cpu().numpy()),
+            "v": tree_of(state.v.detach().cpu().numpy())}
+
+
+def is_port_adam_state(tree) -> bool:
+    """Whether a snapshot's ``opt`` entry was written by ``adam_state_to_numpy``."""
+    return isinstance(tree, dict) and str(tree.get("writer", "")) == SNAPSHOT_WRITER
+
+
+def adam_state_from_numpy(tree: Dict[str, Any], device,
+                          flat_of: Optional[Callable[[Any], np.ndarray]] = None) -> AdamState:
+    """Inverse of ``adam_state_to_numpy`` on ``device``; ``flat_of`` undoes its
+    ``tree_of``."""
+    flat_of = flat_of or (lambda a: a)
+
+    def moment(key):
+        return torch.as_tensor(np.array(flat_of(tree[key]), np.float32), device=device)
+
+    count = torch.as_tensor(np.asarray(tree["count"], np.int64).reshape(()), device=device)
+    return AdamState(moment("m"), moment("v"), count)
 
 
 def step_lr(count: torch.Tensor, lr: float, lr_step: int, lr_gamma: float) -> torch.Tensor:

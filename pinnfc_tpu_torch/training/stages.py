@@ -18,6 +18,13 @@ Every stage starts a fresh Adam.  With ``skip_nonfinite`` a step whose loss or
 any gradient element is non-finite leaves the parameters AND the optimizer
 state (moments and count) as they were — the reference's
 try/except-and-continue loops (01:1204-1286, 01:1354-1396).
+
+Each stage can also run in chunks (``train_dnn_chunk``,
+``train_lambda_v_chunk``, ``train_residual_chunk``) that carry the Adam state
+(``training/adam.py::AdamState``) from one chunk to the next: a stage run in
+chunks takes the same steps as the whole stage.  ``run_schedule`` with
+``ckpt_every`` snapshots after every chunk, so a run killed mid-stage resumes
+at its last chunk boundary.
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_simple
 from pinnfc_tpu_torch.physics.voltage import voltage_residual
-from pinnfc_tpu_torch.training.adam import adam_init, adam_step, all_finite, keep_if_nonfinite
-from pinnfc_tpu_torch.utils.checkpoint import load_params_npz, save_params_npz
-from pinnfc_tpu_torch.utils.jax_params import params_from_jax, params_to_numpy
+from pinnfc_tpu_torch.training.adam import (
+    AdamState, adam_init, adam_state_from_numpy, adam_state_to_numpy, adam_step, all_finite,
+    is_port_adam_state, keep_if_nonfinite)
+from pinnfc_tpu_torch.utils import checkpoint
+from pinnfc_tpu_torch.utils.jax_params import (
+    mlp_tree_from_flat, mlp_tree_to_flat, params_from_jax, params_to_numpy)
 
 PRECISIONS = ("highest", "default")
 _GROUP_OF = {"thermal": "lam_t", "hydrogen": "lam_h", "oxygen": "lam_o"}
@@ -63,6 +73,14 @@ def dnn_stage_seed(seed: int, k: int) -> int:
     return int(np.random.RandomState([int(seed), int(k)]).randint(0, 2**31 - 1))
 
 
+def _check_precision(precision: str, x: torch.Tensor) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if precision == "default" and x.device.type == "cuda":
+        raise ValueError("precision='default' needs a single-TF32 or bf16 form of the "
+                         "training kernel, which is not ported yet; use 'highest'")
+
+
 def train_dnn_stage(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
@@ -78,25 +96,38 @@ def train_dnn_stage(
     throughput mode) needs a single-TF32 or bf16 form of the kernel, which does
     not exist yet, and raises there.  On a CPU tensor it runs the plain
     version, in float32 for either precision."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if precision == "default" and x.device.type == "cuda":
-        raise ValueError("precision='default' needs a single-TF32 or bf16 form of the "
-                         "training kernel, which is not ported yet; use 'highest'")
-    mlp, losses = train_dnn(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p,
-                            skip_nonfinite)
-    return StageResult(mlp, losses)
+    _check_precision(precision, x)
+    out = train_dnn(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite)
+    return StageResult(out.mlp, out.losses)
 
 
-def _fit_lambda(loss_fn: Callable[[torch.Tensor], torch.Tensor], lam0: torch.Tensor,
-                group: str, n_iter: int, lr: float, lr_step: int, lr_gamma: float,
-                skip_nonfinite: bool) -> StageResult:
-    """Adam + post-step box clamp over one λ vector."""
-    lo, hi = (torch.as_tensor(b, device=lam0.device) for b in LAMBDA_BOUNDS[group])
-    lam = lam0.detach().clone()
-    state = adam_init(lam)
+def train_dnn_chunk(
+    mlp: MLP, opt_state: Optional[AdamState], x: torch.Tensor, y: torch.Tensor, seed: int,
+    start: int, length: int, lr: float = 0.01, lr_step: int = 1000, lr_gamma: float = 0.8,
+    dropout_p: float = 0.2, precision: str = "highest", skip_nonfinite: bool = False,
+) -> Tuple[MLP, AdamState, torch.Tensor]:
+    """``length`` steps of the DNN stage from step ``start``, carrying the Adam
+    state (None: fresh) across chunks: (mlp, state, losses).  Step s draws the
+    masks of step s of the whole stage (the salt takes the step index inside
+    the stage), so the chunks of a stage take its steps; on a CUDA tensor one
+    training-kernel launch per chunk."""
+    _check_precision(precision, x)
+    out = train_dnn(mlp, x, y, seed, length, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite,
+                    t0=start, state=opt_state)
+    return out.mlp, out.state, out.losses
+
+
+def _lambda_steps(loss_fn: Callable[[torch.Tensor], torch.Tensor], lam: torch.Tensor,
+                  state: Optional[AdamState], group: str, length: int, lr: float,
+                  lr_step: int, lr_gamma: float, skip_nonfinite: bool,
+                  ) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
+    """``length`` Adam + post-step box-clamp steps over one λ vector from the
+    carried state (None: fresh): (λ, state, losses)."""
+    lo, hi = (torch.as_tensor(b, device=lam.device) for b in LAMBDA_BOUNDS[group])
+    lam = lam.detach().clone()
+    state = adam_init(lam) if state is None else state
     losses = []
-    for _ in range(n_iter):
+    for _ in range(length):
         var = lam.detach().requires_grad_(True)
         loss = loss_fn(var)
         (g,) = torch.autograd.grad(loss, var)
@@ -107,7 +138,30 @@ def _fit_lambda(loss_fn: Callable[[torch.Tensor], torch.Tensor], lam0: torch.Ten
             new = keep_if_nonfinite(all_finite(loss, g), new, (lam, state))
         lam, state = new
         losses.append(loss)
-    return StageResult(lam, torch.stack(losses))
+    return lam, state, torch.stack(losses)
+
+
+def _lambda_v_loss_fn(x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, dnn_para):
+    """Voltage-λ stage loss (01:1025-1032), shared by the stage and its chunks."""
+    scale_y, min_y = scaler_y.loss_affine()
+    u_pred_norm = u_pred_norm.detach()
+
+    def loss_fn(lam):
+        v = voltage_residual(lam, x_norm, u_pred_norm, scaler_x, scaler_y)
+        if dnn_para:
+            return torch.mean(v.f**2)
+        return torch.mean((y_norm - (v.v_out_est_stack * scale_y + min_y)) ** 2)
+
+    return loss_fn
+
+
+def _residual_loss_fn(x_norm, scaler_x, group):
+    residual = _RESIDUAL[group]
+
+    def loss_fn(lam):
+        return torch.mean(residual(lam, x_norm, scaler_x).f ** 2)
+
+    return loss_fn
 
 
 def train_lambda_v_stage(
@@ -122,16 +176,24 @@ def train_lambda_v_stage(
     MSE(y_norm, V_out_est·scale_y + min_y) (01:1025-1032); ``dnn_para=True`` →
     residual loss mean(f²) (01:1029).  ``u_pred_norm`` is the eval-mode DNN
     prediction, a stage constant."""
-    scale_y, min_y = scaler_y.loss_affine()
-    u_pred_norm = u_pred_norm.detach()
+    lam, _, losses = train_lambda_v_chunk(
+        lam_v, None, x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, n_iter, lr, lr_step,
+        lr_gamma, dnn_para, skip_nonfinite)
+    return StageResult(lam, losses)
 
-    def loss_fn(lam):
-        v = voltage_residual(lam, x_norm, u_pred_norm, scaler_x, scaler_y)
-        if dnn_para:
-            return torch.mean(v.f**2)
-        return torch.mean((y_norm - (v.v_out_est_stack * scale_y + min_y)) ** 2)
 
-    return _fit_lambda(loss_fn, lam_v, "lam_v", n_iter, lr, lr_step, lr_gamma, skip_nonfinite)
+def train_lambda_v_chunk(
+    lam_v: torch.Tensor, opt_state: Optional[AdamState], x_norm: torch.Tensor,
+    y_norm: torch.Tensor, u_pred_norm: torch.Tensor, scaler_x: AffineScaler,
+    scaler_y: AffineScaler, length: int, lr: float = 1e-3, lr_step: int = 1000,
+    lr_gamma: float = 0.8, dnn_para: bool = False, skip_nonfinite: bool = False,
+) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
+    """``length`` steps of the voltage-λ stage from the carried Adam state
+    (None: fresh): (λ, state, losses).  The count in the state carries the
+    StepLR staircase across chunk boundaries."""
+    loss_fn = _lambda_v_loss_fn(x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, dnn_para)
+    return _lambda_steps(loss_fn, lam_v, opt_state, "lam_v", length, lr, lr_step, lr_gamma,
+                         skip_nonfinite)
 
 
 def train_residual_stage(
@@ -140,12 +202,20 @@ def train_residual_stage(
 ) -> StageResult:
     """Thermal / hydrogen / oxygen stage: loss = mean(f²) over one λ group
     (reference 01:1060-1399)."""
-    residual = _RESIDUAL[group]
+    lam, _, losses = train_residual_chunk(lam, None, x_norm, scaler_x, group, n_iter, lr,
+                                          lr_step, lr_gamma, skip_nonfinite)
+    return StageResult(lam, losses)
 
-    def loss_fn(l):
-        return torch.mean(residual(l, x_norm, scaler_x).f ** 2)
 
-    return _fit_lambda(loss_fn, lam, group, n_iter, lr, lr_step, lr_gamma, skip_nonfinite)
+def train_residual_chunk(
+    lam: torch.Tensor, opt_state: Optional[AdamState], x_norm: torch.Tensor,
+    scaler_x: AffineScaler, group: str, length: int, lr: float, lr_step: int = 1000,
+    lr_gamma: float = 0.8, skip_nonfinite: bool = False,
+) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
+    """``length`` steps of a thermal/hydrogen/oxygen stage from the carried
+    Adam state (None: fresh): (λ, state, losses)."""
+    return _lambda_steps(_residual_loss_fn(x_norm, scaler_x, group), lam, opt_state, group,
+                         length, lr, lr_step, lr_gamma, skip_nonfinite)
 
 
 @dataclasses.dataclass
@@ -164,6 +234,16 @@ class TrainLog:
         return {name: float(losses[-1]) for name, losses in self.stages}
 
 
+def _piece_key(name: str) -> str:
+    if name == "dnn":
+        return "mlp"
+    if name == "lambda_v":
+        return "lam_v"
+    if name in _GROUP_OF:
+        return _GROUP_OF[name]
+    raise ValueError(f"unknown stage '{name}'")
+
+
 def run_schedule(
     params: PinnParams,
     x_train: torch.Tensor,
@@ -175,6 +255,7 @@ def run_schedule(
     dropout_p: float = 0.2,
     verbose: bool = False,
     checkpoint_dir: Optional[str] = None,
+    ckpt_every: Optional[int] = None,
     precision: str = "highest",
     skip_nonfinite: bool = False,
 ) -> Tuple[PinnParams, TrainLog]:
@@ -185,18 +266,29 @@ def run_schedule(
     With ``checkpoint_dir``, the params are saved after every stage
     (``schedule_ckpt.npz``: params and stage index) and a restarted run
     resumes at the first stage not yet done, reproducing the uninterrupted
-    run.  A snapshot written at a stage index past this schedule's end
-    raises, as does a mid-stage snapshot (``ckpt_every`` is not ported)."""
+    run.  A snapshot written at a stage index past this schedule's end raises.
+
+    With ``ckpt_every=m``, every stage runs in chunks of m steps and the
+    snapshot after each chunk also holds the step reached inside the stage,
+    the Adam state (marked as this package's) and the stage's losses so far: a
+    run killed mid-stage resumes at its last chunk boundary and ends where the
+    uninterrupted chunked run ends, bit for bit.  Without ``ckpt_every`` a
+    stage is one chunk of its ``n_iter`` steps, and a stage resumed from a
+    mid-stage snapshot runs the rest of it as one chunk.  A mid-stage snapshot of the JAX package
+    (an optax state) raises ``ValueError``; its per-stage snapshots resume."""
     schedule = default_schedule() if schedule is None else schedule
+    if ckpt_every is not None and ckpt_every < 1:
+        raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
     log = TrainLog()
     dev = x_train.device
     start_stage = 0
+    mid_resume = None  # (step, opt tree, losses so far) of stage start_stage
     ckpt_path = None
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
         ckpt_path = os.path.join(checkpoint_dir, "schedule_ckpt.npz")
         if os.path.exists(ckpt_path):
-            payload = load_params_npz(ckpt_path)
+            payload = checkpoint.load_params_npz(ckpt_path)
             k0 = int(payload["stage"])
             if k0 >= len(schedule):
                 raise ValueError(
@@ -204,52 +296,82 @@ def run_schedule(
                     f"the current schedule has only {len(schedule)} stages — "
                     "the checkpoint does not match this schedule"
                 )
-            if "step" in payload and int(payload["step"]) < schedule[k0].n_iter:
-                raise ValueError(
-                    f"checkpoint at {ckpt_path} is a mid-stage snapshot (stage {k0}, "
-                    f"step {int(payload['step'])}); mid-stage resume is not ported"
-                )
+            step_done = int(payload["step"]) if "step" in payload else None
+            if step_done is None or step_done >= schedule[k0].n_iter:
+                start_stage = k0 + 1
+            else:
+                if not is_port_adam_state(payload.get("opt")):
+                    raise ValueError(
+                        f"checkpoint at {ckpt_path} is a mid-stage snapshot (stage {k0}, "
+                        f"step {step_done}) whose optimizer state this package did not "
+                        "write (the JAX package's optax state); the port cannot resume "
+                        "it: finish the stage with the package that wrote it, or remove "
+                        "the snapshot to start the schedule anew")
+                start_stage = k0
+                mid_resume = (step_done, payload["opt"], np.asarray(payload["losses"]))
             params = params_from_jax(payload["params"], device=dev)
-            start_stage = k0 + 1
             if verbose:
-                print(f"resuming schedule at stage {start_stage}")
+                where = (f"stage {start_stage}" if mid_resume is None
+                         else f"stage {k0} step {step_done}")
+                print(f"resuming schedule at {where}")
+
+    def run_stage(k, stage, params, resume):
+        """Run stage k from the resumed step and Adam state in chunks of
+        ckpt_every steps (one chunk without it).  After a chunk that ends
+        inside the stage, or any chunk under ckpt_every, the snapshot holds
+        (params, stage, step, opt, losses); otherwise (params, stage)."""
+        key = _piece_key(stage.name)
+        piece = params[key]
+        if key == "mlp":  # the moments lie in the MLP's JAX layout in the file
+            tree_of = lambda a: mlp_tree_from_flat(a, piece)  # noqa: E731
+            flat_of = mlp_tree_to_flat
+        else:
+            tree_of = flat_of = None
+        if key == "lam_v":
+            with torch.no_grad():
+                u_pred, _ = params["mlp"](x_train)
+        start, opt_state, acc = 0, None, []
+        if resume is not None:
+            start, opt_tree, losses_prev = resume
+            opt_state = adam_state_from_numpy(opt_tree, dev, flat_of)
+            acc.append(losses_prev)
+        every = ckpt_every if ckpt_every is not None else stage.n_iter - start
+        common = dict(lr=stage.lr, lr_step=stage.lr_step, lr_gamma=stage.lr_gamma,
+                      skip_nonfinite=skip_nonfinite)
+        s = start
+        while s < stage.n_iter:
+            m = min(every, stage.n_iter - s)
+            if key == "mlp":
+                piece, opt_state, losses = train_dnn_chunk(
+                    piece, opt_state, x_train, y_train, dnn_stage_seed(seed, k), s, m,
+                    dropout_p=dropout_p, precision=precision, **common)
+            elif key == "lam_v":
+                piece, opt_state, losses = train_lambda_v_chunk(
+                    piece, opt_state, x_train, y_train, u_pred, scaler_x, scaler_y, m,
+                    dnn_para=stage.dnn_para, **common)
+            else:
+                piece, opt_state, losses = train_residual_chunk(
+                    piece, opt_state, x_train, scaler_x, key, m, **common)
+            s += m
+            acc.append(losses.cpu().numpy())
+            params = {**params, key: piece}
+            if ckpt_path is not None:
+                payload = {"params": params_to_numpy(params), "stage": np.asarray(k)}
+                if ckpt_every is not None or s < stage.n_iter:
+                    payload.update(step=np.asarray(s),
+                                   opt=adam_state_to_numpy(opt_state, tree_of),
+                                   losses=np.concatenate(acc))
+                # looked up at call time, so a test can stand in for the writer
+                checkpoint.save_params_npz(payload, ckpt_path)
+        return params, np.concatenate(acc)
 
     for k, stage in enumerate(schedule):
         if k < start_stage:
             continue
         t0 = time.perf_counter()
-        if stage.name == "dnn":
-            res = train_dnn_stage(
-                params["mlp"], x_train, y_train, dnn_stage_seed(seed, k), n_iter=stage.n_iter,
-                lr=stage.lr, lr_step=stage.lr_step, lr_gamma=stage.lr_gamma,
-                dropout_p=dropout_p, precision=precision, skip_nonfinite=skip_nonfinite,
-            )
-            params = {**params, "mlp": res.params}
-        elif stage.name == "lambda_v":
-            with torch.no_grad():
-                u_pred, _ = params["mlp"](x_train)
-            res = train_lambda_v_stage(
-                params["lam_v"], x_train, y_train, u_pred, scaler_x, scaler_y,
-                n_iter=stage.n_iter, lr=stage.lr, lr_step=stage.lr_step,
-                lr_gamma=stage.lr_gamma, dnn_para=stage.dnn_para,
-                skip_nonfinite=skip_nonfinite,
-            )
-            params = {**params, "lam_v": res.params}
-        elif stage.name in _GROUP_OF:
-            group = _GROUP_OF[stage.name]
-            res = train_residual_stage(
-                params[group], x_train, scaler_x, group, n_iter=stage.n_iter, lr=stage.lr,
-                lr_step=stage.lr_step, lr_gamma=stage.lr_gamma, skip_nonfinite=skip_nonfinite,
-            )
-            params = {**params, group: res.params}
-        else:
-            raise ValueError(f"unknown stage '{stage.name}'")
-        losses = res.losses.cpu().numpy()
+        params, losses = run_stage(k, stage, params, mid_resume if k == start_stage else None)
         seconds = time.perf_counter() - t0
         log.add(f"{k}:{stage.name}", losses, seconds)
-        if ckpt_path is not None:
-            save_params_npz({"params": params_to_numpy(params), "stage": np.asarray(k)},
-                            ckpt_path)
         if verbose:
             print(f"stage {k} [{stage.name:9s}] {stage.n_iter:6d} steps  "
                   f"loss {losses[0]:.3e} → {losses[-1]:.3e}  ({seconds:.3f} s)")

@@ -52,6 +52,29 @@ def mlp_to_numpy(mlp: MLP) -> Dict[str, Any]:
             "var": [lin(l) for l in mlp.var]}
 
 
+def mlp_tree_from_flat(flat: np.ndarray, mlp: MLP) -> Dict[str, Any]:
+    """A flat vector over ``mlp``'s tensors, in the order and layout of the
+    training kernel's plain version (per Linear ``w`` (in, out) row-major, then
+    ``b``; hidden trunk, mean head, variance head) → bare JAX MLP tree."""
+    flat = np.asarray(flat)
+    layers, off = [], 0
+    for lin in mlp.linears():
+        k, j = lin.in_features, lin.out_features
+        layers.append({"w": flat[off:off + k * j].reshape(k, j),
+                       "b": flat[off + k * j:off + k * j + j]})
+        off += k * j + j
+    if off != flat.size:
+        raise ValueError(f"a flat vector of {flat.size} values does not fit MLP {mlp.layers}")
+    n = len(mlp.hidden)
+    return {"hidden": layers[:n], "mean": layers[n], "var": layers[n + 1:]}
+
+
+def mlp_tree_to_flat(tree: Dict[str, Any]) -> np.ndarray:
+    """Inverse of ``mlp_tree_from_flat``."""
+    return np.concatenate([np.asarray(layer[key], np.float32).reshape(-1)
+                           for layer in _jax_linears(tree) for key in ("w", "b")])
+
+
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> PinnParams:
     """JAX-layout params tree of numpy arrays → port params on ``device``."""
     params: PinnParams = {"mlp": mlp_from_jax(tree["mlp"], device=device)}

@@ -55,9 +55,9 @@ def test_train_kernel_matches_plain(cuda_device, dropout_p, n):
     y = torch.as_tensor(rs.uniform(-1, 1, (n, 1)).astype(np.float32), device=cuda_device)
     mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
     before = build.LAUNCHES["train_dnn"]
-    km, kl = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
+    km, kl, _ = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
     assert build.LAUNCHES["train_dnn"] == before + 1
-    pm, pl = td.train_dnn_stage_plain(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5,
+    pm, pl, _ = td.train_dnn_stage_plain(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5,
                                       dropout_p=dropout_p)
     torch.testing.assert_close(kl[0], pl[0], rtol=2e-5, atol=0)
     torch.testing.assert_close(kl, pl, rtol=5e-3, atol=1e-5)
@@ -65,6 +65,52 @@ def test_train_kernel_matches_plain(cuda_device, dropout_p, n):
         torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
     again = td.train_dnn(mlp, x, y, 3, 10, lr_step=4, lr_gamma=0.5, dropout_p=dropout_p)
     assert torch.equal(again[1], kl)
+
+
+def _train_inputs(n, device):
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.uniform(-1, 1, (n, 8)).astype(np.float32), device=device)
+    y = torch.as_tensor(rs.uniform(-1, 1, (n, 1)).astype(np.float32), device=device)
+    return MLP(generator=torch.Generator().manual_seed(0), device=device), x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [(5, 7), (4, 4, 4)])
+def test_train_kernel_chunks_equal_the_whole_stage(cuda_device, split):
+    """A stage run as chunks (start step t0, carried Adam moments and count)
+    equals the whole stage bitwise: the same four launches per step, no float
+    atomics; the staircase (lr_step 3) turns inside the chunks."""
+    mlp, x, y = _train_inputs(1000, cuda_device)
+    hp = dict(lr_step=3, lr_gamma=0.5, dropout_p=0.2)
+    whole = td.train_dnn(mlp, x, y, 3, sum(split), **hp)
+    piece, state, losses, t0 = mlp, None, [], 0
+    for m in split:
+        piece, got, state = td.train_dnn(piece, x, y, 3, m, t0=t0, state=state, **hp)
+        losses.append(got)
+        t0 += m
+    assert int(state.count) == sum(split) == int(whole.state.count)
+    assert torch.equal(torch.cat(losses), whole.losses)
+    assert torch.equal(td.flat_weights(piece), td.flat_weights(whole.mlp))
+    assert torch.equal(state.m, whole.state.m) and torch.equal(state.v, whole.state.v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
+def test_train_kernel_from_t0_with_carried_state_matches_plain(cuda_device, n):
+    """From step 4 with the Adam state after 4 steps, the kernel against its
+    plain version at the tolerances of test_train_kernel_matches_plain."""
+    mlp, x, y = _train_inputs(n, cuda_device)
+    hp = dict(lr_step=3, lr_gamma=0.5, dropout_p=0.2)
+    start, _, state = td.train_dnn_stage_plain(mlp, x, y, 3, 4, **hp)
+    km, kl, ks = td.train_dnn(start, x, y, 3, 6, t0=4, state=state, **hp)
+    pm, pl, ps = td.train_dnn_stage_plain(start, x, y, 3, 6, t0=4, state=state, **hp)
+    torch.testing.assert_close(kl[0], pl[0], rtol=2e-5, atol=0)
+    torch.testing.assert_close(kl, pl, rtol=5e-3, atol=1e-5)
+    for a, b in zip(td.mlp_weights(km), td.mlp_weights(pm)):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+    assert int(ks.count) == int(ps.count) == 10
+    torch.testing.assert_close(ks.m, ps.m, rtol=5e-3, atol=5e-3)
+    torch.testing.assert_close(ks.v, ps.v, rtol=5e-3, atol=5e-3)
 
 
 @pytest.mark.cuda

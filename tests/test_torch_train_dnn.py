@@ -76,7 +76,7 @@ def test_plain_matches_pallas_interpret(setup, lr, w_atol):
     jm, x, y = setup
     want = train_dnn_pallas(jm, x, y, seed=5, n_iter=6, lr=lr, lr_step=3, lr_gamma=0.5,
                             dropout_p=0.2, interpret=True)
-    mlp, losses = td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y),
+    mlp, losses, _ = td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y),
                                            5, 6, lr=lr, lr_step=3, lr_gamma=0.5, dropout_p=0.2)
     np.testing.assert_allclose(losses.numpy(), np.asarray(want.losses), rtol=5e-4, atol=1e-5)
     _assert_weights(mlp, want.params, rtol=1e-3, atol=w_atol)
@@ -89,7 +89,7 @@ def test_plain_matches_jax_scan_trainer_without_dropout_ragged(setup):
     x, y = x[:1000], y[:1000]
     want = jax_train_dnn_stage(jm, x, y, jax.random.PRNGKey(1), n_iter=6, lr=1e-3, lr_step=3,
                                lr_gamma=0.5, dropout_p=0.0)
-    mlp, losses = td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y),
+    mlp, losses, _ = td.train_dnn_stage_plain(_port(jm), torch.as_tensor(x), torch.as_tensor(y),
                                            9, 6, lr=1e-3, lr_step=3, lr_gamma=0.5, dropout_p=0.0)
     np.testing.assert_allclose(losses.numpy(), np.asarray(want.losses), rtol=5e-4, atol=1e-5)
     _assert_weights(mlp, want.params, rtol=1e-3, atol=1e-5)
@@ -141,12 +141,12 @@ def test_skip_nonfinite_keeps_initial_weights_on_a_nan_row(setup):
     x = x[:300].copy()
     x[17, 3] = np.nan
     mlp0 = _port(jm)
-    mlp, losses = td.train_dnn_stage_plain(mlp0, torch.as_tensor(x), torch.as_tensor(y[:300]),
+    mlp, losses, _ = td.train_dnn_stage_plain(mlp0, torch.as_tensor(x), torch.as_tensor(y[:300]),
                                            3, 4, dropout_p=0.2, skip_nonfinite=True)
     assert torch.isnan(losses).all()
     for a, b in zip(td.mlp_weights(mlp), td.mlp_weights(mlp0)):
         assert torch.equal(a, b)
-    poisoned, _ = td.train_dnn_stage_plain(mlp0, torch.as_tensor(x), torch.as_tensor(y[:300]),
+    poisoned, _, _ = td.train_dnn_stage_plain(mlp0, torch.as_tensor(x), torch.as_tensor(y[:300]),
                                            3, 1, dropout_p=0.2)
     assert torch.isnan(td.mlp_weights(poisoned)[0]).any()
 
@@ -170,7 +170,7 @@ def test_skipped_step_does_not_advance_the_adam_count(setup, monkeypatch):
 
     monkeypatch.setattr(td, "loss_and_grads", poisoned)
     with one_thread():
-        mlp, _ = td.train_dnn_stage_plain(_port(jm), xt, yt, 21, 4, lr=0.01, lr_step=1,
+        mlp, _, _ = td.train_dnn_stage_plain(_port(jm), xt, yt, 21, 4, lr=0.01, lr_step=1,
                                           lr_gamma=0.5, dropout_p=0.2, skip_nonfinite=True)
     monkeypatch.setattr(td, "loss_and_grads", real)
 
@@ -214,7 +214,7 @@ def test_any_depth_on_the_cpu():
     y = rs.uniform(-1, 1, (128, 1)).astype(np.float32)
     want = jax_train_dnn_stage(jm, x, y, jax.random.PRNGKey(0), n_iter=5, lr=1e-3,
                                dropout_p=0.0)
-    mlp, losses = td.train_dnn(_port(jm), torch.as_tensor(x), torch.as_tensor(y), 0, 5,
+    mlp, losses, _ = td.train_dnn(_port(jm), torch.as_tensor(x), torch.as_tensor(y), 0, 5,
                                lr=1e-3, dropout_p=0.0)
     np.testing.assert_allclose(losses.numpy(), np.asarray(want.losses), rtol=5e-4, atol=1e-5)
 
