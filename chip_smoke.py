@@ -66,8 +66,22 @@ Phases, any failure exits non-zero before the result line:
    snapshot writer after chunk 2 (inside the DNN stage) or 5 (inside the λ
    stage): the resumed run, restarted with ``ckpt_every`` or without, equals
    the uninterrupted chunked run bitwise, which equals the unchunked one;
-   then one JSON line ``{"kernels": [...]}``;
-11. the card line, then ``{"ok": true, "device": {...}}`` as the last line.
+11. a non-flagship model at flagship width: ``run_training_pipeline(device=
+   "cuda")`` with four hidden layers (8, 256, 256, 256, 256, 1), the default
+   campaign, the schedule x 0.1 and mc_times 2000, the launch counters reset
+   just before and read just after: the DNN stages take the autograd stage and
+   the export the torch.Generator ('vmap') sampler, so neither the training
+   kernel nor the MC kernel launches, and the residual kernel does; the
+   artifact checked as in phase 7; ``cli score`` on the written checkpoint, a
+   subprocess, reproduces the train-time artifact; the autograd stage in
+   chunks of 70 equals the whole 200-step stage bitwise;
+12. risk on the card: phase 7's artifact through ``run_risk_pipeline`` with
+   the torch backend on the card and with the float64 numpy backend: the same
+   alarm table for every condition, the RF series within the tolerances of
+   tests/test_risk.py; ``cli risk`` on the card and with ``--backend numpy``,
+   two subprocesses, print identical tables;
+then one JSON line ``{"kernels": [...]}``, the card line, and
+``{"ok": true, "device": {...}}`` as the last line.
 
 Imports torch and the port only.
 """
@@ -608,6 +622,161 @@ def check_kill_and_resume(train_ds) -> None:
           "chunked run, params and stitched losses bitwise: ok")
 
 
+# Phase 11's topology.  No config, checkpoint or command-line flag of either
+# package builds it: it stands for a caller of ``ModelConfig.layers``, which
+# the JAX package trains and scores for any topology, taken as the flagship
+# with one more hidden layer at its width.
+NON_FLAGSHIP = (8, 256, 256, 256, 256, 1)
+
+
+def run_non_flagship_slice(dev, train_ds):
+    """Phase 11: train, export and re-score a four-hidden-layer model at
+    flagship width on the card; returns what it prints as one dict."""
+    import dataclasses
+
+    from pinnfc_tpu_torch.cli._common import _train_config
+    from pinnfc_tpu_torch.config import train_config_to_dict
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.models.pinn import init_pinn
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.ops.train_dnn import mlp_weights
+    from pinnfc_tpu_torch.pipeline.train_pipeline import run_training_pipeline
+    from pinnfc_tpu_torch.training.stages import train_dnn_chunk, train_dnn_stage
+    from pinnfc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = _train_config(argparse.Namespace(small=False, seed=42, steps_scale=0.1,
+                                           precision=None, skip_nonfinite=False))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, layers=NON_FLAGSHIP))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    res = run_training_pipeline(cfg, n_normal=6000, n_fault=800, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["train_dnn"] == 0 and launches["mc_dropout"] == 0
+          and launches["residuals"] >= 1, f"non-flagship training path launches {launches}")
+    check(res.export == {"sampler": "vmap", "mc_passes": 2016},
+          f"non-flagship export {res.export}")
+    check(res.params["mlp"].layers == NON_FLAGSHIP, f"layers {res.params['mlp'].layers}")
+    for name, losses in res.log.stages:
+        check(np.isfinite(losses).all(), f"non-finite losses in stage {name}")
+    arr = res.results.array
+    check_artifact(arr, res.params, res.dataset, res.metrics, 15600)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, mat = os.path.join(tmp, "deep"), os.path.join(tmp, "scored.mat")
+        save_checkpoint(ck, res.params, res.dataset.scaler_x, res.dataset.scaler_y,
+                        meta={"config": train_config_to_dict(cfg), "n_normal": 6000,
+                              "n_fault": 800, "metrics": res.metrics})
+        out, score_l, score_wall = run_cli("score", "--ckpt", ck, "--mat-out", mat)
+        check(score_l["mc_dropout"] == 0 and score_l["train_dnn"] == 0
+              and score_l["residuals"] >= 1, f"cli score launches {score_l}")
+        check('"sampler": "vmap"' in out and '"mc_passes": 2016' in out,
+              "cli score did not report the vmap sampler's 2016 passes")
+        scored = load_comprehensive_results(mat).array
+    rescore_diff = 0.0
+    if not np.array_equal(scored, arr, equal_nan=True):
+        finite = np.isfinite(arr) & np.isfinite(scored)
+        rescore_diff = float(np.max(np.abs(scored - arr)[finite]))
+        print(f"[slice] non-flagship: cli score differs from the train-time artifact by at "
+              f"most {rescore_diff:.3e}; held to rtol 1e-6")
+        np.testing.assert_allclose(scored, arr, rtol=1e-6, atol=0, equal_nan=True)
+
+    x, y = train_ds.x_train, train_ds.y_train
+    mlp = init_pinn(NON_FLAGSHIP, generator=torch.Generator().manual_seed(3), device=dev)["mlp"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = train_dnn_stage(mlp, x, y, 17, 200)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) / 200 * 1e3
+    piece, state, parts, start = mlp, None, [], 0
+    for m in (70, 70, 60):
+        piece, state, losses = train_dnn_chunk(piece, state, x, y, 17, start, m)
+        parts.append(losses)
+        start += m
+    same = torch.equal(torch.cat(parts), whole.losses) and all(
+        torch.equal(u, v) for u, v in zip(mlp_weights(piece), mlp_weights(whole.params)))
+    check(same, "the autograd stage in chunks of 70 differs from the whole 200-step stage")
+    check(build.LAUNCHES["train_dnn"] == 0, "the autograd stage launched the training kernel")
+    info = {"layers": list(NON_FLAGSHIP), "sampler": res.export["sampler"],
+            "mc_passes": res.export["mc_passes"], "launches": launches,
+            "cli_score_launches": score_l, "timings": res.timings,
+            "peak_allocated_gib": peak_gib, "cli_score_wall_s": score_wall,
+            "rescore_max_abs_diff": rescore_diff, "autograd_stage_ms_per_step": stage_ms}
+    print(f"[slice] non-flagship {NON_FLAGSHIP}: sampler {info['sampler']}, "
+          f"{info['mc_passes']} passes, launches {json.dumps(launches)}, timings "
+          f"{json.dumps(res.timings)}, peak torch.cuda.max_memory_allocated {peak_gib:.3f} GiB")
+    print(f"[slice] non-flagship per stage (s): "
+          f"{json.dumps({n: round(t, 4) for n, t in res.log.seconds})}")
+    print(f"[slice] non-flagship: cli score (wall {score_wall:.1f} s, launches "
+          f"{json.dumps(score_l)}) {'equals' if not rescore_diff else 'matches'} the "
+          f"train-time artifact; the autograd stage at N={x.shape[0]}: {stage_ms:.4f} ms/step "
+          "(host clock, 200 steps), in chunks of 70 bitwise equal to the whole stage: ok")
+    return info
+
+
+def run_risk_slice(results):
+    """Phase 12: the risk function of script 04 on phase 7's artifact, the
+    torch backend on the card against the float64 numpy backend, and ``cli
+    risk`` with each; returns what it prints as one dict."""
+    from pinnfc_tpu_torch.config import DEFAULT_RF_CONDITIONS, RiskConfig
+    from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehensive_results
+    from pinnfc_tpu_torch.risk import (
+        compute_rf_time_series, condition_row_indices, estimate_mu_sigma_normal,
+        run_risk_pipeline)
+
+    arr = results.array
+    run_risk_pipeline(results, backend="torch", device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = run_risk_pipeline(results, backend="torch", device="cuda")
+    torch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = run_risk_pipeline(results, backend="numpy")
+    numpy_s = time.perf_counter() - t0
+    check(len(on_card) == len(on_host) == 12, f"conditions {len(on_card)}, {len(on_host)}")
+    for a, b in zip(on_card, on_host):
+        keys = ("fault_name", "current_target", "n_samples", "idx_v_alarm", "idx_rf_alarm",
+                "advance")
+        ta, tb = (tuple(getattr(c, k) for k in keys) for c in (a, b))
+        check(ta == tb, f"risk tables differ: torch on the card {ta}, numpy {tb}")
+    cfg = RiskConfig()
+    mu, sigma = estimate_mu_sigma_normal(arr)
+    tol = {"s_tot": (1e-4, 1e-5), "c": (1e-3, 1e-3), "rf_inst": (1e-3, 1e-4),
+           "rf_smooth": (1e-3, 1e-4)}
+    worst = {k: 0.0 for k in tol}
+    for current, fault, index_range in DEFAULT_RF_CONDITIONS:
+        rows = condition_row_indices(arr, fault, current, cfg, index_range)
+        r = ComprehensiveResults(arr[rows]).residual_matrix(cfg.res_keys)
+        got = compute_rf_time_series(r, mu, sigma, cfg, backend="torch", device="cuda")
+        want = compute_rf_time_series(r, mu, sigma, cfg, backend="numpy")
+        for key, (rtol, atol) in tol.items():
+            np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol,
+                                       equal_nan=True, err_msg=f"{current} {fault} {key}")
+            finite = np.isfinite(want[key])
+            worst[key] = max(worst[key], float(np.max(np.abs(got[key] - want[key])[finite]))
+                             if finite.any() else 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        mat = os.path.join(tmp, "F01_output.mat")
+        save_comprehensive_results(results, mat)
+        card_out, card_l, card_wall = run_cli("risk", "--mat", mat, "--device", "cuda")
+        host_out, _, host_wall = run_cli("risk", "--mat", mat, "--backend", "numpy")
+    check(card_out == host_out, f"cli risk tables differ:\n{card_out}\n{host_out}")
+    check(sum(card_l.values()) == 0, f"cli risk launched a kernel: {card_l}")
+    table = [ln for ln in card_out.splitlines() if not ln.startswith("LAUNCHES ")]
+    check(len(table) == 13, f"cli risk printed {len(table)} lines")
+    fired = sum(a.idx_rf_alarm is not None for a in on_card)
+    print("[slice] risk table of phase 7's artifact (cli risk on the card = --backend numpy):")
+    print("\n".join(table))
+    print(f"[slice] risk: run_risk_pipeline torch on the card {torch_s:.4f} s, numpy float64 "
+          f"{numpy_s:.4f} s (host clock, 12 conditions, {fired} RF alarms); alarm tables "
+          f"identical; max |Δ| torch vs numpy {json.dumps(worst)}; cli risk walls "
+          f"{card_wall:.1f} s (cuda), {host_wall:.1f} s (numpy): ok")
+    return {"torch_s": torch_s, "numpy_s": numpy_s, "rf_alarms": fired, "max_abs_diff": worst,
+            "cli_wall_s": {"cuda": card_wall, "numpy": host_wall}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -823,6 +992,18 @@ def main() -> int:
 
     # ---- 10. kill and resume on the card ----
     check_kill_and_resume(train_ds)
+
+    # ---- 11. a non-flagship model at flagship width ----
+    t0 = time.perf_counter()
+    deep = run_non_flagship_slice(dev, train_ds)
+    deep["phase_s"] = time.perf_counter() - t0
+
+    # ---- 12. risk on the card ----
+    t0 = time.perf_counter()
+    risk = run_risk_slice(trained.results)
+    risk["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phases 11-12 (s): {deep['phase_s']:.1f}, {risk['phase_s']:.1f}; "
+          f"{json.dumps({'non_flagship': deep, 'risk': risk})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",

@@ -1,8 +1,9 @@
-"""Command line of the port: ``python -m pinnfc_tpu_torch.cli {train,score,synth} ...``.
+"""Command line of the port: ``python -m pinnfc_tpu_torch.cli {train,score,synth,risk} ...``.
 
-``train`` and ``score`` run on the card by default (``--device cuda``) and
-exit with an error when CUDA is absent; ``--device cpu`` runs the plain
-PyTorch path.  ``synth`` writes a synthetic campaign as .mat files.
+``train``, ``score`` and ``risk`` run on the card by default (``--device
+cuda``) and exit with an error when CUDA is absent; ``--device cpu`` runs the
+plain PyTorch path.  ``synth`` writes a synthetic campaign as .mat files;
+``risk --backend numpy`` runs the float64 host path.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+from pinnfc_tpu_torch.cli.risk import cmd_risk
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
 
@@ -105,6 +107,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the Chinese fault-file stems the reference ships (default: "
                          "ASCII aliases)")
     sy.set_defaults(fn=cmd_synth)
+
+    r = sub.add_parser("risk", help="stage risk over F01_output.mat: the RF(t) early-warning "
+                                    "table of script 04")
+    r.add_argument("--mat", default="F01_output.mat")
+    r.add_argument("--backend", choices=("torch", "numpy"), default="torch",
+                   help="RF recurrences: 'torch' (float32 doubling scans on --device) or "
+                        "'numpy' (float64 lfilter, bit-parity with the reference)")
+    r.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="the torch backend's device")
+    r.set_defaults(fn=cmd_risk)
     return p
 
 

@@ -59,7 +59,8 @@ def cmd_train(args) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"train: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"metrics": res.metrics, "timings": res.timings}, indent=2))
+    print(json.dumps({"metrics": res.metrics, "timings": res.timings, "export": res.export},
+                     indent=2))
     _print_lambda_table(res.params)
     if args.ckpt:
         save_checkpoint(
@@ -177,7 +178,8 @@ def cmd_score(args) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"score: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"metrics": res.metrics, "timings": res.timings}, indent=1))
+    print(json.dumps({"metrics": res.metrics, "timings": res.timings, "export": res.export},
+                     indent=1))
     print("artifact →", args.mat_out)
     return 0
 

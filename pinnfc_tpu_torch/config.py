@@ -1,16 +1,15 @@
-"""Typed configuration of the scoring path (counterpart of ``pinnfc_tpu/config.py``).
+"""Typed configuration (counterpart of ``pinnfc_tpu/config.py``).
 
-Only the model and training configs are carried: the scoring path reads
-``seed``, ``training_rate``, ``mc_times``, ``mc_dropout``, ``smooth_window``
-and ``model.layers``, and ``train_config_from_dict`` must accept the whole
-checkpoint sidecar, schedule included.  The diagnosis and risk configs come
-with their modules.
+The model and training configs (``train_config_from_dict`` accepts the whole
+checkpoint sidecar, schedule included), and the risk function's config with
+its evaluation conditions and fault classes (script 04).  The diagnosis
+configs come with their modules.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +77,59 @@ def train_config_from_dict(d: Dict) -> TrainConfig:
     schedule = tuple(StageConfig(**s) for s in d["schedule"])
     rest = {k: v for k, v in d.items() if k not in ("model", "schedule")}
     return TrainConfig(model=model, schedule=schedule, **rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class RiskConfig:
+    """RF(t) risk-function configuration (script 04:82-164)."""
+
+    res_keys: Tuple[str, ...] = ("res", "pV", "pT", "pH", "pO")  # 04:88
+    layer_config: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+        ("voltage", ("res", "pV")),
+        ("gas", ("pH", "pO")),
+        ("temp", ("pT",)),
+    )  # 04:92-96
+    feature_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)  # 04:99
+    layer_weights: Tuple[Tuple[str, float], ...] = (
+        ("voltage", 1.0),
+        ("gas", 1.0),
+        ("temp", 1.0),
+    )  # 04:102-106
+    p_layer: float = 2.0  # 04:109
+    z_safe: float = 2.0  # 04:112
+    lambda_decay: float = 0.9971  # 04:115
+    k_logistic: float = 0.0005  # 04:118
+    c0_logistic: float = 500.0  # 04:119
+    c_max: float = 1000.0  # 04:120
+    alpha_smooth: float = 0.2  # 04:130
+    current_tol: float = 0.5  # 04:133
+    warn_threshold: float = 0.3  # 04:163
+    danger_threshold: float = 0.6  # 04:164
+    voltage_drop: float = 0.1  # dynamic threshold = V(0) - 0.1 V (04:389)
+    normal_labels: Tuple[int, ...] = (0,)  # 04:85
+
+
+# The 12 (current, fault, relative index range) evaluation conditions
+# (reference 04:145-161).
+DEFAULT_RF_CONDITIONS: Tuple[Tuple[float, str, Optional[Tuple[int, Optional[int]]]], ...] = (
+    (108.0, "水淹", (0, 1050)),
+    (108.0, "氧饥饿", None),
+    (108.0, "膜干", None),
+    (108.0, "氢饥饿", None),
+    (270.0, "水淹", None),
+    (270.0, "膜干", None),
+    (270.0, "氧饥饿", None),
+    (270.0, "氢饥饿", None),
+    (405.0, "水淹", None),
+    (405.0, "氧饥饿", None),
+    (405.0, "膜干", None),
+    (405.0, "氢饥饿", None),
+)
+
+# Fault-class label ranges (04:75-80): detail labels 1-12 → 4 coarse classes.
+FAULT_RANGE_MAP: Dict[str, range] = {
+    "水淹": range(1, 4),
+    "氧饥饿": range(4, 7),
+    "膜干": range(7, 10),
+    "氢饥饿": range(10, 13),
+}

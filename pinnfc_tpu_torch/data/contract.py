@@ -67,6 +67,10 @@ class ComprehensiveResults:
     def labels(self) -> np.ndarray:
         return self.array[:, INDEX["label"]].astype(np.int32)
 
+    def residual_matrix(self, keys=("res", "pV", "pT", "pH", "pO")) -> np.ndarray:
+        """Stack residual channels column-wise (RF input, 04:220-223)."""
+        return np.stack([self.col(k) for k in keys], axis=1)
+
 
 def save_comprehensive_results(results, path: str) -> None:
     """Persist under the MAT variable name the downstream stages expect

@@ -3,17 +3,22 @@
 
 - hidden trunk: Linear → Tanh (→ Dropout in training) per hidden layer;
 - mean head: one Linear (01:410);
-- variance head: Linear(h→h/2) → Tanh → Linear(h/2→h/4) → Tanh →
-  Linear(h/4→1), then ``logvar = log(softplus(v) + 1e-6)`` (01:412-434).
+- variance head: Linear(h→h/2) → Tanh (→ Dropout in training) →
+  Linear(h/2→h/4) → Tanh → Linear(h/4→1), then
+  ``logvar = log(softplus(v) + 1e-6)`` (01:412-434).
 
-The forward here is the eval pass (no dropout): the MC-dropout passes are
-the kernel's and its plain version's (``ops/mc_dropout.py``).
+``MLP.forward(x)`` is the eval pass; ``MLP.forward(x, keep, dropout_p)`` the
+train pass with the given keep masks, so each caller chooses the random
+stream: the ``torch.Generator`` stream of ``draw_keep_masks`` (the MC sampler
+``uq/mc_dropout.py``) or the counter hash of the training kernel (the autograd
+DNN stage).  The flagship's MC passes and DNN stages run in the kernels
+(``ops/mc_dropout.py``, ``ops/train_dnn.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -79,16 +84,45 @@ class MLP(nn.Module):
     def is_flagship(self) -> bool:
         return self.layers == (8, 256, 256, 256, 1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval pass → (mean, logvar), both (N, 1)."""
+    def dropout_widths(self) -> List[int]:
+        """Widths of the dropout layers, in the order of the keep masks: every
+        hidden layer, then the first variance layer."""
+        return [lin.out_features for lin in self.hidden] + [self.var[0].out_features]
+
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
+                dropout_p: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, logvar), both (..., 1).  ``keep=None`` is the eval pass;
+        otherwise the train pass: inverted dropout ``where(keep, h / (1 − p),
+        0)`` after every hidden tanh and after the first tanh of the variance
+        head, with the bool masks ``keep`` (``dropout_widths`` order), each
+        broadcast against its activation (..., width)."""
         h = x
-        for lin in self.hidden:
+        for i, lin in enumerate(self.hidden):
             h = torch.tanh(lin(h))
+            if keep is not None:
+                h = dropout(h, keep[i], dropout_p)
         mean = self.mean(h)
         v = torch.tanh(self.var[0](h))
+        if keep is not None:
+            v = dropout(v, keep[len(self.hidden)], dropout_p)
         v = torch.tanh(self.var[1](v))
         v = self.var[2](v)
         return mean, logvar_from_raw(v)
+
+
+def dropout(h: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """``where(keep, h / (1 − p), 0)``, the JAX package's ``_dropout``."""
+    return torch.where(keep, h / (1.0 - p), 0.0)
+
+
+def draw_keep_masks(mlp: MLP, shape: Sequence[int], p: float,
+                    generator: torch.Generator) -> List[torch.Tensor]:
+    """Bool keep masks (*shape, width) for every dropout layer of ``mlp``
+    (``MLP.dropout_widths`` order), each element kept with probability 1 − p:
+    ``torch.rand(..., generator=generator) >= p`` on the generator's device."""
+    dev = generator.device
+    return [torch.rand((*shape, w), generator=generator, device=dev) >= p
+            for w in mlp.dropout_widths()]
 
 
 def aleatoric_loss(y_true, y_pred, log_var, reg_weight: float = 0.01):

@@ -33,14 +33,15 @@ from __future__ import annotations
 
 import copy
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pinnfc_tpu_torch.models.mlp import MLP, softplus
 from pinnfc_tpu_torch.ops import build
-from pinnfc_tpu_torch.ops.mc_dropout import _U32, dropout_constants, random_bits
+from pinnfc_tpu_torch.ops.mc_dropout import _GOLDEN, _U32, dropout_constants, wang_hash
 from pinnfc_tpu_torch.training.adam import (
     AdamState, adam_init, adam_step, all_finite, keep_if_nonfinite)
 
@@ -56,13 +57,32 @@ def step_salts(n: int, seed: int, t: int, device) -> torch.Tensor:
     return (base + (rows // MASK_BLOCK) * 7919) & _U32
 
 
+@functools.lru_cache(maxsize=16)
+def _mask_columns(widths: Tuple[int, ...], device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """(layer, layer width, column inside the layer) of every column of the
+    dropout layers' masks laid side by side, int64 on ``device``: made once per
+    topology and device, so a step copies nothing from the host."""
+    cols = [np.repeat(np.arange(len(widths)), widths), np.repeat(widths, widths),
+            np.concatenate([np.arange(w) for w in widths])]
+    return tuple(torch.as_tensor(c.astype(np.int64), device=device) for c in cols)
+
+
 def keep_masks(n: int, widths: Sequence[int], seed: int, t: int, thresh: int,
                device) -> List[torch.Tensor]:
-    """Bool keep masks, (n, width) per dropout layer, for step ``t``."""
+    """Bool keep masks, (n, width) per dropout layer, for step ``t``: layer l's
+    mask is ``random_bits(local, width_l, salt + l) >= thresh``, computed for
+    all layers in one pass over their columns side by side (one row key per
+    row and layer, then one hash per element)."""
+    widths = tuple(int(w) for w in widths)
+    device = torch.device(device)
+    layer, width, col = _mask_columns(widths, device)
     local = torch.arange(n, dtype=torch.int64, device=device) % MASK_BLOCK
     salt = step_salts(n, seed, t, device)
-    return [random_bits(local, w, (salt + layer) & _U32) >= thresh
-            for layer, w in enumerate(widths)]
+    layers = torch.arange(len(widths), dtype=torch.int64, device=device)
+    row_keys = wang_hash((salt[:, None] + layers[None, :] + _GOLDEN) & _U32)
+    ctr = local[:, None] * width[None, :] + col[None, :]
+    keep = wang_hash(ctr ^ row_keys[:, layer]) >= thresh
+    return list(torch.split(keep, widths, dim=1))
 
 
 def mlp_weights(mlp: MLP) -> List[torch.Tensor]:
@@ -149,12 +169,19 @@ def flat_weights(mlp: MLP) -> torch.Tensor:
     return torch.cat([w.reshape(-1) for w in mlp_weights(mlp)])
 
 
-def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    return [v.view(w.shape) for v, w in zip(torch.split(flat, [w.numel() for w in like]), like)]
+def unflat_weights(flat: torch.Tensor, mlp: MLP) -> List[torch.Tensor]:
+    """Inverse of ``flat_weights``: the tensors of ``mlp_weights`` as views of
+    ``flat``."""
+    shapes = [s for lin in mlp.linears()
+              for s in ((lin.in_features, lin.out_features), (lin.out_features,))]
+    sizes = [int(np.prod(s)) for s in shapes]
+    return [v.view(s) for v, s in zip(torch.split(flat, sizes), shapes)]
 
 
-def _check_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, t0: int,
-                  state: Optional[AdamState]) -> None:
+def check_stage_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, t0: int,
+                       state: Optional[AdamState]) -> None:
+    """Validate a stage call: x, y and the weights float32 on one device, the
+    step counts, and a carried Adam state over ``flat_weights``' layout."""
     n = x.shape[0] if x.dim() == 2 else -1
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != mlp.layers[0] or n < 1:
         raise ValueError(f"x must be float32 (N, {mlp.layers[0]}) with N >= 1, "
@@ -184,7 +211,45 @@ def _inv_n(n: int) -> float:
     return float(np.float32(1.0 / n))
 
 
+# (weights of ``unflat_weights``, keep masks or None) -> (loss, gradients)
+GradFn = Callable[[List[torch.Tensor], Optional[List[torch.Tensor]]],
+                  Tuple[torch.Tensor, Sequence[torch.Tensor]]]
+
+
 @torch.no_grad()
+def stage_steps(
+    mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, grad_fn: GradFn,
+    lr: float = 0.01, lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Steps t0 .. t0 + n_iter − 1 of a DNN stage, step by step, any
+    topology, on x's device: per step the hash masks of step t
+    (``keep_masks``), the loss and gradients from ``grad_fn``, and Adam +
+    StepLR over the flat layout of ``flat_weights`` from the carried ``state``
+    (fresh when None); with ``skip_nonfinite`` a step with a non-finite loss
+    or gradient keeps the weights and the state.  The loss is taken before its
+    step's update.  The one step loop of the plain version and of the
+    autograd stage, so a stage run in chunks takes the steps of the whole
+    stage, bit for bit, on either."""
+    check_stage_inputs(mlp, x, y, n_iter, t0, state)
+    thresh, _ = dropout_constants(dropout_p)
+    n, widths = x.shape[0], mlp.dropout_widths()
+    flat = flat_weights(mlp)
+    state = adam_init(flat) if state is None else state._replace(
+        count=state.count.reshape(()).to(torch.int64))
+    losses = []
+    for t in range(t0, t0 + n_iter):
+        keep = keep_masks(n, widths, seed, t, thresh, x.device) if thresh > 0 else None
+        loss, grads = grad_fn(unflat_weights(flat, mlp), keep)
+        g = torch.cat([gi.reshape(-1) for gi in grads])
+        new = adam_step(flat, g, state, lr, lr_step, lr_gamma)
+        if skip_nonfinite:
+            new = keep_if_nonfinite(all_finite(loss, g), new, (flat, state))
+        flat, state = new
+        losses.append(loss)
+    return DnnStageOut(mlp_with_weights(mlp, unflat_weights(flat, mlp)), torch.stack(losses), state)
+
+
 def train_dnn_stage_plain(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
@@ -192,26 +257,16 @@ def train_dnn_stage_plain(
 ) -> DnnStageOut:
     """Plain PyTorch version, step by step, any topology: steps t0 .. t0 +
     n_iter − 1 of a stage (the masks of step t0 + t), from the carried Adam
-    ``state`` (fresh when None)."""
-    _check_inputs(mlp, x, y, n_iter, t0, state)
-    thresh, inv_keep = dropout_constants(dropout_p)
-    n = x.shape[0]
-    widths = [lin.out_features for lin in mlp.hidden] + [mlp.var[0].out_features]
-    ws = mlp_weights(mlp)
-    flat = flat_weights(mlp)
-    state = adam_init(flat) if state is None else state._replace(
-        count=state.count.reshape(()).to(torch.int64))
-    losses = []
-    for t in range(t0, t0 + n_iter):
-        keep = keep_masks(n, widths, seed, t, thresh, x.device) if thresh > 0 else None
-        loss, grads = loss_and_grads(_unflat(flat, ws), x, y, keep, inv_keep, _inv_n(n))
-        g = torch.cat([gi.reshape(-1) for gi in grads])
-        new = adam_step(flat, g, state, lr, lr_step, lr_gamma)
-        if skip_nonfinite:
-            new = keep_if_nonfinite(all_finite(loss, g), new, (flat, state))
-        flat, state = new
-        losses.append(loss)
-    return DnnStageOut(mlp_with_weights(mlp, _unflat(flat, ws)), torch.stack(losses), state)
+    ``state`` (fresh when None), with the kernel's hand-derived gradients
+    (``loss_and_grads``)."""
+    _, inv_keep = dropout_constants(dropout_p)
+    inv_n = _inv_n(x.shape[0])
+
+    def grad_fn(ws, keep):
+        return loss_and_grads(ws, x, y, keep, inv_keep, inv_n)
+
+    return stage_steps(mlp, x, y, seed, n_iter, grad_fn, lr, lr_step, lr_gamma, dropout_p,
+                       skip_nonfinite, t0, state)
 
 
 def _kernel_layout(flat: torch.Tensor, ws: Sequence[torch.Tensor], offsets: Sequence[int],
@@ -243,7 +298,7 @@ def train_dnn(
     ``state`` (fresh when None): the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor.  ``seed`` is a uint32.  Returns the trained copy
     of ``mlp``, the per-step losses and the Adam state after the last step."""
-    _check_inputs(mlp, x, y, n_iter, t0, state)
+    check_stage_inputs(mlp, x, y, n_iter, t0, state)
     if x.device.type == "cpu":
         return train_dnn_stage_plain(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma,
                                      dropout_p, skip_nonfinite, t0, state)
@@ -288,5 +343,5 @@ def train_dnn(
     build.LAUNCHES["train_dnn"] += 1
     new_state = AdamState(_flat_layout(m, ws, offsets), _flat_layout(v, ws, offsets),
                           ints[2 * n_iter].to(torch.int64))
-    trained = _unflat(_flat_layout(params, ws, offsets), ws)
+    trained = unflat_weights(_flat_layout(params, ws, offsets), mlp)
     return DnnStageOut(mlp_with_weights(mlp, trained), losses, new_state)

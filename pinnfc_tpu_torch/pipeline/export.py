@@ -2,15 +2,19 @@
 (counterpart of ``pinnfc_tpu/pipeline/export.py``; reference
 ``create_comprehensive_results_array_v2``, 01:1877-2010).
 
-MC-dropout statistics (kernel ``ops/mc_dropout.py``), de-normalization
-through the scaler affine constants with the reference's ``+1e-12`` guards
-(01:1924-1932), the four physics residuals (kernel ``ops/residuals.py``)
-evaluated on the eval-mode prediction, segment-aware smoothing of the
-uncertainty channels, and fault labels — assembled into one (N, 22) float64
-array.  On CUDA the two kernels run; on CPU tensors their plain versions.
+MC-dropout statistics (the kernel ``ops/mc_dropout.py`` for the flagship,
+the chunked ``torch.Generator`` sampler ``uq/mc_dropout.py`` for any other
+topology), de-normalization through the scaler affine constants with the
+reference's ``+1e-12`` guards (01:1924-1932), the four physics residuals
+(kernel ``ops/residuals.py``) evaluated on the eval-mode prediction,
+segment-aware smoothing of the uncertainty channels, and fault labels —
+assembled into one (N, 22) float64 array.  On CUDA the kernels run; on CPU
+tensors their plain versions.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -21,13 +25,15 @@ from pinnfc_tpu_torch.models.pinn import PinnParams
 from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.ops.smoothing import smooth_by_segments
+from pinnfc_tpu_torch.uq.mc_dropout import mc_dropout_samples
 
 
 def default_mc_seed(seed: int) -> int:
     """The port's MC seed for a training seed: ``RandomState(seed + 1)``'s
     first ``randint(0, 2**31 - 1)``.  (The JAX exporter draws its integer
     from a ``jax.random`` key, which torch cannot reproduce; passing that
-    integer as ``mc_seed`` reproduces a JAX export.)"""
+    integer as ``mc_seed`` reproduces a flagship JAX export with
+    ``sampler='pallas'``.)"""
     return int(np.random.RandomState(seed + 1).randint(0, 2**31 - 1))
 
 
@@ -43,18 +49,31 @@ def build_comprehensive_results(
     mc_times: int = 2000,
     dropout: float = 0.4,
     smooth_window: int = 200,
-) -> ComprehensiveResults:
-    """Full exporter (reference 01:1877-2010 + main call 01:2156-2158).
+) -> Tuple[ComprehensiveResults, Dict[str, object]]:
+    """Full exporter (reference 01:1877-2010 + main call 01:2156-2158):
+    (artifact, {"sampler", "mc_passes"}).
 
-    ``mc_seed`` is the integer seed of the MC kernel's counter-based masks
-    (``run_scoring_pipeline`` passes ``default_mc_seed(config.seed)``).  The
-    residuals are evaluated on the MC base prediction, which is the eval-mode
-    DNN output the reference uses (01:1947).  On CUDA the MC kernel covers
-    the flagship topology only, and another checkpoint raises.
+    The MC sampler is chosen by topology alone, on every device, as the JAX
+    exporter's ``sampler='auto'`` takes its Pallas kernel for the flagship
+    alone: the flagship runs the MC kernel ('kernel'), whose counter-based
+    masks take ``mc_seed`` as their integer seed; any other topology runs
+    ``mc_dropout_samples`` ('vmap') with
+    ``torch.Generator(device).manual_seed(mc_seed)``, which rounds
+    ``mc_times`` up to whole chunks.  ``run_scoring_pipeline`` passes
+    ``default_mc_seed(config.seed)``.  The residuals are evaluated on the MC
+    base prediction, which is the eval-mode DNN output the reference uses
+    (01:1947).
     """
     sx, sy = dataset.scaler_x, dataset.scaler_y
     x_test = dataset.x_test
-    mc = mc_dropout(params["mlp"], x_test, int(mc_seed), mc_times=mc_times, dropout=dropout)
+    mlp = params["mlp"]
+    if mlp.is_flagship():
+        mc = mc_dropout(mlp, x_test, int(mc_seed), mc_times=mc_times, dropout=dropout)
+        export = {"sampler": "kernel", "mc_passes": int(mc_times)}
+    else:
+        gen = torch.Generator(x_test.device).manual_seed(int(mc_seed))
+        mc, passes = mc_dropout_samples(mlp, x_test, gen, mc_times=mc_times, dropout=dropout)
+        export = {"sampler": "vmap", "mc_passes": passes}
 
     x_real = sx.inverse(x_test)
     y_real = sy.inverse(dataset.y_test)[:, 0]
@@ -87,4 +106,4 @@ def build_comprehensive_results(
     out[:, 19] = _np(bundle.t_phys[:, 0])
     out[:, 20] = _np(bundle.ratio_h[:, 0])
     out[:, 21] = _np(bundle.ratio_o[:, 0])
-    return ComprehensiveResults(out)
+    return ComprehensiveResults(out), export

@@ -5,7 +5,8 @@
 MinMax scalers), normalizes the new measurements through those frozen
 scalers, and runs the MC-dropout exporter to produce a 22-column
 ``comprehensive_results`` artifact without retraining.  On CUDA it runs
-through the MC-dropout kernel and the fused residual kernel.
+through the fused residual kernel, and through the MC-dropout kernel for a
+flagship checkpoint or the ``torch.Generator`` sampler for any other.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class ScoreResult:
     results: ComprehensiveResults
     metrics: Dict[str, float]
     timings: Dict[str, float]
+    export: Dict[str, object]  # the MC sampler that ran and its passes
 
 
 def run_scoring_pipeline(
@@ -76,7 +78,8 @@ def run_scoring_pipeline(
     supplies the MC export settings and the seed; None adopts the
     checkpoint's ``.meta.json`` training config, else ``TrainConfig()``.
     ``mc_seed`` defaults to ``default_mc_seed(config.seed)``.  ``device``
-    defaults to the card and raises when CUDA is absent.
+    defaults to the card and raises when CUDA is absent.  ``export`` names
+    the MC sampler that ran (chosen by topology) and its passes.
     """
     dev = resolve_device(device)
     if config is None:
@@ -132,7 +135,7 @@ def run_scoring_pipeline(
 
     mc_seed = default_mc_seed(config.seed) if mc_seed is None else int(mc_seed)
     t0 = time.perf_counter()
-    results = build_comprehensive_results(
+    results, export = build_comprehensive_results(
         params,
         dataset,
         mc_seed=mc_seed,
@@ -150,4 +153,5 @@ def run_scoring_pipeline(
 
     return ScoreResult(
         params=params, dataset=dataset, results=results, metrics=metrics, timings=timings,
+        export=export,
     )

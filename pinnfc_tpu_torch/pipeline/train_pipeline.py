@@ -5,8 +5,9 @@
 ``run_training_pipeline`` synthesizes, loads from .mat files, or takes the campaign, initialises the
 PINN from a ``torch.Generator`` seeded with ``config.seed``, runs the staged
 schedule (``training/stages.py``: the DNN stages through the training kernel),
-exports the 22-column artifact through the MC-dropout and residual kernels
-with ``default_mc_seed(config.seed)``, and prints the metric block
+exports the 22-column artifact with ``default_mc_seed(config.seed)`` (the
+MC-dropout kernel for the flagship topology, the ``torch.Generator`` sampler
+for any other; the residual kernel for every one), and prints the metric block
 (``evaluate_voltage_metrics``, reference 01:1765-1818).
 """
 
@@ -42,6 +43,7 @@ class PipelineResult:
     log: TrainLog
     metrics: Dict[str, float]
     timings: Dict[str, float]
+    export: Dict[str, object]  # the MC sampler that ran and its passes
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -159,7 +161,8 @@ def run_training_pipeline(
     ``ckpt_every`` after every ``ckpt_every`` steps inside each stage, and
     resumes a restarted run (see ``run_schedule``).  ``timings`` holds
     ``data_s``, ``train_s`` and ``export_s``; the metric block gains
-    ``final_loss/<k:stage>``."""
+    ``final_loss/<k:stage>``; ``export`` names the MC sampler that ran
+    ('kernel' for the flagship topology, else 'vmap') and its passes."""
     dev = resolve_device(device)
     timings: Dict[str, float] = {}
 
@@ -190,7 +193,7 @@ def run_training_pipeline(
     timings["train_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    results = build_comprehensive_results(
+    results, export = build_comprehensive_results(
         params, dataset, mc_seed=default_mc_seed(config.seed), mc_times=config.mc_times,
         dropout=config.mc_dropout, smooth_window=config.smooth_window,
     )
@@ -201,4 +204,4 @@ def run_training_pipeline(
     if mat_path is not None:
         save_comprehensive_results(results, mat_path)
     return PipelineResult(params=params, dataset=dataset, results=results, log=log,
-                          metrics=metrics, timings=timings)
+                          metrics=metrics, timings=timings, export=export)

@@ -71,7 +71,9 @@ def adam_state_from_numpy(tree: Dict[str, Any], device,
 def step_lr(count: torch.Tensor, lr: float, lr_step: int, lr_gamma: float) -> torch.Tensor:
     """``lr·γ^⌊count/lr_step⌋`` in float32, as ``optax.exponential_decay``."""
     p = torch.floor(count.to(torch.float32) / lr_step)
-    return lr * torch.pow(torch.tensor(lr_gamma, dtype=torch.float32, device=count.device), p)
+    # torch.full fills on the device; torch.tensor would copy the value from
+    # the host, and that copy waits for the device
+    return lr * torch.pow(torch.full((), lr_gamma, dtype=torch.float32, device=count.device), p)
 
 
 def adam_step(

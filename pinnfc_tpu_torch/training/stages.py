@@ -4,9 +4,15 @@
     dnn(4001) → lambda_v(4001, dnn_para=False) → lambda_v(4001, dnn_para=True)
     → dnn(8001) → thermal(10001) → hydrogen(8001) → oxygen(8001)
 
-- The DNN stages run through the training kernel (``ops/train_dnn.py``): on a
-  CUDA tensor the whole stage is one call of ``csrc/train_dnn.cu``, on a CPU
-  tensor its plain version.  λ stay frozen; dropout is active.
+- The DNN stages of the flagship MLP run through the training kernel
+  (``ops/train_dnn.py``): on a CUDA tensor the whole stage is one call of
+  ``csrc/train_dnn.cu``, on a CPU tensor its plain version.  Any other
+  topology runs the autograd stage ``train_dnn_autograd`` on either device
+  (the JAX package's XLA scan ``train_dnn_stage``): the dropout forward of
+  ``MLP``, ``torch.autograd.grad`` of ``aleatoric_loss``, Adam + StepLR.  The
+  choice is made by topology alone, as the JAX exporter picks its sampler.
+  Both draw the kernel's hash masks (``ops/train_dnn.py::keep_masks``).
+  λ stay frozen; dropout is active.
 - The λ stages are plain PyTorch on the data's device (the JAX package runs
   them as XLA scans, with no Pallas kernel): per step the loss, its gradient
   by ``torch.autograd.grad`` through ``physics/``, Adam + StepLR
@@ -39,9 +45,9 @@ import torch
 
 from pinnfc_tpu_torch.config import default_schedule
 from pinnfc_tpu_torch.data.scaling import AffineScaler
-from pinnfc_tpu_torch.models.mlp import MLP
+from pinnfc_tpu_torch.models.mlp import MLP, aleatoric_loss
 from pinnfc_tpu_torch.models.pinn import LAMBDA_BOUNDS, PinnParams
-from pinnfc_tpu_torch.ops.train_dnn import train_dnn
+from pinnfc_tpu_torch.ops.train_dnn import DnnStageOut, stage_steps, train_dnn
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_simple
@@ -81,6 +87,45 @@ def _check_precision(precision: str, x: torch.Tensor) -> None:
                          "training kernel, which is not ported yet; use 'highest'")
 
 
+def _named_params(ws, mlp: MLP) -> Dict[str, torch.Tensor]:
+    """``mlp``'s parameters by name, taken from the tensors ``ws`` of
+    ``mlp_weights``' order and (in, out) layout."""
+    names = [name for name, _ in mlp.named_parameters()]
+    return {name: (w.t() if name.endswith("weight") else w) for name, w in zip(names, ws)}
+
+
+def train_dnn_autograd(
+    mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
+    lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Steps t0 .. t0 + n_iter − 1 of a DNN stage for any topology, on x's
+    device: the step loop of ``ops/train_dnn.py::stage_steps`` (the hash masks
+    of step t, as the training kernel draws them; Adam + StepLR from the
+    carried ``state``) with the gradient of ``aleatoric_loss`` of the dropout
+    forward of ``mlp`` by ``torch.autograd.grad``.  The counterpart of the JAX
+    ``_dnn_step`` scan."""
+
+    def grad_fn(ws, keep):
+        ws = [w.detach().requires_grad_(True) for w in ws]
+        with torch.enable_grad():
+            pred, log_var = torch.func.functional_call(
+                mlp, _named_params(ws, mlp), (x,), {"keep": keep, "dropout_p": dropout_p})
+            loss = aleatoric_loss(y, pred, log_var)
+            grads = torch.autograd.grad(loss, ws)
+        return loss.detach(), grads
+
+    return stage_steps(mlp, x, y, seed, n_iter, grad_fn, lr, lr_step, lr_gamma, dropout_p,
+                       skip_nonfinite, t0, state)
+
+
+def _dnn_steps(mlp: MLP):
+    """The DNN stage's implementation, by topology alone: the training kernel
+    (its plain version on a CPU tensor) for the flagship, the autograd stage
+    for any other."""
+    return train_dnn if mlp.is_flagship() else train_dnn_autograd
+
+
 def train_dnn_stage(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
@@ -90,14 +135,16 @@ def train_dnn_stage(
 
     The JAX function takes a ``jax.random`` key, which torch cannot reproduce;
     this one takes a uint32 ``seed`` and draws its dropout masks from the hash
-    stream of ``train_dnn_pallas`` (see ``ops/train_dnn.py``).  On a CUDA
-    tensor it launches the training kernel at float32 accuracy ('highest',
-    3xTF32 on the tensor cores); ``precision='default'`` (the TPU's bf16
-    throughput mode) needs a single-TF32 or bf16 form of the kernel, which does
-    not exist yet, and raises there.  On a CPU tensor it runs the plain
-    version, in float32 for either precision."""
+    stream of ``train_dnn_pallas`` (see ``ops/train_dnn.py``).  The flagship
+    runs the training kernel on a CUDA tensor at float32 accuracy ('highest',
+    3xTF32 on the tensor cores) and its plain version on a CPU tensor; any
+    other topology runs ``train_dnn_autograd``.  ``precision='default'`` (the
+    TPU's bf16 throughput mode) needs a single-TF32 or bf16 form of the
+    kernel, which does not exist yet, and raises on CUDA for every topology;
+    on a CPU tensor every path runs in float32 for either precision."""
     _check_precision(precision, x)
-    out = train_dnn(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite)
+    out = _dnn_steps(mlp)(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p,
+                          skip_nonfinite)
     return StageResult(out.mlp, out.losses)
 
 
@@ -109,11 +156,11 @@ def train_dnn_chunk(
     """``length`` steps of the DNN stage from step ``start``, carrying the Adam
     state (None: fresh) across chunks: (mlp, state, losses).  Step s draws the
     masks of step s of the whole stage (the salt takes the step index inside
-    the stage), so the chunks of a stage take its steps; on a CUDA tensor one
-    training-kernel launch per chunk."""
+    the stage), so the chunks of a stage take its steps; for the flagship on a
+    CUDA tensor one training-kernel launch per chunk."""
     _check_precision(precision, x)
-    out = train_dnn(mlp, x, y, seed, length, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite,
-                    t0=start, state=opt_state)
+    out = _dnn_steps(mlp)(mlp, x, y, seed, length, lr, lr_step, lr_gamma, dropout_p,
+                          skip_nonfinite, t0=start, state=opt_state)
     return out.mlp, out.state, out.losses
 
 

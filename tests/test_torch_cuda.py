@@ -16,7 +16,17 @@ both), statistics at rtol 1e-3, atol 1e-5 (summation order, and the bf16
 roundings that it flips); against the float32 plain version at rtol 1e-2,
 atol 1e-4.  The residual kernel against its plain version: rtol = atol = 2e-5
 (float32 in both, each op in the same order; the accurate powf/expf/logf of
-the card and of torch differ in the last ulps), NaN sets identical."""
+the card and of torch differ in the last ulps), NaN sets identical.
+
+The paths without a kernel, on the card: the autograd DNN stage against the
+training kernel's plain version under the same hash masks (losses rtol 1e-5,
+atol 1e-7; weights rtol 1e-4, atol 1e-6, as tests/test_torch_dnn_any_depth.py
+holds them on the CPU), its chunks bitwise equal to the whole stage; the
+'vmap' MC sampler's eval pass bitwise the eval forward's, its statistics
+against the same sampler on the CPU (another random stream) in the band of
+tests/test_pallas_mc.py; the torch risk backend on the card against the
+float64 numpy backend: the same alarm table, the series at the tolerances of
+tests/test_risk.py:88-91."""
 
 import numpy as np
 import pytest
@@ -28,11 +38,14 @@ from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops import train_dnn as td
-from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout_sums, mc_dropout_sums_plain
+from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout, mc_dropout_sums, mc_dropout_sums_plain
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.physics.residuals import all_residuals
-from pinnfc_tpu_torch.training.stages import train_dnn_stage
-from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats
+from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results
+from pinnfc_tpu_torch.risk import (
+    compute_rf_time_series, estimate_mu_sigma_normal, run_risk_pipeline)
+from pinnfc_tpu_torch.training.stages import train_dnn_chunk, train_dnn_stage
+from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats, mc_dropout_samples
 
 
 @pytest.fixture
@@ -185,3 +198,106 @@ def test_residual_kernel_matches_plain(cuda_device, campaign_rows, n, i_l):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True, msg=name)
     if i_l is not None and n == 15600:
         assert bool(torch.isnan(got.f_v).any())
+
+
+@pytest.mark.cuda
+def test_autograd_stage_on_the_card(cuda_device):
+    """A (8, 64, 64, 64, 1) stage runs on the card without the training
+    kernel, near its plain version under the same masks, and in chunks equal
+    to the whole stage."""
+    rs = np.random.RandomState(2)
+    x = torch.as_tensor(rs.uniform(-1, 1, (1000, 8)).astype(np.float32), device=cuda_device)
+    y = torch.as_tensor(rs.uniform(-1, 1, (1000, 1)).astype(np.float32), device=cuda_device)
+    mlp = MLP((8, 64, 64, 64, 1), generator=torch.Generator().manual_seed(0), device=cuda_device)
+    hp = dict(lr=1e-2, lr_step=5, lr_gamma=0.5, dropout_p=0.2)
+    before = build.LAUNCHES["train_dnn"]
+    whole = train_dnn_stage(mlp, x, y, 7, 20, **hp)
+    assert build.LAUNCHES["train_dnn"] == before
+    plain = td.train_dnn_stage_plain(mlp, x, y, 7, 20, **hp)
+    torch.testing.assert_close(whole.losses, plain.losses, rtol=1e-5, atol=1e-7)
+    for a, b in zip(td.mlp_weights(whole.params), td.mlp_weights(plain.mlp)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    piece, state, parts, start = mlp, None, [], 0
+    for m in (7, 6, 7):
+        piece, state, losses = train_dnn_chunk(piece, state, x, y, 7, start, m, **hp)
+        parts.append(losses)
+        start += m
+    assert torch.equal(torch.cat(parts), whole.losses)
+    for a, b in zip(td.mlp_weights(piece), td.mlp_weights(whole.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_vmap_sampler_on_the_card(cuda_device, campaign_rows):
+    mlp_cpu = MLP((8, 64, 64, 1), generator=torch.Generator().manual_seed(0), device="cpu")
+    mlp = MLP((8, 64, 64, 1), generator=torch.Generator().manual_seed(0), device=cuda_device)
+    x_cpu = campaign_rows.x_test[:300]
+    x = x_cpu.to(cuda_device)
+
+    def run(seed):
+        return mc_dropout_samples(mlp, x, torch.Generator(cuda_device).manual_seed(seed),
+                                  mc_times=800, dropout=0.4)[0]
+
+    a, b = run(7), run(7)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with torch.no_grad():
+        assert torch.equal(a.pred_mean, mlp(x)[0][:, 0])
+    host, _ = mc_dropout_samples(mlp_cpu, x_cpu, torch.Generator().manual_seed(7),
+                                 mc_times=800, dropout=0.4)
+    for name, band in (("epistemic_std", 0.15), ("aleatoric_std", 0.1)):
+        u, v = getattr(a, name).cpu(), getattr(host, name)
+        assert float(torch.mean((u - v).abs() / (0.5 * (u + v) + 1e-9))) < band, name
+    # the exporter takes 'vmap' for this topology; the MC kernel refuses it
+    params = init_pinn((8, 64, 64, 1), generator=torch.Generator().manual_seed(0),
+                       device=cuda_device)
+    ds = combine_and_normalize(*synthesize_stack_data(n_normal=300, n_fault=40, seed=42),
+                               device=cuda_device)
+    before = dict(build.LAUNCHES)
+    res, info = build_comprehensive_results(params, ds, mc_seed=5, mc_times=16)
+    assert build.LAUNCHES["mc_dropout"] == before["mc_dropout"]
+    assert info == {"sampler": "vmap", "mc_passes": 16}
+    assert np.isfinite(res.array[:, 10:12]).all()
+    with pytest.raises(ValueError, match="flagship"):
+        mc_dropout(params["mlp"], ds.x_test, 5, mc_times=16)
+
+
+def _ramped_results():
+    """tests/test_risk.py's campaign-scale artifact: 12 slow-onset fault
+    segments of 1,050 rows (columns: 0 current, 8 voltage, 12-16 residuals,
+    17 label)."""
+    rng = np.random.RandomState(7)
+    n_normal, n_fault = 2000, 1050
+    arr = np.zeros((n_normal + 12 * n_fault, 22))
+    arr[:, 8] = 4.0 + 0.01 * rng.randn(arr.shape[0])
+    arr[:, 12:17] = 0.1 * rng.randn(arr.shape[0], 5)
+    arr[:n_normal, 0] = rng.uniform(100, 400, n_normal)
+    ramp = np.clip((np.linspace(0.0, 1.0, n_fault) - 0.25) / 0.75, 0.0, 1.0)
+    for seg in range(12):
+        rows = slice(n_normal + seg * n_fault, n_normal + (seg + 1) * n_fault)
+        arr[rows, 17] = seg + 1
+        arr[rows, 0] = (108.0, 270.0, 405.0)[seg % 3]
+        arr[rows, 12] += ramp * 0.35
+        arr[rows, 13] += ramp * 0.3
+        arr[rows, 14] += ramp * 0.25
+        arr[rows, 8] = 4.0 - ramp * 0.15
+    return arr
+
+
+@pytest.mark.cuda
+def test_risk_torch_backend_on_the_card(cuda_device):
+    arr = _ramped_results()
+    on_card = run_risk_pipeline(arr, backend="torch", device=cuda_device)
+    on_host = run_risk_pipeline(arr, backend="numpy")
+    assert len(on_card) == len(on_host) == 12
+    for a, b in zip(on_card, on_host):
+        assert (a.fault_name, a.current_target, a.n_samples, a.idx_v_alarm, a.idx_rf_alarm,
+                a.advance) == (b.fault_name, b.current_target, b.n_samples, b.idx_v_alarm,
+                               b.idx_rf_alarm, b.advance)
+    mu, sigma = estimate_mu_sigma_normal(arr)
+    r = arr[2000:3050, 12:17]
+    got = compute_rf_time_series(r, mu, sigma, backend="torch", device=cuda_device)
+    want = compute_rf_time_series(r, mu, sigma, backend="numpy")
+    tol = {"s_tot": (1e-4, 1e-5), "c": (1e-3, 1e-3), "rf_inst": (1e-3, 1e-4),
+           "rf_smooth": (1e-3, 1e-4)}
+    for key, (rtol, atol) in tol.items():
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol, err_msg=key)

@@ -58,8 +58,8 @@ def both():
 
 def test_export_matches_jax_pallas_exporter(both):
     _, _, jres, seed, params, ds = both
-    res = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
-                                      smooth_window=50)
+    res, _ = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
+                                         smooth_window=50)
     got, want = res.array, jres.array
     assert got.shape == want.shape == (780, 22)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
@@ -75,8 +75,8 @@ def test_export_matches_jax_pallas_exporter(both):
 
 def test_metrics_match_jax(both):
     jparams, jds, jres, seed, params, ds = both
-    res = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
-                                      smooth_window=50)
+    res, _ = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
+                                         smooth_window=50)
     got = evaluate_voltage_metrics(params, ds, results=res)
     want = jax_metrics(jparams, jds, results=jres)
     assert got.keys() == want.keys()
@@ -111,8 +111,8 @@ def test_metrics_without_results_match_the_export_path(both):
     """The port's two paths describe the same eval forward: the export's base
     column is the plain float32 forward on the CPU (rtol 1e-5)."""
     _, _, _, seed, params, ds = both
-    res = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
-                                      smooth_window=50)
+    res, _ = build_comprehensive_results(params, ds, mc_seed=seed, mc_times=MC_TIMES,
+                                         smooth_window=50)
     _assert_metrics_close(evaluate_voltage_metrics(params, ds),
                           evaluate_voltage_metrics(params, ds, results=res), rtol=1e-5)
 
