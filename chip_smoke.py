@@ -80,6 +80,15 @@ Phases, any failure exits non-zero before the result line:
    alarm table for every condition, the RF series within the tolerances of
    tests/test_risk.py; ``cli risk`` on the card and with ``--backend numpy``,
    two subprocesses, print identical tables;
+13. diagnosis on the card: phase 7's artifact through ``run_auc_pipeline``
+   (4 feature groups, 1,560 training and 14,040 test rows, a forest of 200
+   trees) and ``run_gmm_pipeline`` (20 components on ``pV,pT,pH,pO``), each on
+   the card and on the CPU with the same CPU-generator draws: the same split,
+   group AUCs within 1e-4, GMM accuracy within 0.005, ``y_prob`` rows summing
+   to 1, the EM converged within ``max_iter``; their seconds, the Newton and
+   EM iterations and the peak memory printed; then ``cli auc`` and ``cli gmm``
+   on the card over phase 9's ``cli score`` file, two subprocesses, whose
+   tables are printed;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -91,6 +100,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -468,11 +478,12 @@ def run_cli(*argv: str, timeout: int = 600):
     return proc.stdout, json.loads(counts[0][len("LAUNCHES "):]), wall
 
 
-def run_campaign_slice(dev):
+def run_campaign_slice(dev, keep_dir):
     """Phase 9: ``cli synth`` writes the default campaign as .mat files;
     ``cli train`` trains on them (schedule × 0.1, mid-stage snapshots every 100
-    steps, all three reports); ``cli score`` scores them from the checkpoint.
-    Returns the launch counts of the train and score runs."""
+    steps, all three reports); ``cli score`` scores them from the checkpoint,
+    whose .mat file is copied into ``keep_dir`` for phase 13.  Returns the
+    launch counts of the train and score runs."""
     import re
 
     from pinnfc_tpu_torch.data.campaign import CampaignConfig, load_campaign_dataset
@@ -527,6 +538,7 @@ def run_campaign_slice(dev):
         arr, scored = (load_comprehensive_results(mats[k]).array for k in ("train", "score"))
         check(np.array_equal(scored, arr, equal_nan=True),
               "cli score on the campaign does not reproduce the train-time artifact")
+        shutil.copy(mats["score"], os.path.join(keep_dir, "F01_scored.mat"))
         trained = load_checkpoint(ck, device=dev)
         ds = load_campaign_dataset(CampaignConfig.from_dir(flags[1], camp),
                                    scalers=(trained["scaler_x"], trained["scaler_y"]),
@@ -777,6 +789,157 @@ def run_risk_slice(results):
             "cli_wall_s": {"cuda": card_wall, "numpy": host_wall}}
 
 
+def _auc_newton_iters(arr, cfg, dev):
+    """The Newton iterations of each feature group's fit in
+    ``run_auc_pipeline`` (the same split and fit, which it does not return)."""
+    from pinnfc_tpu_torch.diagnosis import (
+        build_label_mapper, extract_X_y, logreg_fit, parse_features, parse_group_spec)
+    from pinnfc_tpu_torch.diagnosis.splits import stratified_split
+
+    label_map, names = build_label_mapper(parse_group_spec(cfg.group_spec))
+    iters = {}
+    for spec in cfg.feature_groups:
+        x, y = extract_X_y(arr, parse_features(spec), label_map)
+        x_tr, _, y_tr, _ = stratified_split(x, y, y=y, test_size=cfg.test_size,
+                                            random_state=cfg.random_state)
+        iters[spec] = logreg_fit(x_tr, y_tr, n_classes=len(names), balanced=cfg.balanced,
+                                 device=dev).n_iter
+    return iters
+
+
+def _diagnosis_stage_seconds(arr, auc_cfg, gmm_cfg):
+    """Host-clock seconds (synchronized) of each device stage of the two
+    pipelines on the card, at the pipelines' shapes: the four Newton fits,
+    the forest's build and its scoring, the k-means init and the EM from it."""
+    from pinnfc_tpu_torch.diagnosis import (
+        build_label_mapper, extract_X_y, gmm_fit, isoforest_fit, isoforest_score, kmeans_fit,
+        parse_features, parse_group_spec)
+    from pinnfc_tpu_torch.diagnosis.splits import stratified_split
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    secs = {}
+    _, secs["newton_fits"] = clock(lambda: _auc_newton_iters(arr, auc_cfg, "cuda"))
+    label_map, _ = build_label_mapper(parse_group_spec(auc_cfg.group_spec))
+    x, y = extract_X_y(arr, parse_features(auc_cfg.feature_groups[0]), label_map)
+    x_tr, x_te, y_tr, _ = stratified_split(x, y, y=y, test_size=auc_cfg.test_size,
+                                           random_state=auc_cfg.random_state)
+    forest, secs["forest_build"] = clock(lambda: isoforest_fit(
+        x_tr[y_tr == 0], torch.Generator().manual_seed(auc_cfg.random_state), device="cuda"))
+    _, secs["forest_score"] = clock(lambda: isoforest_score(forest, x_te))
+    label_map, names = build_label_mapper(parse_group_spec(gmm_cfg.group_spec))
+    x, y = extract_X_y(arr, parse_features(gmm_cfg.features), label_map)
+    x_tr, _, _, _ = stratified_split(x, y, y=y, test_size=gmm_cfg.test_size,
+                                     random_state=gmm_cfg.random_state)
+    c = gmm_cfg.n_components_factor * len(names)
+    km, secs["kmeans_init"] = clock(lambda: kmeans_fit(
+        x_tr, torch.Generator().manual_seed(gmm_cfg.random_state), c, max_iter=50,
+        device="cuda"))
+    resp = torch.nn.functional.one_hot(km.assignments, c)
+    _, secs["em"] = clock(lambda: gmm_fit(x_tr, None, c, init_resp=resp, device="cuda"))
+    secs["gmm_train_rows"] = len(x_tr)
+    return secs
+
+
+def run_diagnosis_slice(results, score_mat):
+    """Phase 13: the AUC stage of script 02 and the GMM stage of script 03 on
+    phase 7's artifact, on the card and on the CPU with the same draws, then
+    ``cli auc`` and ``cli gmm`` on the card over phase 9's ``cli score`` file;
+    returns what it prints as one dict."""
+    import warnings
+
+    from pinnfc_tpu_torch.config import AucConfig, GmmConfig
+    from pinnfc_tpu_torch.diagnosis import run_auc_pipeline, run_gmm_pipeline
+
+    arr = results.array
+    auc_cfg, gmm_cfg = AucConfig(), GmmConfig()
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # group 4 is y_true, as script 02's
+        run_auc_pipeline(arr, auc_cfg, device="cuda")  # warm-up: cuBLAS/cuSOLVER handles
+        run_gmm_pipeline(arr, gmm_cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        t0 = time.perf_counter()
+        auc_card = run_auc_pipeline(arr, auc_cfg, device="cuda")
+        out["auc_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gmm_card = run_gmm_pipeline(arr, gmm_cfg, device="cuda")
+        out["gmm_s"] = time.perf_counter() - t0
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        t0 = time.perf_counter()
+        auc_host = run_auc_pipeline(arr, auc_cfg, device="cpu")
+        out["auc_cpu_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gmm_host = run_gmm_pipeline(arr, gmm_cfg, device="cpu")
+        out["gmm_cpu_s"] = time.perf_counter() - t0
+        out["newton_iters"] = _auc_newton_iters(arr, auc_cfg, "cuda")
+        # float32 rounding differs between the devices, and the last Newton
+        # steps are at its level: the counts are reported, not compared
+        out["newton_iters_cpu"] = _auc_newton_iters(arr, auc_cfg, "cpu")
+        out["stage_s"] = _diagnosis_stage_seconds(arr, auc_cfg, gmm_cfg)
+    for a, b in zip(auc_card.groups, auc_host.groups):
+        check(np.array_equal(a.confusion.sum(axis=1), b.confusion.sum(axis=1)),
+              f"group {a.group_id}: the test rows differ between the card and the CPU")
+        check(abs(a.auc - b.auc) <= 1e-4, f"group {a.group_id} AUC {a.auc} on the card, "
+                                          f"{b.auc} on the CPU")
+    check(abs(auc_card.iso_auc - auc_host.iso_auc) <= 1e-4,
+          f"forest AUC {auc_card.iso_auc} on the card, {auc_host.iso_auc} on the CPU")
+    n_te = int(auc_card.groups[0].confusion.sum())
+    check(n_te == 14040, f"the AUC stage tests {n_te} rows, expected 14,040")
+    check(np.array_equal(gmm_card.test_full_indices, gmm_host.test_full_indices)
+          and np.array_equal(gmm_card.y_true, gmm_host.y_true),
+          "the GMM split differs between the card and the CPU")
+    check(abs(gmm_card.accuracy - gmm_host.accuracy) <= 0.005,
+          f"GMM accuracy {gmm_card.accuracy} on the card, {gmm_host.accuracy} on the CPU")
+    check(gmm_card.y_prob.shape == (len(gmm_card.y_true), 4)
+          and np.allclose(gmm_card.y_prob.sum(axis=1), 1.0, atol=1e-9),
+          "GMM y_prob rows do not sum to 1")
+    model = gmm_card.model
+    check(model.means.is_cuda and model.means.shape == (20, 4), "the mixture is not on the card")
+    check(model.converged and model.n_iter <= gmm_cfg.max_iter,
+          f"the EM did not converge: {model.n_iter} iterations")
+    out.update({
+        "auc": {g.features: g.auc for g in auc_card.groups}, "iso_auc": auc_card.iso_auc,
+        "auc_cpu": {g.features: g.auc for g in auc_host.groups}, "iso_auc_cpu": auc_host.iso_auc,
+        "accuracy": {g.features: g.accuracy for g in auc_card.groups},
+        "gmm_accuracy": gmm_card.accuracy, "gmm_accuracy_cpu": gmm_host.accuracy,
+        "em_iters": model.n_iter, "em_converged": model.converged,
+        "em_iters_cpu": gmm_host.model.n_iter, "lower_bound": model.lower_bound,
+        "gmm_test_rows": len(gmm_card.y_true)})
+    auc_out, auc_l, out["cli_auc_wall_s"] = run_cli("auc", "--mat", score_mat)
+    gmm_out, gmm_l, out["cli_gmm_wall_s"] = run_cli("gmm", "--mat", score_mat)
+    check(sum(auc_l.values()) + sum(gmm_l.values()) == 0,
+          f"cli auc/gmm launched a kernel: {auc_l}, {gmm_l}")
+    tables = {}
+    for name, text, head in (("auc", auc_out, "group 1 [epi,res]  AUC="),
+                             ("gmm", gmm_out, "GMM 4-class accuracy: ")):
+        lines = [ln for ln in text.splitlines()
+                 if not ln.startswith("LAUNCHES ") and "Warning" not in ln
+                 and "warnings.warn" not in ln]
+        check(any(ln.startswith(head) for ln in lines), f"cli {name} printed:\n{text}")
+        tables[name] = lines
+    print("[slice] cli auc on the card over phase 9's cli score file:")
+    print("\n".join(tables["auc"]))
+    print("[slice] cli gmm on the card over phase 9's cli score file:")
+    print("\n".join(tables["gmm"]))
+    print(f"[slice] diagnosis on the card: run_auc_pipeline {out['auc_s']:.3f} s, "
+          f"run_gmm_pipeline {out['gmm_s']:.3f} s (host clock, warm), peak "
+          f"{out['peak_gib']:.4f} GiB above what earlier phases hold; Newton iterations per group "
+          f"{json.dumps(out['newton_iters'])} (on the CPU {json.dumps(out['newton_iters_cpu'])}); "
+          f"EM {model.n_iter} iterations, converged "
+          f"{model.converged}; by stage (s) {json.dumps(out['stage_s'])}; on the CPU {out['auc_cpu_s']:.3f} s and {out['gmm_cpu_s']:.3f} s; "
+          f"group AUCs within 1e-4 of the CPU's, GMM accuracy {gmm_card.accuracy:.4f} against "
+          f"{gmm_host.accuracy:.4f}: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -988,7 +1151,8 @@ def main() -> int:
           f"({t_bound_fp32:.4f} ms)")
 
     # ---- 9. the campaign slice through the command line ----
-    campaign_launches = run_campaign_slice(dev)
+    keep = tempfile.TemporaryDirectory()  # phase 9's cli score file, for phase 13
+    campaign_launches = run_campaign_slice(dev, keep.name)
 
     # ---- 10. kill and resume on the card ----
     check_kill_and_resume(train_ds)
@@ -1004,6 +1168,13 @@ def main() -> int:
     risk["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phases 11-12 (s): {deep['phase_s']:.1f}, {risk['phase_s']:.1f}; "
           f"{json.dumps({'non_flagship': deep, 'risk': risk})}")
+
+    # ---- 13. diagnosis on the card ----
+    t0 = time.perf_counter()
+    diag = run_diagnosis_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
+    keep.cleanup()
+    diag["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 13 (s): {diag['phase_s']:.1f}; {json.dumps({'diagnosis': diag})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",

@@ -1,9 +1,10 @@
-"""Command line of the port: ``python -m pinnfc_tpu_torch.cli {train,score,synth,risk} ...``.
+"""Command line of the port: ``python -m pinnfc_tpu_torch.cli
+{train,score,synth,auc,gmm,risk} ...``.
 
-``train``, ``score`` and ``risk`` run on the card by default (``--device
-cuda``) and exit with an error when CUDA is absent; ``--device cpu`` runs the
-plain PyTorch path.  ``synth`` writes a synthetic campaign as .mat files;
-``risk --backend numpy`` runs the float64 host path.
+``train``, ``score``, ``auc``, ``gmm`` and ``risk`` run on the card by
+default (``--device cuda``) and exit with an error when CUDA is absent;
+``--device cpu`` runs the plain PyTorch path.  ``synth`` writes a synthetic
+campaign as .mat files; ``risk --backend numpy`` runs the float64 host path.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_gmm
 from pinnfc_tpu_torch.cli.risk import cmd_risk
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
@@ -107,6 +109,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the Chinese fault-file stems the reference ships (default: "
                          "ASCII aliases)")
     sy.set_defaults(fn=cmd_synth)
+
+    a = sub.add_parser("auc", help="stage auc over F01_output.mat: the detection AUCs of "
+                                   "script 02 (logistic regression per feature group, "
+                                   "Isolation Forest)")
+    a.add_argument("--mat", default="F01_output.mat")
+    a.add_argument("--group-spec", default=None)
+    a.add_argument("--test-size", type=float, default=None)
+    a.add_argument("--balanced", action="store_true", default=None)
+    a.add_argument("--no-balanced", dest="balanced", action="store_false")
+    a.add_argument("--show-coef", type=int, default=0,
+                   help="print top-N LR coefficients per class")
+    a.add_argument("--list-features", action="store_true")
+    a.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    a.set_defaults(fn=cmd_auc)
+
+    g = sub.add_parser("gmm", help="stage gmm over F01_output.mat: the 4-class GMM "
+                                   "diagnosis of script 03")
+    g.add_argument("--mat", default="F01_output.mat")
+    g.add_argument("--init", choices=("kmeans", "sklearn"), default=None,
+                   help="EM init: the port's k-means++ (default) or sklearn "
+                        "GaussianMixture's own kmeans init (needs scikit-learn)")
+    g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    g.set_defaults(fn=cmd_gmm)
 
     r = sub.add_parser("risk", help="stage risk over F01_output.mat: the RF(t) early-warning "
                                     "table of script 04")

@@ -1,9 +1,9 @@
 """Typed configuration (counterpart of ``pinnfc_tpu/config.py``).
 
 The model and training configs (``train_config_from_dict`` accepts the whole
-checkpoint sidecar, schedule included), and the risk function's config with
-its evaluation conditions and fault classes (script 04).  The diagnosis
-configs come with their modules.
+checkpoint sidecar, schedule included), the AUC and GMM diagnosis configs
+(scripts 02 and 03), and the risk function's config with its evaluation
+conditions and fault classes (script 04).
 """
 
 from __future__ import annotations
@@ -77,6 +77,44 @@ def train_config_from_dict(d: Dict) -> TrainConfig:
     schedule = tuple(StageConfig(**s) for s in d["schedule"])
     rest = {k: v for k, v in d.items() if k not in ("model", "schedule")}
     return TrainConfig(model=model, schedule=schedule, **rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class AucConfig:
+    """Supervised / unsupervised AUC evaluation (script 02 constants)."""
+
+    feature_groups: Tuple[str, ...] = ("epi,res", "x0,x3,x4,x5", "res", "y_true")
+    plot_features: str = "x0,x3,x4,x5"  # scatter/t-SNE view features (02:51)
+    group_spec: str = "正常:0 | 故障:1,2,3,4,5,6,7,8,9,10,11,12"  # 02:55
+    test_size: float = 0.9  # 02:57
+    random_state: int = 49  # 02:58
+    balanced: bool = True  # 02:59
+    iso_n_estimators: int = 200  # 02:584
+    iso_max_samples: int = 256
+    # 'device' = the batched torch forest (diagnosis/isoforest.py);
+    # 'sklearn' = the reference's CPU estimator (02:583-596)
+    iso_backend: str = "device"
+
+
+@dataclasses.dataclass(frozen=True)
+class GmmConfig:
+    """Unsupervised GMM diagnosis (script 03 constants)."""
+
+    group_spec: str = "水淹:1,2,3|氧饥饿:4,5,6|膜干:7,8,9|氢饥饿:10,11,12"  # 03:28
+    features: str = "pV,pT,pH,pO"  # 03:29
+    test_size: float = 0.25  # 03:30
+    random_state: int = 42  # 03:31
+    n_components_factor: int = 5  # 03:548
+    covariance_type: str = "full"  # 03:386
+    max_iter: int = 100
+    tol: float = 1e-3
+    reg_covar: float = 1e-6
+    # EM initialization: 'kmeans' = the port's k-means++ (default);
+    # 'sklearn' = sklearn GaussianMixture's own kmeans init responsibilities
+    # (one CPU k-means; needs scikit-learn)
+    init: str = "kmeans"
+    # EM arithmetic: 'float32' or 'float64'
+    dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)

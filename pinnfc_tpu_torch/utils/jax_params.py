@@ -1,4 +1,6 @@
-"""Carry weights between the JAX package's params tree and the port's params.
+"""Carry weights between the JAX package's params tree and the port's params,
+and a fitted Gaussian mixture from the JAX package's ``GMMParams`` to the
+port's.
 
 The JAX tree is ``{"mlp": {"hidden": [{"w","b"}...], "mean": {"w","b"},
 "var": [{"w","b"} x3]}, "lam_v", "lam_t", "lam_h", "lam_o"}`` of arrays; a
@@ -12,6 +14,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from pinnfc_tpu_torch.device import resolve_device
+from pinnfc_tpu_torch.diagnosis.gmm import GMMParams, _torch_dtype
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import LAMBDA_GROUPS, PinnParams
 
@@ -89,3 +93,22 @@ def params_to_numpy(params: PinnParams) -> Dict[str, Any]:
     for g in LAMBDA_GROUPS:
         tree[g] = params[g].detach().cpu().numpy().copy()
     return tree
+
+
+def gmm_params_from_numpy(weights, means, covariances, converged: bool = True,
+                          n_iter: int = 0, lower_bound: float = float("nan"),
+                          dtype=None, device="cuda"):
+    """A fitted mixture's arrays (a JAX ``GMMParams``'s weights (C,), means
+    (C, D) and covariances (C, D, D), as numpy) → the port's ``GMMParams`` on
+    ``device``, in ``dtype`` (default: the means' float dtype)."""
+    dev = resolve_device(device)
+    means = np.asarray(means)
+    dt = _torch_dtype(means.dtype if dtype is None else dtype)
+    weights, means, covariances = (torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+                                   for a in (weights, means, covariances))
+    c, d = means.shape
+    if weights.shape != (c,) or covariances.shape != (c, d, d):
+        raise ValueError(f"mixture shapes do not fit: weights {tuple(weights.shape)}, means "
+                         f"{(c, d)}, covariances {tuple(covariances.shape)}")
+    return GMMParams(weights, means, covariances, bool(converged), int(n_iter),
+                     float(lower_bound))

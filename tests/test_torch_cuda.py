@@ -26,14 +26,28 @@ holds them on the CPU), its chunks bitwise equal to the whole stage; the
 against the same sampler on the CPU (another random stream) in the band of
 tests/test_pallas_mc.py; the torch risk backend on the card against the
 float64 numpy backend: the same alarm table, the series at the tolerances of
-tests/test_risk.py:88-91."""
+tests/test_risk.py:88-91.
+
+Diagnosis on the card against the port on the CPU with the same CPU-generator
+draws: the forest's feature, size and threshold tables identical (the
+threshold is one float64 rounding on both) and its scores within rtol 1e-6;
+k-means with the same assignments and inertia within rtol 1e-5; logistic
+regression with the same ``n_iter`` and probabilities within atol 1e-5; the
+EM in float32 from the same k-means draws with the same ``n_iter`` and argmax
+on ≥ 99.9 % of rows, in float64 from one ``init_resp`` within 1e-9; and
+``init='sklearn'`` / ``iso_backend='sklearn'`` raising ImportError when
+scikit-learn cannot be imported."""
 
 import numpy as np
 import pytest
 import torch
 
+from pinnfc_tpu_torch.config import AucConfig, GmmConfig
 from pinnfc_tpu_torch.data.combine import combine_and_normalize
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+from pinnfc_tpu_torch.diagnosis import (
+    gmm_fit, gmm_predict_proba, isoforest_fit, isoforest_score, kmeans_fit, logreg_fit,
+    logreg_predict_proba, run_auc_pipeline, run_gmm_pipeline)
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
@@ -301,3 +315,78 @@ def test_risk_torch_backend_on_the_card(cuda_device):
            "rf_smooth": (1e-3, 1e-4)}
     for key, (rtol, atol) in tol.items():
         np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol, err_msg=key)
+
+
+def _blobs(seed=0):
+    rng = np.random.RandomState(seed)
+    centers = np.array([[0, 0, 0, 0], [6, 0, 0, 0], [0, 6, 0, 0], [0, 0, 6, 6]], dtype=float)
+    x = np.vstack([c + rng.randn(500, 4) for c in centers])
+    y = np.repeat(np.arange(4), 500)
+    perm = rng.permutation(len(y))
+    return x[perm], y[perm]
+
+
+@pytest.mark.cuda
+def test_forest_on_the_card_is_the_cpu_forest(cuda_device):
+    rng = np.random.RandomState(7)
+    x_fit, x_te = rng.randn(600, 2) * [0.4, 0.6], rng.randn(14040, 2)
+    on_card = isoforest_fit(x_fit, torch.Generator().manual_seed(49), device=cuda_device)
+    on_host = isoforest_fit(x_fit, torch.Generator().manual_seed(49), device="cpu")
+    for name in ("feature", "threshold", "size"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_host, name)), name
+    np.testing.assert_allclose(isoforest_score(on_card, x_te).cpu().numpy(),
+                               isoforest_score(on_host, x_te).numpy(), rtol=1e-6)
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        isoforest_fit(x_fit, torch.Generator(device=cuda_device), device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_kmeans_and_logreg_on_the_card_match_the_cpu(cuda_device):
+    x, y = _blobs()
+    on_card = kmeans_fit(x, torch.Generator().manual_seed(0), 20, max_iter=50,
+                         device=cuda_device)
+    on_host = kmeans_fit(x, torch.Generator().manual_seed(0), 20, max_iter=50, device="cpu")
+    assert torch.equal(on_card.assignments.cpu(), on_host.assignments)
+    assert float(on_card.inertia) == pytest.approx(float(on_host.inertia), rel=1e-5)
+    for k, xs in ((4, x), (2, x[:, :2])):
+        yk = y if k == 4 else (y > 0).astype(int)
+        m_card = logreg_fit(xs, yk, n_classes=k, device=cuda_device)
+        m_host = logreg_fit(xs, yk, n_classes=k, device="cpu")
+        assert m_card.n_iter == m_host.n_iter
+        np.testing.assert_allclose(logreg_predict_proba(m_card, xs).cpu().numpy(),
+                                   logreg_predict_proba(m_host, xs).numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_em_on_the_card_matches_the_cpu(cuda_device):
+    x, _ = _blobs(1)
+    on_card = gmm_fit(x, torch.Generator().manual_seed(42), 20, device=cuda_device)
+    on_host = gmm_fit(x, torch.Generator().manual_seed(42), 20, device="cpu")
+    assert (on_card.n_iter, on_card.converged) == (on_host.n_iter, on_host.converged)
+    agree = (gmm_predict_proba(on_card, x).argmax(1).cpu() ==
+             gmm_predict_proba(on_host, x).argmax(1)).double().mean()
+    assert float(agree) >= 0.999
+    assert on_card.lower_bound == pytest.approx(on_host.lower_bound, rel=1e-4)
+    resp = np.eye(20)[np.arange(len(x)) % 20]
+    f64 = [gmm_fit(x, None, 20, init_resp=resp, dtype="float64", device=d)
+           for d in (cuda_device, "cpu")]
+    assert f64[0].n_iter == f64[1].n_iter
+    for name in ("weights", "means", "covariances"):
+        np.testing.assert_allclose(getattr(f64[0], name).cpu().numpy(),
+                                   getattr(f64[1], name).numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_sklearn_paths_raise_without_sklearn(cuda_device, monkeypatch):
+    import sys
+
+    rng = np.random.RandomState(0)
+    arr = np.zeros((400, 22))
+    arr[:, 11:17] = rng.randn(400, 6)
+    arr[:, 17] = np.arange(400) % 13
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        run_gmm_pipeline(arr, GmmConfig(init="sklearn"), device=cuda_device)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        run_auc_pipeline(arr, AucConfig(iso_backend="sklearn", feature_groups=("epi,res",)),
+                         device=cuda_device)
