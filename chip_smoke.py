@@ -89,6 +89,21 @@ Phases, any failure exits non-zero before the result line:
    EM iterations and the peak memory printed; then ``cli auc`` and ``cli gmm``
    on the card over phase 9's ``cli score`` file, two subprocesses, whose
    tables are printed;
+14. the comparison of script 05 on the card: phase 7's artifact through
+   ``run_compare_pipeline`` at the published ``CompareConfig``/``GmmConfig``
+   (7,200 training and 2,400 test fault rows; Ward takes the NN-chain and
+   spectral the subspace iteration at that size), all six methods at once
+   and each on its own (synchronized host clock), with the SVM's L-BFGS
+   steps, Ward's chain steps and host replay, and the subspace steps
+   recorded on the way; the same seed on the CPU for GMM, LR, SVM, KMeans
+   and Agglomerative: the same ``y_true``, LR/SVM/Agglomerative predictions
+   agreeing on ≥ 99.5 % of rows, every macro F1 within 0.01 of the card's;
+   on the card, the subspace path's bottom-16 projector within 1e-2 (max
+   abs) of ``eigh``'s on the same Laplacian; ``tsne_fit`` on the 2,400 test
+   rows at perplexity 20 (its seconds and KL), and on a 600-row subset on the
+   card and on the CPU, KLs within 10 %; ``cli compare`` on the card over
+   phase 9's ``cli score`` file, a subprocess, whose table is printed; the
+   peak memory of the phase;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -789,6 +804,15 @@ def run_risk_slice(results):
             "cli_wall_s": {"cuda": card_wall, "numpy": host_wall}}
 
 
+def _synced(fn):
+    """(fn's result, its host seconds between two synchronizations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
 def _auc_newton_iters(arr, cfg, dev):
     """The Newton iterations of each feature group's fit in
     ``run_auc_pipeline`` (the same split and fit, which it does not return)."""
@@ -816,32 +840,25 @@ def _diagnosis_stage_seconds(arr, auc_cfg, gmm_cfg):
         parse_features, parse_group_spec)
     from pinnfc_tpu_torch.diagnosis.splits import stratified_split
 
-    def clock(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t0
-
     secs = {}
-    _, secs["newton_fits"] = clock(lambda: _auc_newton_iters(arr, auc_cfg, "cuda"))
+    _, secs["newton_fits"] = _synced(lambda: _auc_newton_iters(arr, auc_cfg, "cuda"))
     label_map, _ = build_label_mapper(parse_group_spec(auc_cfg.group_spec))
     x, y = extract_X_y(arr, parse_features(auc_cfg.feature_groups[0]), label_map)
     x_tr, x_te, y_tr, _ = stratified_split(x, y, y=y, test_size=auc_cfg.test_size,
                                            random_state=auc_cfg.random_state)
-    forest, secs["forest_build"] = clock(lambda: isoforest_fit(
+    forest, secs["forest_build"] = _synced(lambda: isoforest_fit(
         x_tr[y_tr == 0], torch.Generator().manual_seed(auc_cfg.random_state), device="cuda"))
-    _, secs["forest_score"] = clock(lambda: isoforest_score(forest, x_te))
+    _, secs["forest_score"] = _synced(lambda: isoforest_score(forest, x_te))
     label_map, names = build_label_mapper(parse_group_spec(gmm_cfg.group_spec))
     x, y = extract_X_y(arr, parse_features(gmm_cfg.features), label_map)
     x_tr, _, _, _ = stratified_split(x, y, y=y, test_size=gmm_cfg.test_size,
                                      random_state=gmm_cfg.random_state)
     c = gmm_cfg.n_components_factor * len(names)
-    km, secs["kmeans_init"] = clock(lambda: kmeans_fit(
+    km, secs["kmeans_init"] = _synced(lambda: kmeans_fit(
         x_tr, torch.Generator().manual_seed(gmm_cfg.random_state), c, max_iter=50,
         device="cuda"))
     resp = torch.nn.functional.one_hot(km.assignments, c)
-    _, secs["em"] = clock(lambda: gmm_fit(x_tr, None, c, init_resp=resp, device="cuda"))
+    _, secs["em"] = _synced(lambda: gmm_fit(x_tr, None, c, init_resp=resp, device="cuda"))
     secs["gmm_train_rows"] = len(x_tr)
     return secs
 
@@ -937,6 +954,159 @@ def run_diagnosis_slice(results, score_mat):
           f"{model.converged}; by stage (s) {json.dumps(out['stage_s'])}; on the CPU {out['auc_cpu_s']:.3f} s and {out['gmm_cpu_s']:.3f} s; "
           f"group AUCs within 1e-4 of the CPU's, GMM accuracy {gmm_card.accuracy:.4f} against "
           f"{gmm_host.accuracy:.4f}: ok")
+    return out
+
+
+class _Recorder:
+    """Wraps a module's function for one phase: counts its calls, sums its
+    host seconds (synchronized) and keeps its first result; ``restore()``
+    puts the function back.  The modules look these functions up at call
+    time, so the main path runs through the wrapper unchanged."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls, self.seconds, self.first = 0, 0.0, None
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        result, seconds = _synced(lambda: self.orig(*args, **kwargs))
+        self.seconds += seconds
+        if self.calls == 0:
+            self.first = result
+        self.calls += 1
+        return result
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_compare_slice(results, score_mat):
+    """Phase 14: the six-method comparison of script 05 on phase 7's
+    artifact, on the card and on the CPU with the same seed, the spectral
+    eigenspace checked against ``eigh``, t-SNE on the test rows, then ``cli
+    compare`` on the card over phase 9's ``cli score`` file; returns what it
+    prints as one dict."""
+    from pinnfc_tpu_torch.config import CompareConfig, GmmConfig
+    from pinnfc_tpu_torch.diagnosis import (
+        build_label_mapper, extract_X_y, parse_features, parse_group_spec, run_compare_pipeline,
+        tsne_fit)
+    from pinnfc_tpu_torch.diagnosis import spectral as spectral_mod
+    from pinnfc_tpu_torch.diagnosis import svm as svm_mod
+    from pinnfc_tpu_torch.diagnosis import ward as ward_mod
+    from pinnfc_tpu_torch.diagnosis.compare import METHODS
+    from pinnfc_tpu_torch.diagnosis.splits import stratified_split
+
+    arr = results.array
+    cfg, gmm_cfg = CompareConfig(), GmmConfig()
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    # warm-up of the cheap methods: cuBLAS/cuSOLVER handles, allocator
+    run_compare_pipeline(arr, cfg, gmm_cfg, methods=["gmm", "logreg", "svm", "kmeans"],
+                         device="cuda")
+    card, out["all_six_s"] = _synced(lambda: run_compare_pipeline(arr, cfg, gmm_cfg,
+                                                                  device="cuda"))
+    recorders = [_Recorder(svm_mod, "lbfgs_minimize"), _Recorder(ward_mod, "_nn_chain_merges"),
+                 _Recorder(ward_mod, "_replay_labels"),
+                 _Recorder(spectral_mod, "_bottom_k_subspace")]
+    try:
+        out["method_s"], out["alone_equal"] = {}, {}
+        for m in METHODS:
+            one, out["method_s"][m] = _synced(lambda: run_compare_pipeline(
+                arr, cfg, gmm_cfg, methods=[m], device="cuda"))
+            out["alone_equal"][m] = bool(np.array_equal(
+                one.methods[0].y_pred, card.methods[METHODS.index(m)].y_pred))
+    finally:
+        for r in recorders:
+            r.restore()
+    lbfgs_rec, chain_rec, replay_rec, sub_rec = recorders
+    check(chain_rec.calls == replay_rec.calls == sub_rec.calls == 1,
+          f"Ward ran {chain_rec.calls} NN-chains, spectral {sub_rec.calls} subspace "
+          "iterations: the size rule did not pick the NN-chain and the subspace path")
+    sol = lbfgs_rec.first
+    out["svm_lbfgs_iters"] = sol.n_iter.tolist()
+    out["svm_lbfgs_s"] = lbfgs_rec.seconds
+    out["ward_chain_steps"] = chain_rec.first[3]
+    out["ward_chain_s"] = chain_rec.seconds
+    out["ward_replay_s"] = replay_rec.seconds
+    basis, out["subspace_steps"] = sub_rec.first
+    out["subspace_s"] = sub_rec.seconds
+
+    # the same seed on the CPU, for every method but spectral
+    host_methods = ["gmm", "logreg", "svm", "kmeans", "agglomerative"]
+    host, out["cpu_five_s"] = _synced(lambda: run_compare_pipeline(
+        arr, cfg, gmm_cfg, methods=host_methods, device="cpu"))
+    check(np.array_equal(card.y_true, host.y_true), "y_true differs between the card and the CPU")
+    n_te = len(card.y_true)
+    check(n_te == 2400, f"the comparison tests {n_te} rows, expected 2,400")
+    by_name = {m.name: m for m in card.methods}
+    out["agree"], out["f1"], out["f1_cpu"] = {}, {}, {}
+    for h in host.methods:
+        c = by_name[h.name]
+        out["agree"][h.name] = float((c.y_pred == h.y_pred).mean())
+        out["f1"][h.name], out["f1_cpu"][h.name] = c.metrics["f1_macro"], h.metrics["f1_macro"]
+        if h.name in ("Supervised_LR", "Supervised_SVM", "Agglomerative"):
+            check(out["agree"][h.name] >= 0.995,
+                  f"{h.name}: the card and the CPU agree on {out['agree'][h.name]:.4f} of rows")
+        check(abs(c.metrics["f1_macro"] - h.metrics["f1_macro"]) <= 0.01,
+              f"{h.name}: macro F1 {c.metrics['f1_macro']} on the card, "
+              f"{h.metrics['f1_macro']} on the CPU")
+    out["f1"]["Spectral"] = by_name["Spectral"].metrics["f1_macro"]
+    out["metrics"] = card.summary_table()
+
+    # spectral on the card: the subspace basis of the main path against eigh
+    label_map, _ = build_label_mapper(parse_group_spec(gmm_cfg.group_spec))
+    x, y = extract_X_y(arr, parse_features(gmm_cfg.features), label_map)
+    x_tr, x_te, _, _ = stratified_split(x, y, y=y, test_size=cfg.test_size,
+                                        random_state=cfg.random_state)
+    check(len(x_tr) == 7200, f"the comparison trains on {len(x_tr)} rows, expected 7,200")
+    _, lap, _ = spectral_mod.knn_laplacian(torch.as_tensor(x_tr, dtype=torch.float32,
+                                                           device="cuda"), cfg.spectral_n_neighbors)
+    (evals, evecs), out["eigh_s"] = _synced(lambda: torch.linalg.eigh(lap))
+    k = cfg.spectral_clusters_factor * 4
+    p_eigh = evecs[:, :k].double() @ evecs[:, :k].double().T
+    p_sub = basis.double() @ basis.double().T
+    out["projector_max_abs"] = float((p_sub - p_eigh).abs().max())
+    out["eigenvalues_14_to_18"] = evals[k - 3:k + 2].tolist()
+    out["zero_eigenvalues"] = int((evals.abs() < 1e-5).sum())
+    check(out["projector_max_abs"] <= 1e-2,
+          f"subspace and eigh bottom-{k} projectors differ by {out['projector_max_abs']:.3e}")
+    del lap, evecs, p_eigh, p_sub
+
+    # t-SNE of the test rows, as cli gmm --tsne runs it
+    emb, out["tsne_s"] = _synced(lambda: tsne_fit(x_te, perplexity=20.0, device="cuda"))
+    check(emb.embedding.shape == (2400, 2) and bool(torch.isfinite(emb.embedding).all()),
+          "t-SNE embedding is not finite")
+    out["tsne_kl"] = float(emb.kl_divergence)
+    sub = x_te[:600]
+    card_sub = float(tsne_fit(sub, perplexity=20.0, device="cuda").kl_divergence)
+    host_sub, out["tsne_600_cpu_s"] = _synced(lambda: tsne_fit(sub, perplexity=20.0,
+                                                               device="cpu"))
+    out["tsne_600_kl"], out["tsne_600_kl_cpu"] = card_sub, float(host_sub.kl_divergence)
+    check(abs(card_sub - out["tsne_600_kl_cpu"]) <= 0.1 * card_sub,
+          f"t-SNE KL on 600 rows {card_sub} on the card, {out['tsne_600_kl_cpu']} on the CPU")
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+
+    text, launches, out["cli_compare_wall_s"] = run_cli("compare", "--mat", score_mat)
+    check(sum(launches.values()) == 0, f"cli compare launched a kernel: {launches}")
+    lines = [ln for ln in text.splitlines() if ":" in ln and "=" in ln
+             and not ln.startswith("LAUNCHES ")]
+    check(len(lines) == 6 and lines[0].strip().startswith("GMM: accuracy="),
+          f"cli compare printed:\n{text}")
+    print("[slice] cli compare on the card over phase 9's cli score file:")
+    print("\n".join(lines))
+    print("[slice] comparison on the card (host clock, synchronized, warm): all six methods "
+          f"{out['all_six_s']:.3f} s; alone (s) {json.dumps(out['method_s'])}; SVM L-BFGS "
+          f"steps per pair {out['svm_lbfgs_iters']}; Ward {out['ward_chain_steps']} chain steps in "
+          f"{out['ward_chain_s']:.3f} s, host replay {out['ward_replay_s']:.4f} s; spectral "
+          f"subspace {out['subspace_steps']} steps in {out['subspace_s']:.3f} s, projector vs "
+          f"eigh {out['projector_max_abs']:.3e} (eigh {out['eigh_s']:.3f} s); the CPU's five "
+          f"methods {out['cpu_five_s']:.3f} s, "
+          f"agreement {json.dumps(out['agree'])}; t-SNE of 2,400 rows {out['tsne_s']:.3f} s, "
+          f"KL {out['tsne_kl']:.4f}; peak {out['peak_gib']:.4f} GiB above what earlier phases "
+          "hold: ok")
     return out
 
 
@@ -1151,7 +1321,7 @@ def main() -> int:
           f"({t_bound_fp32:.4f} ms)")
 
     # ---- 9. the campaign slice through the command line ----
-    keep = tempfile.TemporaryDirectory()  # phase 9's cli score file, for phase 13
+    keep = tempfile.TemporaryDirectory()  # phase 9's cli score file, for phases 13 and 14
     campaign_launches = run_campaign_slice(dev, keep.name)
 
     # ---- 10. kill and resume on the card ----
@@ -1172,9 +1342,15 @@ def main() -> int:
     # ---- 13. diagnosis on the card ----
     t0 = time.perf_counter()
     diag = run_diagnosis_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
-    keep.cleanup()
     diag["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 13 (s): {diag['phase_s']:.1f}; {json.dumps({'diagnosis': diag})}")
+
+    # ---- 14. the comparison of script 05 on the card ----
+    t0 = time.perf_counter()
+    comp = run_compare_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
+    keep.cleanup()
+    comp["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 14 (s): {comp['phase_s']:.1f}; {json.dumps({'compare': comp})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",

@@ -1,7 +1,7 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
-{train,score,synth,auc,gmm,risk} ...``.
+{train,score,synth,auc,gmm,compare,risk} ...``.
 
-``train``, ``score``, ``auc``, ``gmm`` and ``risk`` run on the card by
+``train``, ``score``, ``auc``, ``gmm``, ``compare`` and ``risk`` run on the card by
 default (``--device cuda``) and exit with an error when CUDA is absent;
 ``--device cpu`` runs the plain PyTorch path.  ``synth`` writes a synthetic
 campaign as .mat files; ``risk --backend numpy`` runs the float64 host path.
@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_gmm
+from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_compare, cmd_gmm
 from pinnfc_tpu_torch.cli.risk import cmd_risk
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
@@ -132,6 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "GaussianMixture's own kmeans init (needs scikit-learn)")
     g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     g.set_defaults(fn=cmd_gmm)
+
+    c = sub.add_parser("compare", help="stage compare over F01_output.mat: the six-method "
+                                       "4-class comparison of script 05")
+    c.add_argument("--mat", default="F01_output.mat")
+    c.add_argument("--methods", default=None,
+                   help="comma list: gmm,logreg,svm,kmeans,agglomerative,spectral")
+    c.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    c.set_defaults(fn=cmd_compare)
 
     r = sub.add_parser("risk", help="stage risk over F01_output.mat: the RF(t) early-warning "
                                     "table of script 04")

@@ -1,11 +1,12 @@
-"""``auc`` and ``gmm`` subcommands (counterpart of
-``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``): the AUC table of
-script 02 and the 4-class GMM diagnosis of script 03 over a
-``comprehensive_results`` artifact, with the JAX commands' printed lines.
+"""``auc``, ``gmm`` and ``compare`` subcommands (counterpart of
+``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``/``cmd_compare``): the AUC
+table of script 02, the 4-class GMM diagnosis of script 03 and the
+six-method comparison of script 05 over a ``comprehensive_results``
+artifact, with the JAX commands' printed lines.
 
-Flags of the JAX commands left out: ``--plot-dir`` (both) and ``gmm
---tsne`` wait for ``viz/`` and ``tsne``; ``gmm --data-parallel`` waits for
-``parallel/`` (ROADMAP.md Queue 1 items 3, 6 and 7).
+Flags of the JAX commands left out: ``--plot-dir`` (all three) and ``gmm
+--tsne`` wait for ``viz/``; ``gmm --data-parallel`` waits for ``parallel/``
+(ROADMAP.md Queue 1 items 6 and 7).
 """
 
 from __future__ import annotations
@@ -90,4 +91,22 @@ def cmd_gmm(args) -> int:
         return 1
     print(f"GMM 4-class accuracy: {out.accuracy:.4f}")
     print("confusion:\n", out.confusion)
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """The six methods of script 05 (or ``--methods``): one line of macro
+    metrics each."""
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.diagnosis import run_compare_pipeline
+
+    methods = args.methods.split(",") if args.methods else None
+    try:
+        results = load_comprehensive_results(args.mat)
+        out = run_compare_pipeline(results, methods=methods, device=args.device)
+    except _USER_ERRORS as e:
+        print(f"compare: {e}", file=sys.stderr)
+        return 1
+    for m in out.methods:
+        print(f"{m.name:>15}: " + "  ".join(f"{k}={v:.4f}" for k, v in m.metrics.items()))
     return 0

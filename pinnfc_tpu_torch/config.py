@@ -2,8 +2,9 @@
 
 The model and training configs (``train_config_from_dict`` accepts the whole
 checkpoint sidecar, schedule included), the AUC and GMM diagnosis configs
-(scripts 02 and 03), and the risk function's config with its evaluation
-conditions and fault classes (script 04).
+(scripts 02 and 03), the six-method comparison's (script 05), and the risk
+function's config with its evaluation conditions and fault classes (script
+04).
 """
 
 from __future__ import annotations
@@ -115,6 +116,21 @@ class GmmConfig:
     init: str = "kmeans"
     # EM arithmetic: 'float32' or 'float64'
     dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class CompareConfig:
+    """Six-method comparison (script 05)."""
+
+    n_classes: int = 4
+    test_size: float = 0.25  # via 03:30
+    random_state: int = 42
+    gmm_components_factor: int = 5  # 05:644
+    kmeans_clusters_factor: int = 5  # 05:654
+    agglo_clusters_factor: int = 4  # 05:661
+    spectral_clusters_factor: int = 4  # 05:669
+    svm_c: float = 0.05  # 05:330
+    spectral_n_neighbors: int = 10  # 05:477
 
 
 @dataclasses.dataclass(frozen=True)

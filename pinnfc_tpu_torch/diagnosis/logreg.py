@@ -10,17 +10,24 @@ multi_class='multinomial', solver='lbfgs', max_iter=1000, class_weight))``
 with ``C=1.0`` and optional 'balanced' class weights
 ``n_samples / (n_classes · count_k)``, on standardized inputs.
 
-Solver: exact Newton/IRLS on the packed (D+1)·K parameters, the JAX
-package's rules term for term — a ridge ``1e-6·tr(H)/(D+1)K + 1e-8``, the
-intercept step projected onto the zero-mean subspace (the softmax shift
-direction), stop when ``max|Δ| ≤ max(tol, 5e-6)`` or after
-``min(max_iter, 100)`` steps.  The loop runs on the host with one read of
-the step size per iteration, so ``n_iter`` is the JAX ``while_loop``'s.
+Solvers, chosen as in the JAX package (``solver="auto"``: Newton up to 256
+packed parameters (D+1)·K, L-BFGS above):
+
+- exact Newton/IRLS on the packed parameters, the JAX package's rules term
+  for term — a ridge ``1e-6·tr(H)/(D+1)K + 1e-8``, the intercept step
+  projected onto the zero-mean subspace (the softmax shift direction), stop
+  when ``max|Δ| ≤ max(tol, 5e-6)`` or after ``min(max_iter, 100)`` steps.
+  The loop runs on the host with one read of the step size per iteration,
+  so ``n_iter`` is the JAX ``while_loop``'s;
+- L-BFGS (``diagnosis/lbfgs.py``; the JAX package runs ``optax.lbfgs``) on
+  the same objective from zero, stopping at gradient norm ≤ ``tol`` or after
+  ``max_iter`` steps.  Its iterates are not optax's: parity is on the
+  optimum.
+
 Float32, every product in full float32 (``resolve_device`` turns TF32 off).
 
-Not ported: the L-BFGS branch (``solver="lbfgs"``, or ``"auto"`` above 256
-packed parameters) and ``mask=`` (row padding for a device mesh); scripts
-02, 03 and 05 use neither, and each raises ``NotImplementedError``.
+Not ported: ``mask=`` (row padding for a device mesh); scripts 02, 03 and 05
+do not use it, and it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from pinnfc_tpu_torch.device import resolve_device
+from pinnfc_tpu_torch.diagnosis.lbfgs import lbfgs_minimize
 
 
 class LogRegModel(NamedTuple):
@@ -91,6 +99,26 @@ def _newton_solve(xs, onehot, w, c_reg, tol, max_iter):
     return theta[:d], theta[d], it
 
 
+def _lbfgs_solve(xs, onehot, w, c_reg, tol, max_iter):
+    """L-BFGS on the sklearn objective (``loss_fn`` of
+    pinnfc_tpu/diagnosis/logreg.py:163-167) from zero; returns (coef,
+    intercept, n_iter)."""
+    d, k = xs.shape[1], onehot.shape[1]
+
+    def loss_and_grad(theta):  # theta (1, D·K + K): coef row-major, then intercept
+        coef, intercept = theta[0, :d * k].reshape(d, k), theta[0, d * k:]
+        logp = torch.log_softmax(xs @ coef + intercept, dim=1)
+        loss = 0.5 * (coef * coef).sum() + c_reg * (w * -(onehot * logp).sum(dim=1)).sum()
+        resid = c_reg * w[:, None] * (torch.exp(logp) - onehot)  # ∂loss/∂logits
+        grad = torch.cat([(xs.T @ resid + coef).reshape(-1), resid.sum(dim=0)])
+        return loss[None], grad[None]
+
+    theta0 = torch.zeros((1, (d + 1) * k), dtype=xs.dtype, device=xs.device)
+    sol = lbfgs_minimize(loss_and_grad, theta0, max_iter=max_iter, tol=tol)
+    theta = sol.x[0]
+    return theta[:d * k].reshape(d, k), theta[d * k:], int(sol.n_iter[0])
+
+
 def logreg_fit(
     x,
     y,
@@ -115,11 +143,6 @@ def logreg_fit(
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     y = torch.as_tensor(y, dtype=torch.int64, device=dev)
     n, d = x.shape
-    if solver == "lbfgs" or (d + 1) * n_classes > _NEWTON_MAX_PARAMS:
-        raise NotImplementedError(
-            f"logreg_fit's L-BFGS solver (solver={solver!r}, {(d + 1) * n_classes} packed "
-            f"parameters; Newton covers up to {_NEWTON_MAX_PARAMS}) is not ported "
-            "(ROADMAP.md, open item: logreg's L-BFGS solver)")
 
     # StandardScaler (population std, sklearn semantics)
     x_mean = x.mean(dim=0)
@@ -132,7 +155,12 @@ def logreg_fit(
     else:
         w = torch.ones((n,), dtype=torch.float32, device=dev)
     onehot = torch.nn.functional.one_hot(y, n_classes).to(torch.float32)
-    coef, intercept, n_iter = _newton_solve(xs, onehot, w, c_reg, tol, min(max_iter, 100))
+    use_newton = solver == "newton" or (
+        solver == "auto" and (d + 1) * n_classes <= _NEWTON_MAX_PARAMS)
+    if use_newton:
+        coef, intercept, n_iter = _newton_solve(xs, onehot, w, c_reg, tol, min(max_iter, 100))
+    else:
+        coef, intercept, n_iter = _lbfgs_solve(xs, onehot, w, c_reg, tol, max_iter)
     return LogRegModel(coef, intercept, x_mean, x_scale, n_iter)
 
 

@@ -1,6 +1,6 @@
 """Carry weights between the JAX package's params tree and the port's params,
-and a fitted Gaussian mixture from the JAX package's ``GMMParams`` to the
-port's.
+and a fitted Gaussian mixture or linear SVM from the JAX package's
+``GMMParams``/``SVMModel`` to the port's.
 
 The JAX tree is ``{"mlp": {"hidden": [{"w","b"}...], "mean": {"w","b"},
 "var": [{"w","b"} x3]}, "lam_v", "lam_t", "lam_h", "lam_o"}`` of arrays; a
@@ -16,6 +16,7 @@ import torch
 
 from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.diagnosis.gmm import GMMParams, _torch_dtype
+from pinnfc_tpu_torch.diagnosis.svm import SVMModel
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import LAMBDA_GROUPS, PinnParams
 
@@ -112,3 +113,21 @@ def gmm_params_from_numpy(weights, means, covariances, converged: bool = True,
                          f"{(c, d)}, covariances {tuple(covariances.shape)}")
     return GMMParams(weights, means, covariances, bool(converged), int(n_iter),
                      float(lower_bound))
+
+
+def svm_params_from_numpy(coef, intercept, pairs, x_mean, x_scale, device="cuda") -> SVMModel:
+    """A fitted one-vs-one SVM's arrays (a JAX ``SVMModel``'s coef (P, D),
+    intercept (P,), pairs (P, 2), x_mean (D,) and x_scale (D,), as numpy) →
+    the port's ``SVMModel`` on ``device`` (float32, pairs int64)."""
+    dev = resolve_device(device)
+    coef, intercept, x_mean, x_scale = (
+        torch.as_tensor(np.array(a, np.float32), device=dev)
+        for a in (coef, intercept, x_mean, x_scale))
+    pairs = torch.as_tensor(np.array(pairs, np.int64), device=dev)
+    p, d = coef.shape
+    if (intercept.shape != (p,) or pairs.shape != (p, 2) or x_mean.shape != (d,)
+            or x_scale.shape != (d,)):
+        raise ValueError(f"SVM shapes do not fit: coef {(p, d)}, intercept "
+                         f"{tuple(intercept.shape)}, pairs {tuple(pairs.shape)}, x_mean "
+                         f"{tuple(x_mean.shape)}, x_scale {tuple(x_scale.shape)}")
+    return SVMModel(coef, intercept, pairs, x_mean, x_scale)

@@ -36,7 +36,17 @@ regression with the same ``n_iter`` and probabilities within atol 1e-5; the
 EM in float32 from the same k-means draws with the same ``n_iter`` and argmax
 on ≥ 99.9 % of rows, in float64 from one ``init_resp`` within 1e-9; and
 ``init='sklearn'`` / ``iso_backend='sklearn'`` raising ImportError when
-scikit-learn cannot be imported."""
+scikit-learn cannot be imported.  Script 05 and t-SNE on the card against the
+port on the CPU: the SVM's coefficients within 1e-3 of max |coef| and its
+predictions on ≥ 99.5 % of rows, the L-BFGS logistic regression's
+probabilities within atol 2e-4 of the CPU's and of Newton's on the card (on
+overlapping classes both L-BFGS runs stop at float32's gradient floor, 1,000
+steps; the card and the CPU differed by 7e-5); Ward labels identical (global at N = 600,
+NN-chain at N = 2,400); the kNN index sets identical and the bottom-16
+projectors of eigh and of the subspace iteration within 1e-3; t-SNE's final
+KL within 10 %; the comparison pipeline on the miniature artifact with LR,
+SVM and Agglomerative predictions agreeing on ≥ 99.5 % of rows and every
+macro F1 within 0.05."""
 
 import numpy as np
 import pytest
@@ -47,7 +57,9 @@ from pinnfc_tpu_torch.data.combine import combine_and_normalize
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.diagnosis import (
     gmm_fit, gmm_predict_proba, isoforest_fit, isoforest_score, kmeans_fit, logreg_fit,
-    logreg_predict_proba, run_auc_pipeline, run_gmm_pipeline)
+    logreg_predict_proba, run_auc_pipeline, run_compare_pipeline, run_gmm_pipeline, svm_fit,
+    svm_predict, tsne_fit, ward_fit)
+from pinnfc_tpu_torch.diagnosis.spectral import _bottom_k_subspace, knn_laplacian
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
@@ -60,6 +72,8 @@ from pinnfc_tpu_torch.risk import (
     compute_rf_time_series, estimate_mu_sigma_normal, run_risk_pipeline)
 from pinnfc_tpu_torch.training.stages import train_dnn_chunk, train_dnn_stage
 from pinnfc_tpu_torch.uq.mc_dropout import finish_mc_stats, mc_dropout_samples
+
+from _torch_artifact import miniature_artifact
 
 
 @pytest.fixture
@@ -390,3 +404,88 @@ def test_sklearn_paths_raise_without_sklearn(cuda_device, monkeypatch):
     with pytest.raises(ImportError, match="scikit-learn"):
         run_auc_pipeline(arr, AucConfig(iso_backend="sklearn", feature_groups=("epi,res",)),
                          device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_svm_and_lbfgs_logreg_on_the_card_match_the_cpu(cuda_device):
+    x, y = _blobs()
+    x = x + 2.0 * np.random.RandomState(1).randn(*x.shape)  # overlapping classes
+    on_card = svm_fit(x, y, n_classes=4, device=cuda_device)
+    on_host = svm_fit(x, y, n_classes=4, device="cpu")
+    scale = float(on_host.coef.abs().max())
+    np.testing.assert_allclose(on_card.coef.cpu().numpy(), on_host.coef.numpy(), rtol=0,
+                               atol=1e-3 * scale)
+    np.testing.assert_allclose(on_card.intercept.cpu().numpy(), on_host.intercept.numpy(),
+                               rtol=0, atol=1e-3 * scale)
+    agree = (svm_predict(on_card, x).cpu() == svm_predict(on_host, x)).double().mean()
+    assert float(agree) >= 0.995
+    m_card = logreg_fit(x, y, n_classes=4, solver="lbfgs", device=cuda_device)
+    m_host = logreg_fit(x, y, n_classes=4, solver="lbfgs", device="cpu")
+    newton = logreg_fit(x, y, n_classes=4, solver="newton", device=cuda_device)
+    p_card = logreg_predict_proba(m_card, x).cpu().numpy()
+    np.testing.assert_allclose(p_card, logreg_predict_proba(m_host, x).numpy(), rtol=0,
+                               atol=2e-4)
+    np.testing.assert_allclose(p_card, logreg_predict_proba(newton, x).cpu().numpy(), rtol=0,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,algorithm", [(600, "global"), (2400, "auto")])
+def test_ward_on_the_card_is_the_cpu_ward(cuda_device, n, algorithm):
+    """N = 2,400 takes the NN-chain ("auto" above 2,048)."""
+    x = np.random.RandomState(n).randn(n, 4)
+    on_card = ward_fit(x, 16, algorithm=algorithm, device=cuda_device)
+    on_host = ward_fit(x, 16, algorithm=algorithm, device="cpu")
+    assert torch.equal(on_card.assignments.cpu(), on_host.assignments)
+    np.testing.assert_allclose(on_card.centers.cpu().numpy(), on_host.centers.numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_spectral_on_the_card(cuda_device):
+    x = torch.as_tensor(_blobs()[0][:600], dtype=torch.float32)
+    idx_card, lap_card, _ = knn_laplacian(x.to(cuda_device), 10)
+    idx_host, lap_host, _ = knn_laplacian(x, 10)
+    for a, b in zip(idx_card.cpu().numpy(), idx_host.numpy()):
+        assert set(a) == set(b)
+    torch.testing.assert_close(lap_card.cpu(), lap_host, rtol=0, atol=1e-6)
+
+    def projector(v):
+        v = v.double()
+        return v @ v.T
+
+    p_eigh = projector(torch.linalg.eigh(lap_card)[1][:, :16])
+    sub, steps = _bottom_k_subspace(lap_card, 16, torch.Generator().manual_seed(0))
+    assert 0 < steps < 3000
+    assert float((projector(sub) - p_eigh).abs().max()) <= 1e-3
+    assert float((projector(torch.linalg.eigh(lap_host)[1][:, :16]) - p_eigh.cpu())
+                 .abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_tsne_on_the_card_matches_the_cpu(cuda_device):
+    x = _blobs()[0][:300]
+    on_card = tsne_fit(x, perplexity=20.0, device=cuda_device)
+    on_host = tsne_fit(x, perplexity=20.0, device="cpu")
+    assert on_card.embedding.is_cuda and torch.isfinite(on_card.embedding).all()
+    assert float(on_card.kl_divergence) == pytest.approx(float(on_host.kl_divergence), rel=0.1)
+
+
+@pytest.mark.cuda
+def test_compare_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    import sys
+
+    arr = miniature_artifact()
+    on_card = run_compare_pipeline(arr, device=cuda_device)
+    on_host = run_compare_pipeline(arr, device="cpu")
+    np.testing.assert_array_equal(on_card.y_true, on_host.y_true)
+    for a, b in zip(on_card.methods, on_host.methods):
+        assert a.name == b.name
+        if a.name in ("Supervised_LR", "Supervised_SVM", "Agglomerative"):
+            assert (a.y_pred == b.y_pred).mean() >= 0.995, a.name
+        assert abs(a.metrics["f1_macro"] - b.metrics["f1_macro"]) <= 0.05, a.name
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        run_compare_pipeline(arr, methods=["agglomerative"], device_ward=False,
+                             device=cuda_device)

@@ -265,10 +265,6 @@ def test_logreg_matches_jax(balanced, d, k):
 
 def test_logreg_refuses_what_is_not_ported(blobs):
     x, y = blobs
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        logreg.logreg_fit(x, y, n_classes=4, solver="lbfgs", device="cpu")
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        logreg.logreg_fit(np.tile(x, (1, 20)), y, n_classes=4, device="cpu")  # 81·4 > 256
     with pytest.raises(NotImplementedError, match="parallel"):
         logreg.logreg_fit(x, y, n_classes=4, mask=np.ones(len(y)), device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
