@@ -104,6 +104,23 @@ Phases, any failure exits non-zero before the result line:
    card and on the CPU, KLs within 10 %; ``cli compare`` on the card over
    phase 9's ``cli score`` file, a subprocess, whose table is printed; the
    peak memory of the phase;
+15. explainability and figures on the card: ``input_saliency`` over phase
+   7's 15,600 artifact rows on the card and on the CPU (``jac_norm`` and
+   ``jac_range`` of each within rtol 1e-4 plus 1e-5 of the field's largest
+   entry of a float64 Jacobian, the card's largest error at most twice the
+   CPU's; the class tables within 1e-4, their drivers equal); ``lambda_identifiability`` on the card, group by
+   group, and on the CPU (flags and ``n_dropped`` equal, stderr within rtol
+   1e-3); ``conformal_report`` (host); the t-SNE view of ``auc --plot-dir``
+   (``tsne_embed`` of all 15,600 rows on x0,x3,x4,x5) with its seconds and
+   peak memory, and a 600-row subset on the card and on the CPU, KLs within
+   10 %; the view of ``gmm --plot-dir --tsne`` (the GMM test rows); then ``cli
+   identify``, ``explain``, ``inspect`` and ``conformal`` over phase 9's
+   checkpoint and ``cli score`` file, text and ``--json``, in one subprocess,
+   whose tables are printed; then ``--plot-dir`` on auc, gmm --tsne, risk,
+   compare, identify, explain and conformal in one subprocess: where
+   matplotlib is installed each writes the JAX command's file names; where it
+   is not, each exits 1 naming matplotlib and one line says that no figure
+   was drawn;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -493,11 +510,46 @@ def run_cli(*argv: str, timeout: int = 600):
     return proc.stdout, json.loads(counts[0][len("LAUNCHES "):]), wall
 
 
+# runs several of the port's commands in one fresh process: each command's
+# output followed by "RC <exit code>", then the launch counts of the process
+CLI_MANY_RUNNER = (
+    "import json, sys\n"
+    "from pinnfc_tpu_torch.cli import main\n"
+    "from pinnfc_tpu_torch.ops import build\n"
+    "build.reset_launches()\n"
+    "for argv in json.loads(sys.argv[1]):\n"
+    "    rc = main(argv)\n"
+    "    sys.stdout.flush()\n"
+    "    print(f'RC {rc}', flush=True)\n"
+    "print('LAUNCHES ' + json.dumps(build.LAUNCHES))\n"
+)
+
+
+def run_cli_many(*argvs, timeout: int = 600):
+    """Each argv through the port's ``main`` in one subprocess: ([(output,
+    exit code)] per command, the launch counts of the process, its standard
+    error, its wall seconds)."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_MANY_RUNNER, json.dumps(list(argvs))],
+                          cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the cli process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    body, _, counts = proc.stdout.rpartition("LAUNCHES ")
+    parts = re.split(r"^RC (-?\d+)\n", body, flags=re.M)
+    runs = list(zip(parts[0:-1:2], (int(rc) for rc in parts[1::2])))
+    check(len(runs) == len(argvs), f"{len(runs)} exit codes for {len(argvs)} commands")
+    return runs, json.loads(counts), proc.stderr, wall
+
+
 def run_campaign_slice(dev, keep_dir):
     """Phase 9: ``cli synth`` writes the default campaign as .mat files;
     ``cli train`` trains on them (schedule × 0.1, mid-stage snapshots every 100
     steps, all three reports); ``cli score`` scores them from the checkpoint,
-    whose .mat file is copied into ``keep_dir`` for phase 13.  Returns the
+    whose .mat file and checkpoint are copied into ``keep_dir`` for phases
+    13-15.  Returns the
     launch counts of the train and score runs."""
     import re
 
@@ -554,6 +606,8 @@ def run_campaign_slice(dev, keep_dir):
         check(np.array_equal(scored, arr, equal_nan=True),
               "cli score on the campaign does not reproduce the train-time artifact")
         shutil.copy(mats["score"], os.path.join(keep_dir, "F01_scored.mat"))
+        for ext in (".npz", ".meta.json"):
+            shutil.copy(ck + ext, os.path.join(keep_dir, "ck" + ext))
         trained = load_checkpoint(ck, device=dev)
         ds = load_campaign_dataset(CampaignConfig.from_dir(flags[1], camp),
                                    scalers=(trained["scaler_x"], trained["scaler_y"]),
@@ -1110,6 +1164,204 @@ def run_compare_slice(results, score_mat):
     return out
 
 
+# the JAX commands' --plot-dir file names (pinnfc_tpu/cli/diagnose.py,
+# pinnfc_tpu/cli/explain.py); risk's depend on the conditions present
+PLOT_FILES = {
+    "auc": ["feature_scatter.png", "res_vs_epi.png", "roc.png", "temp_vs_v.png"],
+    "gmm": ["gmm_confusion.png", "gmm_tsne.png", "prob_flooding.png",
+            "prob_hydrogen_starvation.png", "prob_membrane_drying.png",
+            "prob_oxygen_starvation.png"],
+    "compare": ["confusion_Agglomerative.png", "confusion_GMM.png", "confusion_KMeans.png",
+                "confusion_Spectral.png", "confusion_Supervised_LR.png",
+                "confusion_Supervised_SVM.png", "method_metrics.png"],
+    "identify": ["identifiability.png"],
+    "explain": ["saliency_sigma.png", "saliency_voltage.png"],
+    "conformal": ["conformal_coverage.png"],
+}
+
+
+def run_explain_slice(trained, keep_dir):
+    """Phase 15: saliency, identifiability, conformal coverage and the t-SNE
+    views on phase 7's artifact, on the card and on the CPU; then ``cli
+    identify/explain/inspect/conformal`` and ``--plot-dir`` on phase 9's
+    checkpoint and ``cli score`` file; returns what it prints as one dict."""
+    import copy
+    import importlib.util
+
+    from pinnfc_tpu_torch.config import AucConfig
+    from pinnfc_tpu_torch.diagnosis import parse_features, run_gmm_pipeline, tsne_fit
+    from pinnfc_tpu_torch.uq import (
+        coarse_class_saliency, conformal_report, input_saliency, lambda_identifiability)
+    from pinnfc_tpu_torch.uq.saliency import _head_jacobians
+    from pinnfc_tpu_torch.utils.jax_params import params_from_jax, params_to_numpy
+    from pinnfc_tpu_torch.viz.plots import scatter_features, tsne_embed
+
+    arr, ds, params = trained.results.array, trained.dataset, trained.params
+    host_params = params_from_jax(params_to_numpy(params), device="cpu")
+    sx, sy = ds.scaler_x, ds.scaler_y
+    hsx, hsy = sx.to("cpu"), sy.to("cpu")
+    x_raw, labels = arr[:, :8], trained.results.labels
+    out = {"rows": len(arr)}
+
+    # input saliency: one forward, two backward passes over every row
+    input_saliency(params, x_raw[:64], sx, sy, device="cuda")  # warm-up
+    card, out["saliency_s"] = _synced(lambda: input_saliency(params, x_raw, sx, sy,
+                                                             labels=labels, device="cuda"))
+    t0 = time.perf_counter()
+    host = input_saliency(host_params, x_raw, hsx, hsy, labels=labels, device="cpu")
+    out["saliency_cpu_s"] = time.perf_counter() - t0
+    # both float32 Jacobians against a float64 one (the CPU model in double):
+    # near-zero entries are sums of 256 products that cancel, so an
+    # elementwise atol of 1e-6 is below float32's rounding at this scale
+    mlp64 = copy.deepcopy(host_params["mlp"]).double()
+    x64 = torch.as_tensor(hsx.transform(x_raw.astype(np.float32))).double()
+    ref_norm = _head_jacobians(mlp64, x64)[0].numpy()
+    s_x, s_y = (s.scale.cpu().numpy().astype(np.float64) for s in (hsx, hsy))
+    span = (hsx.data_max.cpu().numpy().astype(np.float64)
+            - hsx.data_min.cpu().numpy().astype(np.float64))
+    refs = {"jac_norm": ref_norm, "jac_range": ref_norm * (s_x / s_y[0] * span)[None, :]}
+    out["saliency_err_vs_float64"], out["saliency_outside_1e-4_1e-6"] = {}, {}
+    for field, ref in refs.items():
+        tol = 1e-4 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+        errs = {k: np.abs(getattr(r, field) - ref) for k, r in (("cuda", card), ("cpu", host))}
+        check(all((e <= tol).all() for e in errs.values())
+              and errs["cuda"].max() <= 2.0 * errs["cpu"].max() + 1e-12,
+              f"saliency {field}: max error against float64 {errs['cuda'].max():.3e} on the "
+              f"card, {errs['cpu'].max():.3e} on the CPU (max |ref| {np.abs(ref).max():.3e})")
+        out["saliency_err_vs_float64"][field] = {k: float(e.max()) for k, e in errs.items()}
+        out["saliency_outside_1e-4_1e-6"][field] = int((~np.isclose(
+            getattr(card, field), getattr(host, field), rtol=1e-4, atol=1e-6)).sum())
+    out["drivers"] = {}
+    for field in ("jac_range", "sigma_jac_range"):
+        t_card, t_host = coarse_class_saliency(card, field), coarse_class_saliency(host, field)
+        check(list(t_card) == list(t_host) and len(t_card) == 5, f"saliency classes {list(t_card)}")
+        for name in t_card:
+            np.testing.assert_allclose(t_card[name], t_host[name], rtol=1e-4,
+                                       err_msg=f"saliency table {field} {name}")
+            check(np.argmax(t_card[name]) == np.argmax(t_host[name]), f"driver of {name}")
+            out["drivers"][f"{field}:{name}"] = int(np.argmax(t_card[name]))
+
+    # λ identifiability: the residual and its forward-mode Jacobian per group
+    x_norm = sx.transform(x_raw.astype(np.float32))
+    lambda_identifiability(params, x_norm[:64], sx, sy)  # warm-up
+    card_rep, out["identify_s"] = {}, {}
+    for group in ("lam_v", "lam_t", "lam_h", "lam_o"):
+        rep, out["identify_s"][group] = _synced(lambda: lambda_identifiability(
+            params, x_norm, sx, sy, groups=(group,)))
+        card_rep.update(rep)
+    host_rep = lambda_identifiability(host_params, x_norm, hsx, hsy)
+    out["n_dropped"], out["identifiable"], out["stderr_max_rel"] = {}, {}, {}
+    for group, c in card_rep.items():
+        h = host_rep[group]
+        check(np.array_equal(c.identifiable, h.identifiable)
+              and np.array_equal(c.at_bound, h.at_bound) and c.n_dropped == h.n_dropped,
+              f"identifiability {group}: flags or dropped rows differ between the card and the "
+              f"CPU ({c.identifiable}, {c.at_bound}, {c.n_dropped} against {h.identifiable}, "
+              f"{h.at_bound}, {h.n_dropped})")
+        check(np.array_equal(np.isinf(c.stderr), np.isinf(h.stderr)), f"{group}: inf stderr")
+        fin = np.isfinite(h.stderr)
+        np.testing.assert_allclose(c.stderr[fin], h.stderr[fin], rtol=1e-3,
+                                   err_msg=f"identifiability {group}: stderr")
+        out["stderr_max_rel"][group] = float(np.max(
+            np.abs(c.stderr[fin] / h.stderr[fin] - 1.0), initial=0.0))
+        out["n_dropped"][group] = c.n_dropped
+        out["identifiable"][group] = c.identifiable.tolist()
+
+    rep, out["conformal_s"] = _synced(lambda: conformal_report(arr))
+    check(np.isfinite(rep.detection_auc) and len(rep.classes) == 13,
+          f"conformal: AUC {rep.detection_auc}, {len(rep.classes)} classes")
+    out["conformal_auc"], out["conformal_q_hat"] = rep.detection_auc, rep.q_hat
+
+    # the t-SNE view of auc --plot-dir: every mapped row on PLOT_FEATURES
+    cfg = AucConfig()
+    x, _, _ = scatter_features(arr, cfg.plot_features, cfg.group_spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    emb, out["tsne_auc_s"] = _synced(lambda: tsne_embed(x, random_state=cfg.random_state,
+                                                        device="cuda"))
+    out["tsne_auc_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["tsne_auc_rows"] = len(x)
+    check(emb.shape == (15600, 2) and np.isfinite(emb).all(), f"t-SNE view {emb.shape}")
+    sub = x[::len(x) // 600][:600]
+    kl = {dev: float(tsne_fit(sub, device=dev).kl_divergence) for dev in ("cuda", "cpu")}
+    check(abs(kl["cuda"] - kl["cpu"]) <= 0.1 * kl["cpu"], f"t-SNE KL on 600 rows {kl}")
+    out["tsne_600_kl"] = kl
+    # the view of gmm --plot-dir --tsne: the GMM's test rows
+    gmm = run_gmm_pipeline(arr, device="cuda")
+    x_te = arr[gmm.test_full_indices][:, parse_features(gmm.features)]
+    emb, out["tsne_gmm_s"] = _synced(lambda: tsne_embed(x_te, perplexity=20.0, device="cuda"))
+    check(np.isfinite(emb).all(), "t-SNE view of the GMM test rows")
+    out["tsne_gmm_rows"] = len(x_te)
+
+    # the four commands on phase 9's checkpoint and cli score file
+    ck, mat = os.path.join(keep_dir, "ck"), os.path.join(keep_dir, "F01_scored.mat")
+    argvs = [[cmd, *files, *fmt] for cmd, files in (
+        ("identify", ["--ckpt", ck, "--mat", mat]), ("explain", ["--ckpt", ck, "--mat", mat]),
+        ("inspect", ["--ckpt", ck]), ("conformal", ["--mat", mat])) for fmt in (["--json"], [])]
+    runs, launches, _, out["cli_wall_s"] = run_cli_many(*argvs)
+    check(all(rc == 0 for _, rc in runs), f"exit codes {[rc for _, rc in runs]}")
+    check(sum(launches.values()) == 0, f"the explainability commands launched a kernel: {launches}")
+    docs = {argv[0]: json.loads(text) for argv, (text, _) in zip(argvs[::2], runs[::2])}
+    ident = docs["identify"]
+    check(list(ident) == ["lam_v", "lam_t", "lam_h", "lam_o"]
+          and [ident[g]["identifiable"][k] for g, k in (("lam_v", 3), ("lam_t", 1), ("lam_t", 3),
+                                                        ("lam_h", 3), ("lam_o", 3))] == [False] * 5,
+          "cli identify: the dead parameters are not flagged unidentifiable")
+    check(len(docs["explain"]["classes"]) == 5, f"cli explain classes {docs['explain']['classes']}")
+    check(docs["inspect"]["total_parameters"] == sum(p.numel() for p in params["mlp"].parameters())
+          + 17, f"cli inspect counts {docs['inspect']['total_parameters']} parameters")
+    check(len(docs["conformal"]["classes"]) == 13, "cli conformal classes")
+    out["cli_n_dropped"] = {g: ident[g]["n_dropped"] for g in ident}
+    for argv, (text, _) in zip(argvs[1::2], runs[1::2]):
+        print(f"[slice] cli {argv[0]} on the card over phase 9's files:")
+        print(text.rstrip())
+
+    # --plot-dir on the seven commands of the slice
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as figs:
+        plot_argvs = [[cmd, *files, "--plot-dir", os.path.join(figs, cmd), *extra]
+                      for cmd, files, extra in (
+                          ("auc", ["--mat", mat], []), ("gmm", ["--mat", mat], ["--tsne"]),
+                          ("risk", ["--mat", mat], []), ("compare", ["--mat", mat], []),
+                          ("identify", ["--ckpt", ck, "--mat", mat], []),
+                          ("explain", ["--ckpt", ck, "--mat", mat], []),
+                          ("conformal", ["--mat", mat], []))]
+        runs, _, err, out["plot_dir_wall_s"] = run_cli_many(*plot_argvs)
+        rcs = [rc for _, rc in runs]
+        if have_mpl:
+            check(rcs == [0] * 7, f"--plot-dir exit codes {rcs}:\n{err[-3000:]}")
+            for argv in plot_argvs:
+                files = sorted(os.listdir(os.path.join(figs, argv[0])))
+                if argv[0] == "risk":
+                    check(len(files) == 24 and all(f.startswith("rf_") for f in files),
+                          f"risk figures {files}")
+                else:
+                    check(files == PLOT_FILES[argv[0]], f"{argv[0]} figures {files}")
+            out["figures"] = "drawn"
+            print("[slice] --plot-dir: every command wrote the JAX command's figure files: ok")
+        else:
+            check(rcs == [1] * 7 and err.count("figures need matplotlib") == 7,
+                  f"--plot-dir without matplotlib: exit codes {rcs}:\n{err[-3000:]}")
+            out["figures"] = "not drawn: matplotlib is not installed"
+            print("[slice] --plot-dir: no figure was drawn: matplotlib is not installed on this "
+                  "machine; each of the 7 commands exited 1 naming it, after its tables; the "
+                  "t-SNE views' embeddings ran on the card above; the figures are checked "
+                  "against the JAX package on the CPU (tests/test_torch_viz.py)")
+    print(f"[slice] explainability on the card (host clock, synchronized, warm): saliency of "
+          f"{len(arr)} rows {out['saliency_s']:.4f} s (CPU {out['saliency_cpu_s']:.3f} s), "
+          f"max error against float64 {json.dumps(out['saliency_err_vs_float64'])}, entries "
+          f"outside rtol 1e-4 atol 1e-6 of the CPU's "
+          f"{json.dumps(out['saliency_outside_1e-4_1e-6'])}; identifiability per group (s) "
+          f"{json.dumps(out['identify_s'])}, rows dropped {json.dumps(out['n_dropped'])}, "
+          f"stderr card vs CPU max rel {json.dumps(out['stderr_max_rel'])}; conformal "
+          f"{out['conformal_s']:.4f} s (host); t-SNE view of {out['tsne_auc_rows']} rows "
+          f"{out['tsne_auc_s']:.3f} s, peak {out['tsne_auc_peak_gib']:.3f} GiB above what earlier "
+          f"phases hold; 600 rows KL {json.dumps(kl)}; gmm view of {out['tsne_gmm_rows']} rows "
+          f"{out['tsne_gmm_s']:.3f} s; cli process {out['cli_wall_s']:.1f} s: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -1321,7 +1573,7 @@ def main() -> int:
           f"({t_bound_fp32:.4f} ms)")
 
     # ---- 9. the campaign slice through the command line ----
-    keep = tempfile.TemporaryDirectory()  # phase 9's cli score file, for phases 13 and 14
+    keep = tempfile.TemporaryDirectory()  # phase 9's files, for phases 13-15
     campaign_launches = run_campaign_slice(dev, keep.name)
 
     # ---- 10. kill and resume on the card ----
@@ -1348,9 +1600,15 @@ def main() -> int:
     # ---- 14. the comparison of script 05 on the card ----
     t0 = time.perf_counter()
     comp = run_compare_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
-    keep.cleanup()
     comp["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 14 (s): {comp['phase_s']:.1f}; {json.dumps({'compare': comp})}")
+
+    # ---- 15. explainability and figures on the card ----
+    t0 = time.perf_counter()
+    expl = run_explain_slice(trained, keep.name)
+    keep.cleanup()
+    expl["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 15 (s): {expl['phase_s']:.1f}; {json.dumps({'explain': expl})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",

@@ -1,10 +1,12 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
-{train,score,synth,auc,gmm,compare,risk} ...``.
+{train,score,synth,auc,gmm,compare,risk,inspect,identify,explain,conformal} ...``.
 
-``train``, ``score``, ``auc``, ``gmm``, ``compare`` and ``risk`` run on the card by
-default (``--device cuda``) and exit with an error when CUDA is absent;
-``--device cpu`` runs the plain PyTorch path.  ``synth`` writes a synthetic
-campaign as .mat files; ``risk --backend numpy`` runs the float64 host path.
+``train``, ``score``, ``auc``, ``gmm``, ``compare``, ``risk``, ``identify``
+and ``explain`` run on the card by default (``--device cuda``) and exit with
+an error when CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
+``synth`` writes a synthetic campaign as .mat files; ``risk --backend numpy``
+runs the float64 host path; ``inspect`` and ``conformal`` do no device work.
+``--plot-dir`` writes the JAX commands' figures (matplotlib).
 """
 
 from __future__ import annotations
@@ -12,9 +14,12 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_compare, cmd_gmm
+from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_compare, cmd_conformal, cmd_gmm
+from pinnfc_tpu_torch.cli.explain import cmd_explain, cmd_identify, cmd_inspect
 from pinnfc_tpu_torch.cli.risk import cmd_risk
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
+
+_PLOT_DIR_HELP = "write the command's figures (PNG) into this directory"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--fault-dir", default=None,
                    help="real campaign: directory with the 12 fault .mat files "
                         "(<type>_<108|270|405>A.mat, Chinese or ASCII stems)")
+    t.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
     t.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     t.set_defaults(fn=cmd_train)
 
@@ -92,6 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="new campaign: normal-operation .mat")
     sc.add_argument("--fault-dir", default=None,
                     help="new campaign: directory with the 12 fault .mat files")
+    sc.add_argument("--plot-dir", default=None,
+                    help="emit the script-01 figure set for the scored artifact "
+                         "(uncertainty/detailed/split/temp)")
     sc.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sc.set_defaults(fn=cmd_score)
 
@@ -121,6 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--show-coef", type=int, default=0,
                    help="print top-N LR coefficients per class")
     a.add_argument("--list-features", action="store_true")
+    a.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
     a.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     a.set_defaults(fn=cmd_auc)
 
@@ -130,6 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--init", choices=("kmeans", "sklearn"), default=None,
                    help="EM init: the port's k-means++ (default) or sklearn "
                         "GaussianMixture's own kmeans init (needs scikit-learn)")
+    g.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
+    g.add_argument("--tsne", action="store_true",
+                   help="with --plot-dir, also write a t-SNE figure of the test rows "
+                        "(on --device)")
     g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     g.set_defaults(fn=cmd_gmm)
 
@@ -138,18 +152,74 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--mat", default="F01_output.mat")
     c.add_argument("--methods", default=None,
                    help="comma list: gmm,logreg,svm,kmeans,agglomerative,spectral")
+    c.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
     c.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     c.set_defaults(fn=cmd_compare)
 
     r = sub.add_parser("risk", help="stage risk over F01_output.mat: the RF(t) early-warning "
                                     "table of script 04")
     r.add_argument("--mat", default="F01_output.mat")
-    r.add_argument("--backend", choices=("torch", "numpy"), default="torch",
-                   help="RF recurrences: 'torch' (float32 doubling scans on --device) or "
-                        "'numpy' (float64 lfilter, bit-parity with the reference)")
+    r.add_argument("--backend", choices=("torch", "jax", "numpy"), default="torch",
+                   help="RF recurrences: 'torch' (float32 doubling scans on --device; "
+                        "'jax' is the JAX command's name for it) or 'numpy' (float64 "
+                        "lfilter, bit-parity with the reference)")
+    r.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
     r.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="the torch backend's device")
     r.set_defaults(fn=cmd_risk)
+
+    ins = sub.add_parser("inspect", help="describe a checkpoint: provenance metadata, "
+                                         "parameter tree, stored normalization ranges (no "
+                                         "device work)")
+    ins.add_argument("--ckpt", required=True)
+    ins.add_argument("--json", action="store_true",
+                     help="machine-readable output (meta, param shapes, named λ values, "
+                          "scaler ranges, step)")
+    ins.set_defaults(fn=cmd_inspect)
+
+    idf = sub.add_parser("identify", help="identifiability of the 17 physics λ's: Gauss-Newton "
+                                          "95%% CIs + sensitivity + at-bound/unidentifiable "
+                                          "flags at the trained optimum")
+    idf.add_argument("--ckpt", required=True)
+    idf.add_argument("--mat", required=True,
+                     help="exported F01_output.mat supplying the input rows")
+    idf.add_argument("--json", action="store_true")
+    idf.add_argument("--plot-dir", default=None,
+                     help="save the relative-CI identifiability figure here")
+    idf.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    idf.set_defaults(fn=cmd_identify)
+
+    xp = sub.add_parser("explain", help="input-channel saliency: which measured input the "
+                                        "voltage prediction (and its aleatoric σ) leans on, "
+                                        "per fault class")
+    xp.add_argument("--ckpt", required=True)
+    xp.add_argument("--mat", required=True,
+                    help="exported F01_output.mat supplying rows + labels")
+    xp.add_argument("--json", action="store_true")
+    xp.add_argument("--plot-dir", default=None,
+                    help="save the class × channel saliency heatmaps here")
+    xp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    xp.set_defaults(fn=cmd_explain)
+
+    cf = sub.add_parser("conformal", help="split-conformal coverage analysis of an exported "
+                                          "artifact: distribution-free voltage intervals "
+                                          "calibrated on normal rows, per-fault miscoverage, "
+                                          "calibrated anomaly p-values (host)")
+    cf.add_argument("--mat", required=True)
+    cf.add_argument("--alpha", type=float, default=0.1,
+                    help="miscoverage level (default 0.1 → 90%% intervals)")
+    cf.add_argument("--score", choices=("adaptive", "absolute"), default="adaptive",
+                    help="adaptive = |res|/sqrt(ale²+epi²) (width tracks the model's σ̂); "
+                         "absolute = |res|")
+    cf.add_argument("--calib-frac", type=float, default=0.5,
+                    help="fraction of normal rows consumed for calibration (the rest gives "
+                         "the held-out coverage; default 0.5)")
+    cf.add_argument("--seed", type=int, default=0,
+                    help="calibration/evaluation split seed (default 0)")
+    cf.add_argument("--json", action="store_true")
+    cf.add_argument("--plot-dir", default=None,
+                    help="save the per-class coverage/p-value figure here")
+    cf.set_defaults(fn=cmd_conformal)
     return p
 
 

@@ -1,15 +1,24 @@
 """Shared CLI helpers (counterpart of ``pinnfc_tpu/cli/_common.py``): the
 reduced schedule, the training config from flags, the campaign from flags,
-the checkpoint's provenance line, the λ table."""
+the checkpoint's provenance line, the λ table, and the errors a command
+reports as its exit code."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
+import sys
 
 import numpy as np
 
 from pinnfc_tpu_torch.config import StageConfig, TrainConfig
 from pinnfc_tpu_torch.models.pinn import LAMBDA_INIT, LAMBDA_NAMES
+
+# what a run can fail with that the user can act on: no card, an unreadable
+# file, a bad spec, a missing optional package (scikit-learn for an sklearn
+# option, matplotlib for --plot-dir)
+_USER_ERRORS = (RuntimeError, ValueError, KeyError, OSError, ImportError)
 
 
 def _small_schedule():
@@ -79,14 +88,43 @@ def _campaign_from_args(args):
 
 
 def _print_lambda_table(params) -> None:
-    """The identified physics parameters with their physical names."""
+    """The identified physics parameters with their physical names; the
+    λ's are tensors on any device or numpy arrays."""
     print("identified physics parameters (λ):")
     for group, names in LAMBDA_NAMES.items():
         vals = params.get(group)
         if vals is None:
             continue
-        vals = vals.detach().cpu().numpy().ravel()
+        if hasattr(vals, "detach"):
+            vals = vals.detach().cpu().numpy()
+        vals = np.asarray(vals).ravel()
         inits = np.asarray(LAMBDA_INIT[group]).ravel()
         for i, name in enumerate(names):
             moved = "" if np.isclose(vals[i], inits[i]) else f"  (init {inits[i]:.6g})"
             print(f"  {group}[{i}] = {vals[i]:<12.6g} {name}{moved}")
+
+
+def _finite_or_none(o):
+    """``o`` for strict JSON (``allow_nan=False``): every non-finite float,
+    in nested dicts and lists too, becomes None (null)."""
+    if isinstance(o, float) and not math.isfinite(o):
+        return None
+    if isinstance(o, dict):
+        return {k: _finite_or_none(v) for k, v in o.items()}
+    if isinstance(o, list):
+        return [_finite_or_none(v) for v in o]
+    return o
+
+
+def _draw_figures(command: str, plot_dir: str, draw) -> int:
+    """``draw()`` the command's ``--plot-dir`` figures into ``plot_dir``
+    (created); the command's exit code: 1 when drawing fails (matplotlib
+    missing, an unwritable directory)."""
+    try:
+        os.makedirs(plot_dir, exist_ok=True)
+        draw()
+    except _USER_ERRORS as e:
+        print(f"{command}: {e}", file=sys.stderr)
+        return 1
+    print("figures →", plot_dir)
+    return 0

@@ -1,22 +1,21 @@
-"""``auc``, ``gmm`` and ``compare`` subcommands (counterpart of
-``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``/``cmd_compare``): the AUC
-table of script 02, the 4-class GMM diagnosis of script 03 and the
-six-method comparison of script 05 over a ``comprehensive_results``
-artifact, with the JAX commands' printed lines.
+"""``auc``, ``gmm``, ``compare`` and ``conformal`` subcommands (counterpart
+of ``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``/``cmd_compare``/
+``cmd_conformal``): the AUC table of script 02, the 4-class GMM diagnosis of
+script 03, the six-method comparison of script 05 and the split-conformal
+coverage table over a ``comprehensive_results`` artifact, with the JAX
+commands' printed lines and ``--plot-dir`` figures.
 
-Flags of the JAX commands left out: ``--plot-dir`` (all three) and ``gmm
---tsne`` wait for ``viz/``; ``gmm --data-parallel`` waits for ``parallel/``
-(ROADMAP.md Queue 1 items 6 and 7).
+``gmm --data-parallel`` waits for ``parallel/`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import sys
 
-# what a run can fail with that the user can act on: no card, an unreadable
-# artifact, a bad spec, scikit-learn missing for --init sklearn
-_USER_ERRORS = (RuntimeError, ValueError, KeyError, OSError, ImportError)
+from pinnfc_tpu_torch.cli._common import _USER_ERRORS, _draw_figures, _finite_or_none
 
 
 def _print_coefficients(results, cfg, topn: int, device) -> None:
@@ -71,11 +70,29 @@ def cmd_auc(args) -> int:
     print(f"unsupervised IsolationForest AUC={out.iso_auc:.4f}")
     if args.show_coef:
         _print_coefficients(results, cfg, args.show_coef, args.device)
+    if args.plot_dir:
+        return _draw_figures("auc", args.plot_dir, lambda: _auc_figures(args, cfg, results, out))
     return 0
 
 
+def _auc_figures(args, cfg, results, out) -> None:
+    from pinnfc_tpu_torch.viz import (
+        plot_res_vs_epi, plot_roc_curves, plot_scatter_by_features, plot_temp_vs_voltage)
+
+    # the PLOT_FEATURES scatter first, as the reference main does (02:470-476)
+    plot_scatter_by_features(results, cfg.plot_features, cfg.group_spec,
+                             os.path.join(args.plot_dir, "feature_scatter.png"),
+                             random_state=cfg.random_state, device=args.device)
+    plot_roc_curves(out, os.path.join(args.plot_dir, "roc.png"))
+    plot_temp_vs_voltage(results, os.path.join(args.plot_dir, "temp_vs_v.png"))
+    plot_res_vs_epi(results, os.path.join(args.plot_dir, "res_vs_epi.png"))
+
+
 def cmd_gmm(args) -> int:
-    """The 4-class GMM diagnosis: its accuracy and confusion matrix."""
+    """The 4-class GMM diagnosis: its accuracy and confusion matrix; with
+    ``--plot-dir`` the confusion matrix and one class-probability figure per
+    fault class, and with ``--tsne`` as well a t-SNE view of the test rows
+    (03:429-508).  The fit stays on ``args.gmm_result``."""
     from pinnfc_tpu_torch.config import GmmConfig
     from pinnfc_tpu_torch.data.contract import load_comprehensive_results
     from pinnfc_tpu_torch.diagnosis import run_gmm_pipeline
@@ -89,9 +106,30 @@ def cmd_gmm(args) -> int:
     except _USER_ERRORS as e:
         print(f"gmm: {e}", file=sys.stderr)
         return 1
+    args.gmm_result = out
     print(f"GMM 4-class accuracy: {out.accuracy:.4f}")
     print("confusion:\n", out.confusion)
+    if args.plot_dir:
+        return _draw_figures("gmm", args.plot_dir, lambda: _gmm_figures(args, results, out))
     return 0
+
+
+def _gmm_figures(args, results, out) -> None:
+    from pinnfc_tpu_torch.viz import (
+        fault_prob_filename, plot_confusion_matrix, plot_fault_probabilities)
+
+    plot_confusion_matrix(out.confusion, out.class_names,
+                          os.path.join(args.plot_dir, "gmm_confusion.png"), title="GMM")
+    for k, cname in enumerate(out.class_names):
+        plot_fault_probabilities(out, k, os.path.join(args.plot_dir, fault_prob_filename(cname)))
+    if args.tsne:  # 03:429-508
+        from pinnfc_tpu_torch.diagnosis import parse_features
+        from pinnfc_tpu_torch.viz import plot_feature_scatter, tsne_embed
+
+        x_te = results.array[out.test_full_indices][:, parse_features(out.features)]
+        emb = tsne_embed(x_te, perplexity=20.0, device=args.device)
+        plot_feature_scatter(emb, out.y_pred, os.path.join(args.plot_dir, "gmm_tsne.png"),
+                             out.class_names, title="t-SNE of test samples (predicted class)")
 
 
 def cmd_compare(args) -> int:
@@ -109,4 +147,59 @@ def cmd_compare(args) -> int:
         return 1
     for m in out.methods:
         print(f"{m.name:>15}: " + "  ".join(f"{k}={v:.4f}" for k, v in m.metrics.items()))
+    if args.plot_dir:
+        return _draw_figures("compare", args.plot_dir, lambda: _compare_figures(args, out))
+    return 0
+
+
+def _compare_figures(args, out) -> None:
+    from pinnfc_tpu_torch.viz import plot_confusion_matrix, plot_metrics_bars
+
+    for m in out.methods:
+        plot_confusion_matrix(m.confusion, out.class_names,
+                              os.path.join(args.plot_dir, f"confusion_{m.name}.png"),
+                              title=m.name)
+    plot_metrics_bars(out.summary_table(), os.path.join(args.plot_dir, "method_metrics.png"))
+
+
+def cmd_conformal(args) -> int:
+    """Split-conformal analysis of an artifact (``uq/conformal``), on the
+    host: the 1−α coverage of v̂ ± q̂·σ̂ calibrated on held-out normal rows,
+    the per-fault miscoverage, and the detection AUC of the anomaly score
+    1−p."""
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.uq import conformal_report
+
+    try:
+        results = load_comprehensive_results(args.mat)
+        rep = conformal_report(results.array, alpha=args.alpha, score=args.score,
+                               calib_frac=args.calib_frac, seed=args.seed)
+        if args.plot_dir:
+            from pinnfc_tpu_torch.viz import plot_conformal
+
+            os.makedirs(args.plot_dir, exist_ok=True)
+            path = os.path.join(args.plot_dir, "conformal_coverage.png")
+            plot_conformal(rep, path)
+            print(f"figure → {path}")
+    except _USER_ERRORS as e:
+        print(f"conformal: {e}", file=sys.stderr)
+        return 1
+
+    if args.json:
+        print(json.dumps(_finite_or_none(rep.to_dict()), indent=2, allow_nan=False))
+        return 0
+
+    kind = "|res|/σ̂ (adaptive width)" if rep.score == "adaptive" else "|res| (constant width)"
+    print(f"split conformal at α={rep.alpha:g}, score {kind}: "
+          f"q̂={rep.q_hat:.4g} from {rep.n_calib} calibration normals"
+          + (f" ({rep.n_dropped} non-finite dropped)" if rep.n_dropped else ""))
+    print(f"{'class':>6} {'n':>6} {'coverage':>9} {'width[V]':>9} "
+          f"{'median p':>9} {'p≤α':>7}")
+    for c in rep.classes:
+        tag = "normal" if c.label == 0 else f"f{c.label:02d}"
+        print(f"{tag:>6} {c.n:>6} {c.coverage:>9.3f} {c.mean_width:>9.3g} "
+              f"{c.median_p:>9.3f} {c.frac_low_p:>7.3f}")
+    ne = rep.normal_eval
+    print(f"held-out normal coverage {ne.coverage:.3f} vs guaranteed "
+          f"≥ {1 - rep.alpha:g}; conformal detection AUC {rep.detection_auc:.4f}")
     return 0

@@ -12,6 +12,7 @@ import sys
 
 from pinnfc_tpu_torch.cli._common import (
     _campaign_from_args,
+    _draw_figures,
     _print_ckpt_provenance,
     _print_lambda_table,
     _train_config,
@@ -90,6 +91,9 @@ def cmd_train(args) -> int:
         print(f"profiler trace → {write_chrome_trace(prof, args.profile_dir)}")
     if args.mat_out:
         print(f"comprehensive_results → {args.mat_out}")
+    if args.plot_dir:
+        return _draw_figures("train", args.plot_dir,
+                             lambda: _emit_train_figures(res, args.plot_dir))
     return 0
 
 
@@ -129,6 +133,20 @@ def _write_tensorboard(logdir: str, res) -> None:
         finals.update({f"time/{k}": float(v) for k, v in res.timings.items()})
         w.add_scalars(finals, step=max(step - 1, 0))
     print(f"tensorboard events → {logdir}")
+
+
+def _emit_train_figures(res, plot_dir: str) -> None:
+    """The script-01 figure set of a trained or scored artifact."""
+    from pinnfc_tpu_torch.viz import (
+        plot_detailed_results, plot_split_overview, plot_temp_comparison, plot_uncertainty)
+
+    bl = res.dataset.info.boundary_lines
+    plot_uncertainty(res.results, bl, os.path.join(plot_dir, "uncertainty.png"))
+    plot_detailed_results(res.results, os.path.join(plot_dir, "detailed.png"), bl)
+    plot_split_overview(res.results, bl, os.path.join(plot_dir, "split.png"))
+    # true vs physics-model temperature, the reference main's inline figure
+    # (01:2208-2228)
+    plot_temp_comparison(res.results, os.path.join(plot_dir, "temp_comparison.png"), bl)
 
 
 def cmd_score(args) -> int:
@@ -181,6 +199,9 @@ def cmd_score(args) -> int:
     print(json.dumps({"metrics": res.metrics, "timings": res.timings, "export": res.export},
                      indent=1))
     print("artifact →", args.mat_out)
+    if args.plot_dir:
+        return _draw_figures("score", args.plot_dir,
+                             lambda: _emit_train_figures(res, args.plot_dir))
     return 0
 
 

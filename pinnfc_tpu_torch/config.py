@@ -187,3 +187,11 @@ FAULT_RANGE_MAP: Dict[str, range] = {
     "膜干": range(7, 10),
     "氢饥饿": range(10, 13),
 }
+
+# English names of the four fault classes, for figures and saliency tables.
+FAULT_NAMES_EN: Dict[str, str] = {
+    "水淹": "Flooding",
+    "氧饥饿": "Oxygen starvation",
+    "膜干": "Membrane drying",
+    "氢饥饿": "Hydrogen starvation",
+}

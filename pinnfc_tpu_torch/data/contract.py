@@ -38,6 +38,26 @@ INDEX: Dict[str, int] = {
 N_COLUMNS = 22
 REQUIRED_MAX_INDEX = INDEX["label"]  # downstream schema check (02:101)
 
+# Names of the 8 inputs (01:2162-2169).
+INPUT_CHANNELS = (
+    "current",  # x0  stack current I [A]
+    "coolant_flow",  # x1  cooling-water flow m_W
+    "coolant_t_in",  # x2  coolant inlet temperature T_W_in [°C]
+    "p_h2_in",  # x3  hydrogen inlet pressure P_H_in
+    "p_air_in",  # x4  air inlet pressure P_O_in
+    "coolant_t_out",  # x5  coolant outlet temperature T_W_out [°C]
+    "h2_flow",  # x6  hydrogen flow m_H2 [slpm]
+    "air_flow",  # x7  air flow m_O2 [slpm]
+)
+
+
+def channel_names(n: int) -> tuple:
+    """Input-channel labels for an ``n``-wide vector: ``INPUT_CHANNELS`` when
+    the width is 8, positional ``chN`` otherwise."""
+    if n == len(INPUT_CHANNELS):
+        return tuple(INPUT_CHANNELS)
+    return tuple(f"ch{i}" for i in range(n))
+
 
 @dataclasses.dataclass
 class ComprehensiveResults:

@@ -138,7 +138,7 @@ def logreg_fit(
     if mask is not None:
         raise NotImplementedError(
             "logreg_fit(mask=...) (row padding for a device mesh) is not ported; it comes "
-            "with parallel/ (ROADMAP.md Queue 1 item 6)")
+            "with parallel/ (ROADMAP.md Queue 1 item 8)")
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     y = torch.as_tensor(y, dtype=torch.int64, device=dev)

@@ -1,1 +1,43 @@
-"""MC-dropout uncertainty statistics."""
+"""Uncertainty and explainability: MC-dropout statistics, split-conformal
+coverage, input saliency and λ identifiability."""
+
+from pinnfc_tpu_torch.uq.conformal import (
+    ClassCoverage,
+    ConformalReport,
+    artifact_scores,
+    conformal_pvalues,
+    conformal_quantile,
+    conformal_report,
+    normal_calibration_scores,
+)
+from pinnfc_tpu_torch.uq.identifiability import (
+    GroupIdentifiability,
+    gauss_newton_ci,
+    lambda_identifiability,
+)
+from pinnfc_tpu_torch.uq.mc_dropout import MCSamples, mc_dropout_samples
+from pinnfc_tpu_torch.uq.saliency import (
+    SaliencyReport,
+    class_mean_saliency,
+    coarse_class_saliency,
+    input_saliency,
+)
+
+__all__ = [
+    "ClassCoverage",
+    "ConformalReport",
+    "GroupIdentifiability",
+    "MCSamples",
+    "SaliencyReport",
+    "artifact_scores",
+    "class_mean_saliency",
+    "coarse_class_saliency",
+    "conformal_pvalues",
+    "conformal_quantile",
+    "conformal_report",
+    "gauss_newton_ci",
+    "input_saliency",
+    "lambda_identifiability",
+    "mc_dropout_samples",
+    "normal_calibration_scores",
+]

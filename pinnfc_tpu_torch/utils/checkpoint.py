@@ -164,24 +164,30 @@ def _orbax_tree(directory: str) -> Dict[str, Any]:
     return listify(root)
 
 
-def load_checkpoint(path: str, device="cuda") -> Dict[str, Any]:
-    """Load the JAX package's Orbax directory ``<path>/`` where it holds
-    ``_METADATA``, else ``<path>.npz``, in the JAX ``load_checkpoint``'s order
-    (where both exist, both packages read the Orbax tree): ``params`` as port
-    params on ``device``, scalers as ``AffineScaler`` on ``device``, ``step``
-    as a numpy scalar array, provenance (if any) under ``'meta'``."""
+def load_checkpoint_raw(path: str) -> Dict[str, Any]:
+    """The checkpoint's tree as numpy arrays, with no device work: the JAX
+    package's Orbax directory ``<path>/`` where it holds ``_METADATA``, else
+    ``<path>.npz`` (the JAX ``load_checkpoint``'s order), the scalers as their
+    ``AffineScaler.to_numpy`` dicts, provenance (if any) under ``'meta'``."""
     if os.path.isfile(os.path.join(path, "_METADATA")):
-        tree = _orbax_tree(path)
+        out = _orbax_tree(path)
     else:
-        tree = load_params_npz(path + ".npz")
-    out: Dict[str, Any] = dict(tree)
-    out["params"] = params_from_jax(tree["params"], device=device)
-    for name in ("scaler_x", "scaler_y"):
-        if name in tree:
-            out[name] = AffineScaler.from_numpy(tree[name], device=device)
+        out = load_params_npz(path + ".npz")
     meta = load_checkpoint_meta(path)
     if meta is not None:
         out["meta"] = meta
+    return out
+
+
+def load_checkpoint(path: str, device="cuda") -> Dict[str, Any]:
+    """``load_checkpoint_raw`` with ``params`` as port params on ``device``
+    and the scalers as ``AffineScaler`` on ``device``; ``step`` stays a numpy
+    scalar array."""
+    out = load_checkpoint_raw(path)
+    out["params"] = params_from_jax(out["params"], device=device)
+    for name in ("scaler_x", "scaler_y"):
+        if name in out:
+            out[name] = AffineScaler.from_numpy(out[name], device=device)
     return out
 
 

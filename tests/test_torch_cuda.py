@@ -46,7 +46,11 @@ NN-chain at N = 2,400); the kNN index sets identical and the bottom-16
 projectors of eigh and of the subspace iteration within 1e-3; t-SNE's final
 KL within 10 %; the comparison pipeline on the miniature artifact with LR,
 SVM and Agglomerative predictions agreeing on ≥ 99.5 % of rows and every
-macro F1 within 0.05."""
+macro F1 within 0.05.  Explainability on the card against the CPU: the input
+saliency at rtol 1e-4, atol 1e-6 with each class's driver equal; λ
+identifiability with the same flags and dropped rows and stderr within rtol
+1e-3 (tests/test_torch_explain.py's tolerances against JAX); ``tsne_embed``'s
+KL within 10 %."""
 
 import numpy as np
 import pytest
@@ -60,6 +64,7 @@ from pinnfc_tpu_torch.diagnosis import (
     logreg_predict_proba, run_auc_pipeline, run_compare_pipeline, run_gmm_pipeline, svm_fit,
     svm_predict, tsne_fit, ward_fit)
 from pinnfc_tpu_torch.diagnosis.spectral import _bottom_k_subspace, knn_laplacian
+from pinnfc_tpu_torch.diagnosis.tsne import _pairwise_sq_dists, conditional_p, joint_p, kl_and_grad
 from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
@@ -489,3 +494,53 @@ def test_compare_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     with pytest.raises(ImportError, match="scikit-learn"):
         run_compare_pipeline(arr, methods=["agglomerative"], device_ward=False,
                              device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_saliency_and_identifiability_on_the_card_match_the_cpu(cuda_device):
+    from pinnfc_tpu_torch.uq import coarse_class_saliency, input_saliency, lambda_identifiability
+
+    normal, faults = synthesize_stack_data(n_normal=600, n_fault=60, seed=42)
+    sal, ident = {}, {}
+    for dev in (cuda_device, "cpu"):
+        ds = combine_and_normalize(normal, faults, device=dev)
+        params = init_pinn(generator=torch.Generator().manual_seed(0), device=dev)
+        params["lam_v"] = torch.tensor([0.2, 2.0e-6, 1.2, 1.0], device=dev)  # rows past i_l
+        x_norm = ds.x_test.cpu().numpy()
+        bounds = list(ds.info.boundary_lines)
+        labels = np.zeros(len(x_norm), int)
+        for k, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]), start=1):
+            labels[lo:hi] = k
+        x_phys = ds.scaler_x.inverse(x_norm)
+        sal[str(dev)] = input_saliency(params, x_phys, ds.scaler_x, ds.scaler_y, labels=labels,
+                                       device=dev)
+        ident[str(dev)] = lambda_identifiability(params, x_norm, ds.scaler_x, ds.scaler_y)
+    card, host = sal["cuda"], sal["cpu"]
+    for field in ("jac_norm", "jac_range"):
+        np.testing.assert_allclose(getattr(card, field), getattr(host, field), rtol=1e-4,
+                                   atol=1e-6)
+    for name, row in coarse_class_saliency(card).items():
+        assert np.argmax(row) == np.argmax(coarse_class_saliency(host)[name])
+    assert ident["cuda"]["lam_v"].n_dropped > 0
+    for group, c in ident["cuda"].items():
+        h = ident["cpu"][group]
+        np.testing.assert_array_equal(c.identifiable, h.identifiable)
+        np.testing.assert_array_equal(c.at_bound, h.at_bound)
+        assert c.n_dropped == h.n_dropped
+        fin = np.isfinite(h.stderr)
+        np.testing.assert_array_equal(np.isfinite(c.stderr), fin)
+        np.testing.assert_allclose(c.stderr[fin], h.stderr[fin], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tsne_embed_on_the_card_matches_the_cpu(cuda_device):
+    from pinnfc_tpu_torch.viz import tsne_embed
+
+    x = _blobs()[0][:300]
+    on_card = tsne_embed(x, perplexity=20.0, device=cuda_device)
+    on_host = tsne_embed(x, perplexity=20.0, device="cpu")
+    assert on_card.dtype == np.float64 and np.isfinite(on_card).all()
+    p = joint_p(conditional_p(_pairwise_sq_dists(torch.as_tensor(x, dtype=torch.float32)), 20.0))
+    kls = [float(kl_and_grad(torch.as_tensor(e, dtype=torch.float32), p)[0])
+           for e in (on_card, on_host)]
+    assert kls[0] == pytest.approx(kls[1], rel=0.1)
