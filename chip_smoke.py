@@ -13,7 +13,9 @@ Phases, any failure exits non-zero before the result line:
    64 samples, against its plain version with bf16 sample passes and against
    the float32 plain version; the residual kernel on the 15,600-row campaign
    and on its first 37 rows (ragged against the 32-row CTAs), each with and
-   without rows past the limiting current (NaN sets must be identical);
+   without rows past the limiting current, and with 25 rows at ragged
+   positions holding NaN, +inf and -inf in each input channel in turn and a
+   NaN u (NaN sets must be identical);
 4. the scoring slice at full width: flagship params from a torch.Generator
    seed, scalers fitted on the default synthetic campaign (N = 15,600), a
    port checkpoint, then ``run_scoring_pipeline(device="cuda")`` with
@@ -272,6 +274,22 @@ def check_artifact(arr: np.ndarray, params, ds, metrics, n: int) -> None:
           f"non-finite metrics {nan_metrics}")
     check(bool(np.isnan(arr[:, 13]).any()) or not nan_metrics,
           "physics_v metrics non-finite although column 13 is finite")
+
+
+def with_nonfinite_rows(x: torch.Tensor, u: torch.Tensor):
+    """Copies of the residual kernel's inputs x (N, 8) and u (N, 1) with 25
+    rows replaced, at ragged positions (stride 613 for the campaign, 3 for
+    N = 37, so some land in the last partial CTA): NaN in each of the 8
+    channels in turn, +inf in each, -inf in each, and a NaN u."""
+    x, u = x.clone(), u.clone()
+    n = x.shape[0]
+    stride = 613 if n > 1000 else 3
+    rows = [(stride * k + 7) % n for k in range(25)]
+    check(len(set(rows)) == 25, f"non-finite rows collide: {rows}")
+    for k, r in enumerate(rows[:24]):
+        x[r, k % 8] = (float("nan"), float("inf"), float("-inf"))[k // 8]
+    u[rows[24]] = float("nan")
+    return x, u
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -921,7 +939,7 @@ def run_diagnosis_slice(results, score_mat):
     """Phase 13: the AUC stage of script 02 and the GMM stage of script 03 on
     phase 7's artifact, on the card and on the CPU with the same draws, then
     ``cli auc`` and ``cli gmm`` on the card over phase 9's ``cli score`` file;
-    returns what it prints as one dict."""
+    returns what it prints as one dict, and the GMM fit on the card."""
     import warnings
 
     from pinnfc_tpu_torch.config import AucConfig, GmmConfig
@@ -1008,7 +1026,7 @@ def run_diagnosis_slice(results, score_mat):
           f"{model.converged}; by stage (s) {json.dumps(out['stage_s'])}; on the CPU {out['auc_cpu_s']:.3f} s and {out['gmm_cpu_s']:.3f} s; "
           f"group AUCs within 1e-4 of the CPU's, GMM accuracy {gmm_card.accuracy:.4f} against "
           f"{gmm_host.accuracy:.4f}: ok")
-    return out
+    return out, gmm_card
 
 
 class _Recorder:
@@ -1362,6 +1380,333 @@ def run_explain_slice(trained, keep_dir):
     return out
 
 
+# tolerances of phase 16, card against CPU (float32 in both; the card's
+# matmuls and the residual kernel round differently from MKL and the plain
+# version, and the z-scores divide by the normal rows' σ)
+SERVE_TOL = {"residuals": (1e-4, 1e-4), "v_pred": (1e-5, 1e-5), "layer_scores": (1e-3, 1e-3),
+             "rf_inst": (0, 1e-4), "rf_smooth": (0, 1e-4), "layer_c": (1e-3, 1e-2)}
+SERVE_FLAGS = ("warn", "danger", "v_alarm", "glitch", "sensor_alarm", "oob")
+
+
+def _serving_stream(arr):
+    """Phase 16's stream: the normal rows' last 200 (the lead-in of ``cli
+    monitor --fault-label 1``) and fault segment 1, with NaN voltages first
+    (the deferred V(0)), a stretch of NaN and ±inf inputs, and a 40-sample
+    voltage-only outage (the sensor alarm)."""
+    from pinnfc_tpu_torch.data.contract import INDEX
+
+    labels = arr[:, INDEX["label"]]
+    rows = np.vstack([arr[labels == 0][-200:], arr[labels == 1]])
+    x = rows[:, :8].astype(np.float32)
+    v = rows[:, INDEX["y_true"]].astype(np.float32)
+    v[:3] = np.nan
+    for k in range(24):
+        x[300 + 3 * k, k % 8] = (np.nan, np.inf, -np.inf)[k // 8]
+    v[600:640] = np.nan
+    return x, v, rows[:, INDEX["label"]]
+
+
+def _serving_same(card_outs, host_outs, n_calib, calib):
+    """Card against CPU block by block at SERVE_TOL: NaN sets equal, flags
+    equal (warn/danger except within 1e-4 of a threshold), fault_pred equal
+    where the top posterior leads by more than 1e-4; each device's p-value
+    is (1 + #{calib ≥ |res|})/(n+1) of its own |res|, computed on the host
+    (bitwise on the ranks).  Returns (max errors, samples whose p-value rank
+    differs between the devices, samples compared)."""
+    from pinnfc_tpu_torch.config import RiskConfig
+
+    cfg = RiskConfig()
+    errs = {f: 0.0 for f in SERVE_TOL}
+    rank_diff = n = 0
+    for a, b in zip(card_outs, host_outs):
+        for f, (rtol, atol) in SERVE_TOL.items():
+            x, y = getattr(a, f), getattr(b, f)
+            check(x.shape == y.shape and x.dtype == y.dtype, f"monitor {f}: {x.shape} {y.shape}")
+            check(np.array_equal(np.isnan(x), np.isnan(y)), f"monitor {f}: NaN sets differ")
+            np.testing.assert_allclose(x, y, rtol=rtol, atol=atol, equal_nan=True,
+                                       err_msg=f"monitor {f}, card against the CPU")
+            fin = np.isfinite(y)
+            errs[f] = max(errs[f], float(np.max(np.abs(x[fin] - y[fin]), initial=0.0)))
+        near = np.zeros(len(b.rf_smooth), bool)
+        for thr in (cfg.warn_threshold, cfg.danger_threshold):
+            near |= np.abs(b.rf_smooth - thr) <= 1e-4
+        for f in SERVE_FLAGS:
+            keep = ~near if f in ("warn", "danger") else slice(None)
+            check(np.array_equal(getattr(a, f)[keep], getattr(b, f)[keep]),
+                  f"monitor {f}: flags differ between the card and the CPU")
+        p = np.sort(np.nan_to_num(b.fault_probs, nan=0.0), axis=1)
+        clear = (p[:, -1] - p[:, -2] > 1e-4) | (b.fault_pred < 0)
+        check(np.array_equal(a.fault_pred[clear], b.fault_pred[clear]), "monitor fault_pred")
+        for out in (a, b):
+            s_conf = np.abs(out.residuals[:, 0])
+            fin = np.isfinite(s_conf)
+            ge = n_calib - np.searchsorted(calib, s_conf[fin], side="left")
+            want = ((1.0 + ge.astype(np.float32)) / np.float32(n_calib + 1.0)).astype(np.float32)
+            check(np.array_equal(out.conformal_p[fin], want)
+                  and np.isnan(out.conformal_p[~fin]).all(), "monitor conformal_p ranks")
+        rank_diff += int(np.sum(a.conformal_p[np.isfinite(a.conformal_p)]
+                                != b.conformal_p[np.isfinite(b.conformal_p)]))
+        n += len(a.rf_smooth)
+    return errs, rank_diff, n
+
+
+def run_serving_slice(trained, gmm_result, keep_dir):
+    """Phase 16: ``OnlineMonitor`` on phase 7's model and artifact on the card
+    and on the CPU (a fault segment after its lead-in, blocks of 64 and 256,
+    phase 13's GMM head, conformal ACI), ``observe_many`` against ``observe``,
+    the fleet replay of the 12 conditions, a state-bank round trip, and
+    ``condition_recovery`` on the card and the CPU; their times; then ``cli
+    monitor`` and ``cli whatif`` over phase 9's files in one subprocess;
+    returns what it prints as one dict."""
+    import importlib.util
+
+    from pinnfc_tpu_torch.diagnosis.gmm import GMMParams
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.risk import estimate_mu_sigma_normal
+    from pinnfc_tpu_torch.serving import DiagnosisHead, OnlineMonitor, fleet_replay
+    from pinnfc_tpu_torch.uq import (
+        CounterfactualConfig, condition_recovery, normal_calibration_scores)
+    from pinnfc_tpu_torch.utils.jax_params import params_from_jax, params_to_numpy
+
+    arr, ds, params = trained.results.array, trained.dataset, trained.params
+    host_params = params_from_jax(params_to_numpy(params), device="cpu")
+    mu, sigma = estimate_mu_sigma_normal(arr)
+    calib = np.sort(normal_calibration_scores(arr, score="absolute", calib_frac=1.0)
+                    .astype(np.float32))
+    head = DiagnosisHead.from_gmm_result(gmm_result)
+    host_head = head._replace(
+        gmm=GMMParams(*(t.cpu() if torch.is_tensor(t) else t for t in head.gmm)),
+        comp_fault_prob=head.comp_fault_prob.cpu())
+    out = {"calib_scores": len(calib)}
+
+    def make(dev):
+        on_card = dev == "cuda"
+        return OnlineMonitor(params if on_card else host_params,
+                             ds.scaler_x if on_card else ds.scaler_x.to("cpu"),
+                             ds.scaler_y if on_card else ds.scaler_y.to("cpu"), mu, sigma,
+                             diagnosis=head if on_card else host_head, conformal_calib=calib,
+                             conformal_gamma=0.005, device=dev)
+
+    def replay(mon, x, v, block, stream="default"):
+        return [mon.observe(x[lo:lo + block], v[lo:lo + block], stream=stream)
+                for lo in range(0, len(x), block)]
+
+    x, v, labels = _serving_stream(arr)
+    make("cuda").observe(x[:64], v[:64])  # warm-up
+    out["errors"], out["rank_diff"] = {}, {}
+    for block in (64, 256):
+        card, host = make("cuda"), make("cpu")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        card_outs = replay(card, x, v, block)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        n_blocks = -(-len(x) // block)
+        check(launches["residuals"] == n_blocks,
+              f"the monitor launched the residual kernel {launches['residuals']} times over "
+              f"{n_blocks} blocks")
+        if block == 64:
+            out["launches_monitor"] = launches["residuals"]
+        host_outs = replay(host, x, v, block)
+        errs, rank_diff, n = _serving_same(card_outs, host_outs, len(calib), calib)
+        out["errors"][block], out["rank_diff"][block] = errs, rank_diff
+        cat = {f: np.concatenate([getattr(o, f) for o in card_outs])
+               for f in ("glitch", "sensor_alarm", "warn", "v_alarm", "oob")}
+        # the sensor alarm is the run of consecutive glitches reaching 25
+        run = np.zeros(len(x))
+        for i, g in enumerate(cat["glitch"]):
+            run[i] = (run[i - 1] + 1 if i else 1) if g else 0
+        check(cat["glitch"][[0, 1, 2, 600, 639]].all()
+              and cat["glitch"][300:372:3].all() and not cat["oob"][300:372:3].any()
+              and np.array_equal(cat["sensor_alarm"], run >= 25)
+              and cat["sensor_alarm"][624:640].all(),
+              f"the stream's glitches and sensor alarm: "
+              f"{ {k: int(c.sum()) for k, c in cat.items()} }")
+        check(float(card.state.v_first) == float(v[3]), "V(0) was not deferred to sample 3")
+        s_card, s_host = card.state, host.state
+        check(all(np.asarray(getattr(s_card, f)).dtype == np.asarray(getattr(s_host, f)).dtype
+                  for f in s_card._fields), "state dtypes differ")
+        check(np.array_equal(s_card.oob_count, s_host.oob_count)
+              and s_card.n_seen == s_host.n_seen, "oob counts or n_seen differ")
+    out["stream"] = {"rows": len(x), "fault_rows": int((labels > 0).sum()),
+                     "glitches": int(cat["glitch"].sum()),
+                     "sensor_alarms": int(cat["sensor_alarm"].sum()),
+                     "warn_first": int(np.argmax(cat["warn"])) if cat["warn"].any() else None,
+                     "v_alarm_first": (int(np.argmax(cat["v_alarm"])) if cat["v_alarm"].any()
+                                       else None)}
+
+    # observe_many: 12 streams × 64 rows, 3 rounds, against single-stream observe
+    from pinnfc_tpu_torch.data.contract import INDEX
+    segs = [np.flatnonzero(arr[:, INDEX["label"]] == k)[:192] for k in range(1, 13)]
+    keys = [f"seg{k}" for k in range(1, 13)]
+    many, single = make("cuda"), make("cuda")
+    bitwise = True
+    for rnd in range(3):
+        sl = [s[rnd * 64:(rnd + 1) * 64] for s in segs]
+        xb = np.stack([arr[i, :8] for i in sl]).astype(np.float32)
+        vb = np.stack([arr[i, INDEX["y_true"]] for i in sl]).astype(np.float32)
+        build.reset_launches()
+        got = many.observe_many(xb, vb, keys)
+        check(build.LAUNCHES["residuals"] == 1, "observe_many launched the kernel "
+                                                f"{build.LAUNCHES['residuals']} times")
+        want = [single.observe(xb[i], vb[i], stream=k) for i, k in enumerate(keys)]
+        errs, _, _ = _serving_same([got[k] for k in keys], want, len(calib), calib)
+        bitwise &= all(np.array_equal(got[k].rf_smooth, w.rf_smooth)
+                       and np.array_equal(got[k].residuals, w.residuals, equal_nan=True)
+                       for k, w in zip(keys, want))
+    out["observe_many_bitwise_observe"] = bool(bitwise)
+
+    # the fleet replay of the 12 conditions, card against CPU
+    fleet_card, out["fleet_replay_s"] = _synced(lambda: fleet_replay(make("cuda"), arr))
+    fleet_host = fleet_replay(make("cpu"), arr)
+    check(len(fleet_card) == len(fleet_host) == 12, f"fleet conditions {len(fleet_card)}")
+    share_err = 0.0
+    for a, b in zip(fleet_card, fleet_host):
+        check(a.stream == b.stream and a.n_samples == b.n_samples
+              and a.first_v_alarm == b.first_v_alarm, f"fleet {a.stream}: {a} against {b}")
+        for f in ("first_warn", "first_danger"):
+            ga, gb = getattr(a, f), getattr(b, f)
+            check((ga is None) == (gb is None) and (ga is None or abs(ga - gb) <= 1),
+                  f"fleet {a.stream} {f}: {ga} on the card, {gb} on the CPU")
+        check(list(a.layer_shares) == list(b.layer_shares), f"fleet {a.stream} shares")
+        if a.layer_shares:
+            share_err = max(share_err, max(abs(a.layer_shares[k] - b.layer_shares[k])
+                                           for k in a.layer_shares))
+    check(share_err <= 1e-4, f"fleet layer shares differ by {share_err}")
+    out["fleet_share_err"] = share_err
+    out["fleet_warned"] = sum(r.first_warn is not None for r in fleet_card)
+
+    # a state-bank round trip on the card: save mid-stream, load, continue
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, half = make("cuda"), make("cuda")
+        ref = replay(whole, x, v, 64)
+        replay(half, x[:512], v[:512], 64)
+        path = half.save_state_bank(os.path.join(tmp, "bank"))
+        resumed = make("cuda")
+        resumed.load_state_bank(path)
+        rest = replay(resumed, x[512:], v[512:], 64)
+    for a, b in zip(rest, ref[8:]):
+        for f in ("rf_smooth", "rf_inst", "layer_c", "residuals", "conformal_p", "aci_alpha"):
+            check(np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True),
+                  f"state bank round trip: {f} differs from the uninterrupted replay")
+    check(resumed.stream_low_p() == whole.stream_low_p(), "state bank: anomaly counter")
+
+    # times (synchronized host clock: each call ends in its one read; warm)
+    t_mon = make("cuda")
+    out["observe_ms"] = {}
+    for b_n in (1, 64, 256):
+        ts = []
+        for rep in range(21):
+            lo = (rep * b_n) % (len(x) - b_n)
+            t0 = time.perf_counter()
+            t_mon.observe(x[lo:lo + b_n], v[lo:lo + b_n], stream=f"t{b_n}")
+            ts.append(time.perf_counter() - t0)
+        out["observe_ms"][b_n] = statistics.median(ts[1:]) * 1e3
+    xb = np.stack([x[64 * i:64 * (i + 1)] for i in range(12)])
+    vb = np.stack([v[64 * i:64 * (i + 1)] for i in range(12)])
+    ts = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        t_mon.observe_many(xb, vb, keys)
+        ts.append(time.perf_counter() - t0)
+    out["observe_many_12x64_ms"] = statistics.median(ts[1:]) * 1e3
+
+    # condition_recovery on the card against the CPU, gain mode, ≤ 64 rows per
+    # alarmed condition.  Adam's step is scale-invariant, so a gradient
+    # component at rounding level (through tanh units that the two devices
+    # round to 1 or not) becomes a whole step on one device and none on the
+    # other, and such a row's trajectory splits: rows are held where they did
+    # not split — at 40 steps at least 85 % of rows with δ (fraction of the
+    # range) and v_after (V) within 2e-5 — and every condition by its
+    # recovered fraction (within one row of 64 at 40 steps, 0.1 at 400)
+    def recover(dev, steps):
+        on_card = dev == "cuda"
+        return condition_recovery(arr, params if on_card else host_params,
+                                  ds.scaler_x if on_card else ds.scaler_x.to("cpu"),
+                                  ds.scaler_y if on_card else ds.scaler_y.to("cpu"),
+                                  config=CounterfactualConfig(steps=steps), device=dev)
+
+    recover("cuda", 5)  # warm-up
+    out["recovery"] = {}
+    for steps, min_close, tol_frac in ((40, 0.85, 1 / 64), (400, 0.0, 0.1)):
+        card_recs, secs = _synced(lambda: recover("cuda", steps))
+        t0 = time.perf_counter()
+        host_recs = recover("cpu", steps)
+        host_s = time.perf_counter() - t0
+        per, n_rows, n_outside = {}, 0, 0
+        for a, b in zip(card_recs, host_recs):
+            check((a.fault_name, a.current_target, a.idx_v_alarm, a.n_rows)
+                  == (b.fault_name, b.current_target, b.idx_v_alarm, b.n_rows),
+                  f"recovery conditions differ: {a.fault_name} {a.current_target}")
+            if a.report is None:
+                continue
+            check(np.abs(a.report.v_before - b.report.v_before).max() <= 1e-5, "v_before")
+            d = np.abs(a.report.delta_range - b.report.delta_range).max(axis=1)
+            n_rows += a.n_rows
+            n_outside += int(((d > 2e-5)
+                              | (np.abs(a.report.v_after - b.report.v_after) > 2e-5)).sum())
+            per[f"{a.current_target:g}A {a.fault_name}"] = [
+                float(d.max()), float(np.abs(a.report.v_after - b.report.v_after).max()),
+                abs(float(a.report.recovered.mean()) - float(b.report.recovered.mean())),
+                int((b.report.v_target + 0.01 - b.report.v_meas <= 0).sum())]
+        worst = np.max(np.array([e[:3] for e in per.values()]), axis=0)
+        check(worst[2] <= tol_frac and n_rows - n_outside >= min_close * n_rows,
+              f"recovery {steps} steps, card against CPU per condition [δ error, v_after "
+              f"error, recovered-fraction error, rows needing no gain]: {json.dumps(per)}; "
+              f"{n_outside} of {n_rows} rows outside 2e-5")
+        out["recovery"][steps] = {"s": secs, "cpu_s": host_s, "rows": n_rows,
+                                  "delta_err": float(worst[0]), "v_after_err": float(worst[1]),
+                                  "recovered_frac_err": float(worst[2]),
+                                  "rows_outside_2e-5": n_outside,
+                                  "per_condition": per,
+                                  "recovered_frac": {f"{r.current_target:g}A {r.fault_name}":
+                                                     float(r.report.recovered.mean())
+                                                     for r in card_recs if r.report is not None}}
+
+    # the two commands on phase 9's checkpoint and cli score file
+    ck, mat = os.path.join(keep_dir, "ck"), os.path.join(keep_dir, "F01_scored.mat")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as figs:
+        argvs = [["monitor", "--mat", mat, "--ckpt", ck],
+                 ["monitor", "--mat", mat, "--ckpt", ck, "--fault-label", "1", "--diagnose",
+                  "--conformal", "--conformal-gamma", "0.005", "--whatif"],
+                 ["monitor", "--mat", mat, "--ckpt", ck, "--fleet"],
+                 ["whatif", "--ckpt", ck, "--mat", mat, "--json"],
+                 ["whatif", "--ckpt", ck, "--mat", mat, "--plot-dir", figs]]
+        runs, launches, err, out["cli_wall_s"] = run_cli_many(*argvs)
+        rcs = [rc for _, rc in runs]
+        check(rcs == [0, 0, 0, 0, 0 if have_mpl else 1],
+              f"cli monitor/whatif exit codes {rcs}:\n{err[-3000:]}")
+        if have_mpl:
+            check(os.listdir(figs) == ["whatif_actuation.png"], f"whatif figures {os.listdir(figs)}")
+        else:
+            check("figures need matplotlib" in err, f"whatif --plot-dir:\n{err[-2000:]}")
+    check(launches["residuals"] > 0, f"cli monitor launched no residual kernel: {launches}")
+    doc = json.loads(runs[3][0])
+    check(len(doc["conditions"]) == 12 and doc["target_mode"] == "gain", "cli whatif --json")
+    check("streamed 15600 samples" in runs[0][0] and "streamed 1000 samples" in runs[1][0]
+          and "conformal anomaly rate" in runs[1][0]
+          and "fleet replay: 12 conditions" in runs[2][0],
+          f"cli monitor printed:\n{runs[0][0]}\n{runs[1][0]}\n{runs[2][0]}")
+    out["cli_launches"] = launches
+    out["figures"] = "drawn" if have_mpl else "not drawn: matplotlib is not installed"
+    for argv, (text, _) in zip(argvs[:3], runs[:3]):
+        print(f"[slice] cli {' '.join(a for a in argv[1:] if a not in (mat, ck))} on the card "
+              f"over phase 9's files:")
+        print(text.rstrip())
+    print(f"[slice] cli whatif --json on the card: "
+          f"{json.dumps([[c['current'], c['fault'], c.get('dominant'), c.get('recovered_frac')] for c in doc['conditions']], ensure_ascii=False)}")
+    print(f"[slice] serving on the card (host clock, synchronized, warm, median): observe ms per "
+          f"block {json.dumps(out['observe_ms'])}, observe_many 12 x 64 "
+          f"{out['observe_many_12x64_ms']:.3f} ms, fleet_replay {out['fleet_replay_s']:.3f} s; "
+          f"condition_recovery {json.dumps({k: [v_['s'], v_['rows']] for k, v_ in out['recovery'].items()})} "
+          f"(s, rows); card against CPU max errors {json.dumps(out['errors'])}, p-value ranks "
+          f"differing {json.dumps(out['rank_diff'])} (each device's bitwise its own |res|'s); "
+          f"observe_many bitwise observe {out['observe_many_bitwise_observe']}; residual-kernel "
+          f"launches {out['launches_monitor']} for {-(-len(x) // 64)} blocks: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -1426,25 +1771,39 @@ def main() -> int:
     res_err = 0.0
     nan_rows = {}
     for rows in (n, 37):
-        for label, lam_il in (("init", None), ("i_l=1.2", 1.2)):
+        for label, lam_il in (("init", None), ("i_l=1.2", 1.2), ("non-finite inputs", None)):
             p = dict(params)
             if lam_il is not None:
                 p["lam_v"] = params["lam_v"].clone()
                 p["lam_v"][2] = lam_il
             xr, ur = dataset.x_test[:rows], u_eval[:rows]
+            if label == "non-finite inputs":
+                xr, ur = with_nonfinite_rows(xr, ur)
             kb = all_residuals_kernel(p, xr, ur, dataset.scaler_x, dataset.scaler_y)
             pb = all_residuals(p, xr, ur, dataset.scaler_x, dataset.scaler_y)
             torch.cuda.synchronize()
+            differ_msgs = []
             for name, a, b in zip(kb._fields, kb, pb):
                 check(a.shape == b.shape == (rows, 1), f"residual {name}: shape {a.shape}")
-                check(torch.equal(torch.isnan(a), torch.isnan(b)),
-                      f"residual {name}: NaN sets differ (N={rows}, {label})")
+                differ = torch.isnan(a) != torch.isnan(b)
+                if differ.any():
+                    differ_msgs.append(
+                        f"{name} at rows {torch.nonzero(differ[:, 0]).flatten().tolist()[:12]}"
+                        f" (kernel {a[differ].tolist()[:3]}, plain {b[differ].tolist()[:3]})")
+            check(not differ_msgs, f"residual kernel: NaN sets differ from the plain version's "
+                                   f"(N={rows}, {label}): {'; '.join(differ_msgs)}")
+            for name, a, b in zip(kb._fields, kb, pb):
                 torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
                 res_err = max(res_err, max_abs_err(a, b))
             nan_rows[f"N={rows} {label}"] = int(torch.isnan(kb.f_v).sum())
+            if label == "non-finite inputs":
+                nan_rows[f"N={rows} {label} (f_h, f_o)"] = [
+                    int(torch.isnan(kb.f_h).sum()), int(torch.isnan(kb.f_o).sum())]
     check(nan_rows[f"N={n} i_l=1.2"] > 0, "the i_l=1.2 case produced no NaN rows to compare")
-    print(f"[check] residual kernel vs plain, N={n} and N=37 (ragged): NaN rows {nan_rows} "
-          f"identical, max abs err {res_err:.3e} (rtol=atol=2e-5): ok")
+    print(f"[check] residual kernel vs plain, N={n} and N=37 (ragged), with rows past the "
+          f"limiting current and with NaN, +inf and -inf in each input channel and a NaN u at "
+          f"ragged positions: NaN rows {nan_rows} identical, max abs err {res_err:.3e} "
+          f"(rtol=atol=2e-5): ok")
 
     # ---- 4. the scoring slice at full width ----
     cfg = TrainConfig()  # mc_times 2000, dropout 0.4, smoothing 200, seed 42
@@ -1593,7 +1952,7 @@ def main() -> int:
 
     # ---- 13. diagnosis on the card ----
     t0 = time.perf_counter()
-    diag = run_diagnosis_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
+    diag, gmm_fit = run_diagnosis_slice(trained.results, os.path.join(keep.name, "F01_scored.mat"))
     diag["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 13 (s): {diag['phase_s']:.1f}; {json.dumps({'diagnosis': diag})}")
 
@@ -1606,9 +1965,15 @@ def main() -> int:
     # ---- 15. explainability and figures on the card ----
     t0 = time.perf_counter()
     expl = run_explain_slice(trained, keep.name)
-    keep.cleanup()
     expl["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 15 (s): {expl['phase_s']:.1f}; {json.dumps({'explain': expl})}")
+
+    # ---- 16. serving and the counterfactual on the card ----
+    t0 = time.perf_counter()
+    serve = run_serving_slice(trained, gmm_fit, keep.name)
+    keep.cleanup()
+    serve["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 16 (s): {serve['phase_s']:.1f}; {json.dumps({'serving': serve})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
@@ -1633,6 +1998,7 @@ def main() -> int:
          "wrapper_ms": res_wrapper_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound,
          "bound_by": "bytes",
          "launches_evaluate_metrics": metrics_launches["residuals"],
+         "launches_monitor": serve["launches_monitor"],
          "launches_campaign_slice": {k: campaign_launches[k]["residuals"]
                                      for k in ("train", "score")},
          "library_ms": None},

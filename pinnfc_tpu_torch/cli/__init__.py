@@ -1,9 +1,11 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
-{train,score,synth,auc,gmm,compare,risk,inspect,identify,explain,conformal} ...``.
+{train,score,synth,auc,gmm,compare,risk,inspect,identify,explain,whatif,conformal,
+monitor} ...``.
 
-``train``, ``score``, ``auc``, ``gmm``, ``compare``, ``risk``, ``identify``
-and ``explain`` run on the card by default (``--device cuda``) and exit with
-an error when CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
+``train``, ``score``, ``auc``, ``gmm``, ``compare``, ``risk``, ``identify``,
+``explain``, ``whatif`` and ``monitor`` run on the card by default
+(``--device cuda``) and exit with an error when CUDA is absent;
+``--device cpu`` runs the plain PyTorch path.
 ``synth`` writes a synthetic campaign as .mat files; ``risk --backend numpy``
 runs the float64 host path; ``inspect`` and ``conformal`` do no device work.
 ``--plot-dir`` writes the JAX commands' figures (matplotlib).
@@ -15,8 +17,9 @@ import argparse
 from typing import Optional, Sequence
 
 from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_compare, cmd_conformal, cmd_gmm
-from pinnfc_tpu_torch.cli.explain import cmd_explain, cmd_identify, cmd_inspect
+from pinnfc_tpu_torch.cli.explain import cmd_explain, cmd_identify, cmd_inspect, cmd_whatif
 from pinnfc_tpu_torch.cli.risk import cmd_risk
+from pinnfc_tpu_torch.cli.serve import cmd_monitor
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
 _PLOT_DIR_HELP = "write the command's figures (PNG) into this directory"
@@ -200,6 +203,74 @@ def build_parser() -> argparse.ArgumentParser:
                     help="save the class × channel saliency heatmaps here")
     xp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     xp.set_defaults(fn=cmd_explain)
+
+    wi = sub.add_parser("whatif", help="counterfactual recovery: per alarmed risk condition, "
+                                       "the minimal in-distribution actuation whose predicted "
+                                       "voltage gain covers the measured shortfall below the "
+                                       "alarm line")
+    wi.add_argument("--ckpt", required=True)
+    wi.add_argument("--mat", required=True,
+                    help="exported F01_output.mat supplying rows + labels")
+    wi.add_argument("--steps", type=int, default=400,
+                    help="Adam iterations of the inverse solve (default 400)")
+    wi.add_argument("--lr", type=float, default=0.05,
+                    help="step size in normalized-input units (default 0.05)")
+    wi.add_argument("--alpha", type=float, default=0.05,
+                    help="minimal-actuation penalty weight (default 0.05)")
+    wi.add_argument("--margin", type=float, default=0.01,
+                    help="volts above the alarm line to target (default 0.01)")
+    wi.add_argument("--actuate", default=None,
+                    help="comma-separated channels the solver may move "
+                         "(default: all but current and coolant_t_out)")
+    wi.add_argument("--max-rows", type=int, default=64,
+                    help="cap alarmed rows per condition, subsampled evenly")
+    wi.add_argument("--absolute-target", action="store_true",
+                    help="target the model's own prediction clearing the alarm line instead "
+                         "of the default gain target (Δv̂ covering the measured shortfall)")
+    wi.add_argument("--json", action="store_true")
+    wi.add_argument("--plot-dir", default=None,
+                    help="save the condition × channel actuation heatmap here")
+    wi.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    wi.set_defaults(fn=cmd_whatif)
+
+    m = sub.add_parser("monitor", help="streaming replay through OnlineMonitor")
+    m.add_argument("--mat", default="F01_output.mat")
+    m.add_argument("--ckpt", required=True, help="checkpoint from `train --ckpt`")
+    m.add_argument("--block", type=int, default=64, help="samples per block")
+    m.add_argument("--fault-label", type=int, default=None,
+                   help="replay only this fault segment (1..12) after a lead-in")
+    m.add_argument("--lead", type=int, default=200,
+                   help="normal lead-in rows before the fault segment")
+    m.add_argument("--diagnose", action="store_true",
+                   help="attach the script-03 GMM head: classify the fault type online "
+                        "while the RF warns")
+    m.add_argument("--head", default=None,
+                   help="load a saved diagnosis head (.npz) instead of fitting one from "
+                        "the artifact")
+    m.add_argument("--save-head", default=None, help="persist the fitted diagnosis head (.npz)")
+    m.add_argument("--glitch-alarm-n", type=int, default=None,
+                   help="sensor_alarm after N consecutive non-finite samples")
+    m.add_argument("--fleet", action="store_true",
+                   help="replay ALL 12 (current, fault) risk conditions (04:145-161) as "
+                        "concurrent streams — one observe_many step per lockstep block")
+    m.add_argument("--whatif", action="store_true",
+                   help="after the replay, solve the gain-mode counterfactual over the "
+                        "alarmed tail: the minimal in-training-range actuation whose "
+                        "predicted voltage gain covers the measured shortfall below the "
+                        "stream's dynamic alarm line")
+    m.add_argument("--conformal", action="store_true",
+                   help="calibrated anomaly p-values per sample, calibrated on the "
+                        "artifact's normal rows (uq/conformal |res| score); prints the "
+                        "normal-vs-fault anomaly rate")
+    m.add_argument("--conformal-alpha", type=float, default=0.1,
+                   help="p<α counts as a calibrated anomaly (default 0.1)")
+    m.add_argument("--conformal-gamma", type=float, default=0.0,
+                   help="with --conformal: adaptive conformal step size γ (Gibbs & Candès "
+                        "ACI) — the alarm level α_t tracks drift so the long-run alarm rate "
+                        "stays at α*; the replayed stream's final α_t is a calibrated drift "
+                        "gauge (0 = static level, default)")
+    m.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    m.set_defaults(fn=cmd_monitor)
 
     cf = sub.add_parser("conformal", help="split-conformal coverage analysis of an exported "
                                           "artifact: distribution-free voltage intervals "

@@ -1,6 +1,7 @@
 """Shared CLI helpers (counterpart of ``pinnfc_tpu/cli/_common.py``): the
 reduced schedule, the training config from flags, the campaign from flags,
-the checkpoint's provenance line, the λ table, and the errors a command
+the checkpoint's provenance line, the λ table, the monitor's glitch-alarm
+default and streaming conformal calibration, and the errors a command
 reports as its exit code."""
 
 from __future__ import annotations
@@ -116,15 +117,34 @@ def _finite_or_none(o):
     return o
 
 
-def _draw_figures(command: str, plot_dir: str, draw) -> int:
+def _draw_figures(command: str, plot_dir: str, draw, done: str = None) -> int:
     """``draw()`` the command's ``--plot-dir`` figures into ``plot_dir``
-    (created); the command's exit code: 1 when drawing fails (matplotlib
-    missing, an unwritable directory)."""
+    (created), then print ``done`` (default ``figures → <plot_dir>``); the
+    command's exit code: 1 when drawing fails (matplotlib missing, an
+    unwritable directory)."""
     try:
         os.makedirs(plot_dir, exist_ok=True)
         draw()
     except _USER_ERRORS as e:
         print(f"{command}: {e}", file=sys.stderr)
         return 1
-    print("figures →", plot_dir)
+    print(done or f"figures → {plot_dir}")
     return 0
+
+
+def _glitch_default() -> int:
+    from pinnfc_tpu_torch.serving.monitor import DEFAULT_GLITCH_ALARM_N
+
+    return DEFAULT_GLITCH_ALARM_N
+
+
+def _streaming_conformal_calib(arr, alpha, announce=True):
+    """Normal-row |res| calibration vector for the streaming monitor (the
+    ``uq/conformal`` 'absolute' score, the one computable online without MC
+    sampling)."""
+    from pinnfc_tpu_torch.uq import normal_calibration_scores
+
+    calib = normal_calibration_scores(arr, score="absolute", calib_frac=1.0)
+    if announce:
+        print(f"conformal calibration: {calib.size} normal scores, α={alpha:g}")
+    return calib

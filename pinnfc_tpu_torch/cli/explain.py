@@ -1,8 +1,8 @@
-"""``identify``, ``explain`` and ``inspect`` subcommands (counterpart of
-``pinnfc_tpu/cli/explain.py``): λ identifiability and input saliency of a
-checkpoint over an artifact's rows, on ``--device``, and a description of a
-checkpoint that does no device work.  The JAX commands' tables and ``--json``
-documents."""
+"""``identify``, ``explain``, ``whatif`` and ``inspect`` subcommands
+(counterpart of ``pinnfc_tpu/cli/explain.py``): λ identifiability, input
+saliency and counterfactual recovery of a checkpoint over an artifact's rows,
+on ``--device``, and a description of a checkpoint that does no device work.
+The JAX commands' tables and ``--json`` documents."""
 
 from __future__ import annotations
 
@@ -10,11 +10,12 @@ import json
 import os
 import sys
 
-from pinnfc_tpu_torch.cli._common import _USER_ERRORS, _finite_or_none, _print_lambda_table
+from pinnfc_tpu_torch.cli._common import (
+    _USER_ERRORS, _draw_figures, _finite_or_none, _print_lambda_table)
 
 
 def _load_with_scalers(args, command: str):
-    """(checkpoint on ``args.device``, artifact) for ``identify``/``explain``,
+    """(checkpoint on ``args.device``, artifact) for ``identify``/``explain``/``whatif``,
     or the exit code when the run cannot go on: 1 for an error the user can
     act on (no card, an unreadable file), 2 for a checkpoint without scalers,
     as in JAX."""
@@ -171,6 +172,102 @@ def cmd_explain(args) -> int:
     for name, row in sigma_table.items():
         cells = "  ".join(f"{v:>{width}.3g}" for v in row)
         print(f"{name:<20} {cells}  {INPUT_CHANNELS[int(np.argmax(row))]}")
+    return 0
+
+
+def cmd_whatif(args) -> int:
+    """Counterfactual recovery (``uq/counterfactual``): for every alarmed risk
+    condition of the ``cli risk`` table (04:145-161, dynamic threshold
+    04:389), the minimal actuation — within the training range, frozen
+    channels excluded — whose model-predicted voltage gain covers the
+    measured shortfall below the alarm line (``--absolute-target``: the
+    model's own prediction must clear it)."""
+    import numpy as np
+
+    from pinnfc_tpu_torch.data.contract import INPUT_CHANNELS
+    from pinnfc_tpu_torch.uq import CounterfactualConfig, condition_recovery, summarize_recovery
+
+    loaded = _load_with_scalers(args, "whatif")
+    if isinstance(loaded, int):
+        return loaded
+    ckpt, results = loaded
+    cfg = CounterfactualConfig(steps=args.steps, lr=args.lr, alpha=args.alpha,
+                               margin=args.margin)
+    actuate = args.actuate.split(",") if args.actuate else None
+    target = "absolute" if args.absolute_target else "gain"
+    try:
+        recs = condition_recovery(results, ckpt["params"], ckpt["scaler_x"], ckpt["scaler_y"],
+                                  config=cfg, actuatable=actuate, max_rows=args.max_rows,
+                                  target=target, device=args.device)
+    except _USER_ERRORS as e:
+        print(f"whatif: {e}", file=sys.stderr)
+        return 1
+
+    summaries = {f"{r.current_target:.0f}A {r.fault_name}": summarize_recovery(r.report)
+                 for r in recs if r.report is not None}
+
+    def _mean_short(r):
+        """Mean measured shortfall below the alarm line over solved rows."""
+        if r.report is None or r.report.v_meas is None:
+            return None
+        return float(np.maximum(0.0, r.report.v_target - r.report.v_meas).mean())
+
+    if args.json:
+        out = {
+            "unit": "delta as fraction of the channel's training range",
+            "target_mode": target,
+            "channels": list(INPUT_CHANNELS),
+            "conditions": [
+                {
+                    "fault": r.fault_name,
+                    "current": r.current_target,
+                    "v_threshold": r.v_threshold,
+                    "alarmed": r.idx_v_alarm is not None,
+                    "n_rows": r.n_rows,
+                    **({"mean_short_v": s} if (s := _mean_short(r)) is not None else {}),
+                    **({
+                        "recovered_frac": summaries[key]["recovered_frac"],
+                        "dominant": summaries[key]["dominant"],
+                        "mean_delta_range": summaries[key]["mean_delta_range"].tolist(),
+                    } if (key := f"{r.current_target:.0f}A {r.fault_name}") in summaries
+                        else {}),
+                }
+                for r in recs
+            ],
+        }
+        print(json.dumps(out, indent=2, ensure_ascii=False, allow_nan=False))
+        return 0
+
+    mode_note = ("gain target: Δv̂ must cover the measured shortfall" if target == "gain"
+                 else "absolute target: v̂ itself must clear the line")
+    print("counterfactual recovery per risk condition (mean signed Δ, "
+          f"fraction of training range; alarmed rows only; {mode_note}):")
+    print(f"{'current':>8} {'fault':>20} {'rows':>5} {'short(V)':>8} "
+          f"{'recovered':>9}  knob (Δ physical)")
+    for r in recs:
+        if r.report is None:
+            print(f"{r.current_target:8.0f} {r.fault_name:>20} {0:>5} "
+                  f"{'-':>8} {'-':>9}  never alarmed")
+            continue
+        s = summaries[f"{r.current_target:.0f}A {r.fault_name}"]
+        short = _mean_short(r)
+        short_s = f"{short:8.3f}" if short is not None else f"{'-':>8}"
+        knob = s["dominant"]
+        if knob is None:
+            detail = "no actuation needed"
+        else:
+            detail = f"{knob} ({float(s['mean_delta_phys'][s['dominant_index']]):+.3g})"
+        print(f"{r.current_target:8.0f} {r.fault_name:>20} {r.n_rows:>5} "
+              f"{short_s} {s['recovered_frac']:>9.0%}  {detail}")
+
+    if args.plot_dir and summaries:
+        from pinnfc_tpu_torch.viz import plot_whatif
+
+        path = os.path.join(args.plot_dir, "whatif_actuation.png")
+        table = {k: v["mean_delta_range"] for k, v in summaries.items()}
+        return _draw_figures("whatif", args.plot_dir,
+                             lambda: plot_whatif(table, INPUT_CHANNELS, path),
+                             done=f"figures → {args.plot_dir}/whatif_actuation.png")
     return 0
 
 

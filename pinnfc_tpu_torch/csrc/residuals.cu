@@ -29,6 +29,12 @@
 // scaler's scale, powf/expf/logf/sqrtf without fast math, and the file is
 // compiled with -fmad=false so no multiply-add is contracted.  Rows where
 // i > i_l give NaN in f_v and v_phys_stack exactly where the plain version does.
+// Every clamp is nan_max/nan_min, which return NaN when either operand is NaN as
+// jnp.maximum, jnp.clip and torch.clamp_min do: fmaxf/fminf return the other
+// operand, which turned a NaN stack current into finite gas ratios of flow/1e-8.
+// The square root of the O2 partial pressure keeps pow's +inf at -inf, as the JAX
+// function's pp_o2**0.5 does.  So rows with NaN or +-inf inputs give the plain
+// version's NaN sets.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,6 +68,14 @@ constexpr float O2_FRACTION = 0.21f;
 constexpr float I_NORM_BASE = 100.0f;
 
 constexpr int ROWS_PER_CTA = 32;  // one thread per row
+
+// max/min that propagate NaN from either operand (fmaxf/fminf drop it)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : (a < b ? a : b);
+}
 
 __global__ void residuals_kernel(const float4* __restrict__ x,  // (n, 8) as (n, 2) float4
                                  const float* __restrict__ u,   // n values, stride u_stride
@@ -100,7 +114,10 @@ __global__ void residuals_kernel(const float4* __restrict__ x,  // (n, 8) as (n,
   const float v_act = -b * logf(i / lam_v1);
   const float v_ohmic = -(i * lam_v0);
   const float v_conc = ALPHA * b * logf(1.0f - (i / lam_v2));
-  const float e_nernst = E0 - ((R_GAS * tk) * logf(p_h2o / (pp_h2 * sqrtf(pp_o2)))) / TWO_F;
+  // pp_o2**0.5 is pow(pp_o2, 0.5) in the JAX function: +inf at -inf, where sqrtf is NaN
+  const float e_nernst =
+      E0 - ((R_GAS * tk) * logf(p_h2o / (pp_h2 * sqrtf(pp_o2 == -INFINITY ? INFINITY : pp_o2)))) /
+               TWO_F;
   const float v_est = e_nernst + v_act + v_ohmic + v_conc;
 
   // ---- thermal simple (net_f_T_simple) ----
@@ -109,23 +126,23 @@ __global__ void residuals_kernel(const float4* __restrict__ x,  // (n, 8) as (n,
 
   // ---- hydrogen (net_f_H) ----
   const float i_total = i * A_CELL;
-  const float q_theo_h = fmaxf(i_total / TWO_F * N_CELLS * V_MOLAR_STP * 60.0f, 1e-8f);
+  const float q_theo_h = nan_max(i_total / TWO_F * N_CELLS * V_MOLAR_STP * 60.0f, 1e-8f);
   const float tgt_h = i_total <= lh2 ? lh0 + lh1 * (i_total / I_NORM_BASE)
                                      : lh0 + lh1 * (lh2 / I_NORM_BASE);
   const float ratio_h = (h2_flow + 1e-6f) / q_theo_h;
 
   // ---- oxygen (net_f_O) ----
-  const float q_theo_o = fmaxf((i_total * N_CELLS) / FOUR_F * V_MOLAR_STP * 60.0f, 1e-8f);
+  const float q_theo_o = nan_max((i_total * N_CELLS) / FOUR_F * V_MOLAR_STP * 60.0f, 1e-8f);
   const float thr_o = fabsf(lo2);
   float tgt_o = i_total <= thr_o ? lo0 + lo1 * (i_total / I_NORM_BASE)
                                  : lo0 + lo1 * (thr_o / I_NORM_BASE);
-  tgt_o = fminf(fmaxf(tgt_o, 1.05f), 15.0f);
+  tgt_o = nan_min(nan_max(tgt_o, 1.05f), 15.0f);
   const float ratio_o = (air_flow + 1e-6f) * O2_FRACTION / q_theo_o;
 
   out[0 * n + r] = v_est - v_out;
   out[1 * n + r] = t_out - t_pred;
   out[2 * n + r] = ratio_h - tgt_h;
-  out[3 * n + r] = ratio_o - tgt_o + fmaxf(1.0f - ratio_o, 0.0f) * 10.0f;
+  out[3 * n + r] = ratio_o - tgt_o + nan_max(1.0f - ratio_o, 0.0f) * 10.0f;
   out[4 * n + r] = v_est * N_CELLS;
   out[5 * n + r] = t_pred;
   out[6 * n + r] = ratio_h;

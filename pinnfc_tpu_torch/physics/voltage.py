@@ -62,6 +62,9 @@ def voltage_residual(
     v_act = -b * torch.log(i / i0)
     v_ohmic = -(i * r)
     v_conc = C.ALPHA * b * torch.log(1.0 - (i / il))
+    # torch computes x**0.5 as sqrt(x), NaN at -inf, where the JAX function's
+    # pow gives +inf (a -inf air pressure reading): lift -inf to +inf first
+    pp_o2 = torch.where(torch.isneginf(pp_o2), float("inf"), pp_o2)
     e_nernst = -C.GF_LIQ / (2.0 * C.F_CONST) - (
         (C.R_GAS * tk) * torch.log(p_h2o / (pp_h2 * pp_o2**0.5))
     ) / (2.0 * C.F_CONST)

@@ -1,5 +1,5 @@
 """Uncertainty and explainability: MC-dropout statistics, split-conformal
-coverage, input saliency and λ identifiability."""
+coverage, input saliency, λ identifiability and counterfactual recovery."""
 
 from pinnfc_tpu_torch.uq.conformal import (
     ClassCoverage,
@@ -9,6 +9,15 @@ from pinnfc_tpu_torch.uq.conformal import (
     conformal_quantile,
     conformal_report,
     normal_calibration_scores,
+)
+from pinnfc_tpu_torch.uq.counterfactual import (
+    ConditionRecovery,
+    CounterfactualConfig,
+    CounterfactualReport,
+    actuatable_mask,
+    condition_recovery,
+    counterfactual_recovery,
+    summarize_recovery,
 )
 from pinnfc_tpu_torch.uq.identifiability import (
     GroupIdentifiability,
@@ -25,19 +34,26 @@ from pinnfc_tpu_torch.uq.saliency import (
 
 __all__ = [
     "ClassCoverage",
+    "ConditionRecovery",
     "ConformalReport",
+    "CounterfactualConfig",
+    "CounterfactualReport",
     "GroupIdentifiability",
     "MCSamples",
     "SaliencyReport",
+    "actuatable_mask",
     "artifact_scores",
     "class_mean_saliency",
     "coarse_class_saliency",
+    "condition_recovery",
     "conformal_pvalues",
     "conformal_quantile",
     "conformal_report",
+    "counterfactual_recovery",
     "gauss_newton_ci",
     "input_saliency",
     "lambda_identifiability",
     "mc_dropout_samples",
     "normal_calibration_scores",
+    "summarize_recovery",
 ]

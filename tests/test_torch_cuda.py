@@ -28,6 +28,14 @@ tests/test_pallas_mc.py; the torch risk backend on the card against the
 float64 numpy backend: the same alarm table, the series at the tolerances of
 tests/test_risk.py:88-91.
 
+The residual kernel on rows with NaN, +inf and -inf in each input channel and
+a NaN u: NaN sets identical to the plain version's.  Serving and the
+counterfactual on the card against the CPU: the monitor's series at rtol
+1e-5 (atol 1e-5; layer_c 1e-4, the posteriors 1e-4), its flags and p-value
+ranks equal, one residual-kernel launch per ``observe``/``observe_many``;
+a 40-step recovery solve with δ within 2e-5 of the range and v_after within
+2e-6 V.
+
 Diagnosis on the card against the port on the CPU with the same CPU-generator
 draws: the forest's feature, size and threshold tables identical (the
 threshold is one float64 rounding on both) and its scores within rtol 1e-6;
@@ -544,3 +552,131 @@ def test_tsne_embed_on_the_card_matches_the_cpu(cuda_device):
     kls = [float(kl_and_grad(torch.as_tensor(e, dtype=torch.float32), p)[0])
            for e in (on_card, on_host)]
     assert kls[0] == pytest.approx(kls[1], rel=0.1)
+
+
+def _nonfinite_rows(x, u):
+    """Copies of x (N, 8) and u (N, 1) with NaN, +inf and -inf in each input
+    channel in turn and a NaN u, at ragged rows (as chip_smoke.py phase 3)."""
+    x, u = x.clone(), u.clone()
+    n = x.shape[0]
+    rows = [(3 * k + 7) % n if n < 100 else (613 * k + 7) % n for k in range(25)]
+    for k, r in enumerate(rows[:24]):
+        x[r, k % 8] = (float("nan"), float("inf"), float("-inf"))[k // 8]
+    u[rows[24]] = float("nan")
+    return x, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15600, 37])
+def test_residual_kernel_on_nonfinite_rows(cuda_device, campaign_rows, n):
+    """NaN, ±inf in each input channel and a NaN u: the kernel's NaN sets are
+    the plain version's (whose NaN sets are JAX's, tests/test_torch_monitor.py);
+    a NaN stack current leaves the gas ratios NaN."""
+    ds = campaign_rows
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    sx, sy = ds.scaler_x.to(cuda_device), ds.scaler_y.to(cuda_device)
+    x = ds.x_test[:n].to(cuda_device)
+    with torch.no_grad():
+        u = params["mlp"](x)[0]
+    x, u = _nonfinite_rows(x, u)
+    got = all_residuals_kernel(params, x, u, sx, sy)
+    want = all_residuals(params, x, u, sx, sy)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name}: NaN sets differ"
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True, msg=name)
+    nan_current = torch.isnan(x[:, 0])
+    assert bool(torch.isnan(got.ratio_h[nan_current]).all())
+    assert bool(torch.isnan(got.ratio_o[nan_current]).all())
+
+
+def _monitor_inputs():
+    """(x_raw (N, 8), v (N,)) of a small campaign with glitches, and a
+    factory of monitors (head, conformal ACI) on a device."""
+    from pinnfc_tpu_torch.serving import DiagnosisHead, OnlineMonitor
+
+    normal, faults = synthesize_stack_data(n_normal=600, n_fault=60, seed=42)
+    ds = combine_and_normalize(normal, faults, device="cpu")
+    x = ds.scaler_x.inverse(ds.x_test.numpy()).astype(np.float32)
+    v = ds.scaler_y.inverse(ds.y_test.numpy())[:, 0].astype(np.float32)
+    x[100:103] = np.nan
+    x[400, 0] = np.nan
+    x[401, 3] = np.inf
+    v[500:530] = np.nan
+    mu = np.zeros(5)
+    sigma = np.array([0.05, 0.05, 2.0, 0.1, 0.2])
+    calib = np.abs(0.05 * np.random.RandomState(0).randn(200)).astype(np.float32)
+
+    def make(dev):
+        params = init_pinn(generator=torch.Generator().manual_seed(0), device=dev)
+        head = DiagnosisHead(
+            gmm=gmm_fit(np.random.RandomState(1).randn(400, 4).astype(np.float32),
+                        torch.Generator().manual_seed(0), 3, device=dev),
+            comp_fault_prob=torch.tensor([[0.7, 0.3], [0.2, 0.8], [0.5, 0.5]], device=dev),
+            class_names=("a", "b"), feature_indices=(1, 2, 3, 4))
+        return OnlineMonitor(params, ds.scaler_x.to(dev), ds.scaler_y.to(dev), mu, sigma,
+                             diagnosis=head, glitch_alarm_n=5, conformal_calib=calib,
+                             conformal_gamma=0.01, device=dev)
+    return x, v, make
+
+
+@pytest.mark.cuda
+def test_monitor_on_the_card_matches_the_cpu(cuda_device):
+    """``observe`` in blocks of 64 and ``observe_many`` of 3 streams on the
+    card against the same monitor on the CPU: the series at rtol 1e-5 (atol
+    1e-5; 1e-4 for layer_c), the flags equal, the p-value ranks equal; one
+    residual-kernel launch per call."""
+    x, v, make = _monitor_inputs()
+    card, host = make(cuda_device), make("cpu")
+    before = build.LAUNCHES["residuals"]
+    calls = 0
+    for lo in range(0, 640, 64):
+        a = card.observe(x[lo:lo + 64], v[lo:lo + 64])
+        b = host.observe(x[lo:lo + 64], v[lo:lo + 64])
+        calls += 1
+        _same_monitor_out(a, b)
+    xb = np.stack([x[0:64], x[200:264], x[500:564]])
+    vb = np.stack([v[0:64], v[200:264], v[500:564]])
+    got = card.observe_many(xb, vb, ["a", "b", "c"])
+    want = host.observe_many(xb, vb, ["a", "b", "c"])
+    calls += 1
+    assert build.LAUNCHES["residuals"] == before + calls
+    for k in got:
+        _same_monitor_out(got[k], want[k])
+    assert card.stream_low_p() == host.stream_low_p()
+    np.testing.assert_array_equal(card.stream_oob_counts(), host.stream_oob_counts())
+
+
+def _same_monitor_out(a, b):
+    for f, atol in (("rf_inst", 1e-5), ("rf_smooth", 1e-5), ("residuals", 1e-5),
+                    ("v_pred", 1e-5), ("layer_scores", 1e-5), ("layer_c", 1e-4),
+                    ("fault_probs", 1e-4), ("aci_alpha", 1e-6)):
+        x, y = getattr(a, f), getattr(b, f)
+        np.testing.assert_array_equal(np.isnan(x), np.isnan(y), err_msg=f)
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=atol, equal_nan=True, err_msg=f)
+    for f in ("warn", "danger", "v_alarm", "glitch", "sensor_alarm", "oob", "aci_anomaly"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    np.testing.assert_array_equal(np.rint(a.conformal_p * 201), np.rint(b.conformal_p * 201))
+
+
+@pytest.mark.cuda
+def test_counterfactual_on_the_card_matches_the_cpu(cuda_device):
+    """A 40-step gain-mode solve of 200 rows on the card against the CPU:
+    δ (fraction of range) within 2e-5, v_after within 2e-6 V, recovered
+    equal (tests/test_torch_counterfactual.py's tolerances against JAX)."""
+    from pinnfc_tpu_torch.uq import CounterfactualConfig, counterfactual_recovery
+
+    normal, faults = synthesize_stack_data(n_normal=600, n_fault=60, seed=42)
+    reps = {}
+    for dev in (cuda_device, "cpu"):
+        ds = combine_and_normalize(normal, faults, device=dev)
+        params = init_pinn(generator=torch.Generator().manual_seed(0), device=dev)
+        x = ds.scaler_x.inverse(ds.x_test.cpu().numpy())[-200:]
+        v = ds.scaler_y.inverse(ds.y_test.cpu().numpy())[-200:, 0]
+        reps[str(dev)] = counterfactual_recovery(params, x, v + 0.005, ds.scaler_x, ds.scaler_y,
+                                                 config=CounterfactualConfig(steps=40),
+                                                 v_meas=v, device=dev)
+    card, host = reps["cuda"], reps["cpu"]
+    np.testing.assert_allclose(card.v_before, host.v_before, atol=1e-6)
+    np.testing.assert_allclose(card.v_after, host.v_after, atol=2e-6)
+    np.testing.assert_allclose(card.delta_range, host.delta_range, atol=2e-5)
+    np.testing.assert_array_equal(card.recovered, host.recovered)
