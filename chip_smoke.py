@@ -123,6 +123,33 @@ Phases, any failure exits non-zero before the result line:
    matplotlib is installed each writes the JAX command's file names; where it
    is not, each exits 1 naming matplotlib and one line says that no figure
    was drawn;
+16. serving and the counterfactual on the card (see ``run_serving_slice``);
+17. run-all and the report on the card: ``run_all(args, plot_dir=None)``, the
+   chain of ``cli run-all`` without figures, at flagship width on the
+   default campaign (15,600 rows, mc_times 2000, the schedule x 0.1), the
+   launch counts reset just before and read just after (the training kernel
+   twice, the MC kernel once, the residual kernel phase 7's count plus one
+   per monitor block), each stage's seconds; report.md with every default
+   section and none degraded; metrics.json against ``artifact_metrics`` of
+   the same .mat on the CPU at phases 12-13's tolerances; then ``cli run-all
+   --from-ckpt`` over phase 9's checkpoint in a subprocess: exit 0 where
+   matplotlib is installed, else exit 1 naming it after writing
+   F01_output.mat;
+18. export and serve on the card: ``cli export-model`` over phase 9's
+   checkpoint three ways (the scorer; the monitor step with phase 13's GMM
+   head, conformal p-values and γ = 0.005; the fleet step), one subprocess
+   that launches no kernel; the scorer artifact moved to the card against
+   the eval forward at 1, 37 and 15,600 rows; phase 16's stream through
+   ``monitor_from_artifact(device="cuda")`` in blocks of 64 and 256 against
+   the checkpoint monitor on the card, one residual-kernel launch per
+   block; ``observe_many`` of 12 x 64 through the fleet artifact in one
+   launch; ``cli serve --ckpt`` and ``--artifact`` as subprocesses driven
+   over loopback (/health, /observe, /observe_many, /reset, /metrics), each
+   payload equal to the in-process monitor's; a ``--state-path`` restart
+   continuing the bank bitwise; the ms per exported ``observe`` at B = 1,
+   64 and 256, at B = 1 and 64 split into the artifact's device step and
+   the rest, and the eager device step with the scans at three depths (the
+   cost of the fixed rounds), and per /observe round trip at B = 64;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1707,6 +1734,503 @@ def run_serving_slice(trained, gmm_result, keep_dir):
     return out
 
 
+# the stages of run_all, each looked up in its module when the chain runs
+RUN_ALL_STAGES = (("train", "cmd_train"), ("diagnose", "cmd_auc"), ("diagnose", "cmd_gmm"),
+                  ("risk", "cmd_risk"), ("diagnose", "cmd_compare"), ("serve", "cmd_monitor"),
+                  ("explain", "cmd_identify"), ("explain", "cmd_explain"),
+                  ("explain", "cmd_whatif"), ("diagnose", "cmd_conformal"),
+                  ("diagnose", "cmd_report"))
+
+
+def _metrics_close(got: dict, want: dict, n_te: int) -> dict:
+    """Hold a ``metrics.json`` made on the card against ``artifact_metrics`` of
+    the same artifact on the CPU at phases 12-13's card-against-CPU
+    tolerances: group and forest AUCs within 1e-4, the LR accuracies within
+    2/n_te, GMM accuracy within 0.005, the risk counts equal and the mean
+    advance within one sample, the host statistics to float64 rounding.
+    Returns the largest difference per metric."""
+    check(list(got) == list(want), f"metrics.json keys {list(got)} against {list(want)}")
+    diffs = {}
+    for k, w in want.items():
+        g = got[k]
+        w = None if not np.isfinite(w) else w
+        check((g is None) == (w is None), f"metrics.json {k}: {g} against {w} on the CPU")
+        if w is None:
+            continue
+        if k.startswith(("auc_group", "isoforest")):
+            tol = 1e-4
+        elif k.startswith("accuracy_group"):
+            tol = 2.0 / n_te
+        else:
+            tol = {"gmm_accuracy": 0.005, "mean_rf_advance": 1.0}.get(k, 1e-12 * max(1, abs(w)))
+        diffs[k] = abs(g - w)
+        check(diffs[k] <= tol, f"metrics.json {k}: {g} on the card, {w} on the CPU")
+    return diffs
+
+
+def run_all_slice(train_launches: dict, keep_dir: str) -> dict:
+    """Phase 17: ``run_all(args, plot_dir=None)``, the chain of ``cli run-all``
+    without figures, at flagship width on the default campaign with every
+    stage scaled by 0.1, the launch counts reset just before and read just
+    after; report.md and metrics.json checked; then ``cli run-all
+    --from-ckpt`` over phase 9's checkpoint in a subprocess.  Returns what it
+    prints as one dict."""
+    import importlib
+    import importlib.util
+
+    from pinnfc_tpu_torch.cli import build_parser
+    from pinnfc_tpu_torch.cli.run_all import run_all
+    from pinnfc_tpu_torch.data.contract import INDEX, load_comprehensive_results
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.utils.report import ALL_SECTIONS, _SECTION_TITLES, artifact_metrics
+
+    out = {"stage_s": {}}
+    saved = []
+    for mod_name, fn_name in RUN_ALL_STAGES:
+        mod = importlib.import_module(f"pinnfc_tpu_torch.cli.{mod_name}")
+        fn = getattr(mod, fn_name)
+
+        def timed_stage(args, fn=fn, name=fn_name[4:]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(args)
+            finally:
+                torch.cuda.synchronize()
+                out["stage_s"][name] = time.perf_counter() - t0
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, timed_stage)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = build_parser().parse_args(["run-all", "--out-dir", tmp, "--steps-scale", "0.1"])
+        try:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            rc = run_all(args, None)
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            out["wall_s"] = time.perf_counter() - t0
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        check(rc == 0, f"run_all exited {rc}")
+        with open(os.path.join(tmp, "report.md")) as f:
+            text = f.read()
+        want_titles = [_SECTION_TITLES[s] for s in ALL_SECTIONS if s != "baseline"]
+        titles = [ln[3:] for ln in text.splitlines() if ln.startswith("## ")]
+        check(titles == want_titles, f"report.md sections {titles}")
+        check("section unavailable" not in text and "_no checkpoint given" not in text,
+              "report.md has a degraded section:\n" + "\n".join(
+                  ln for ln in text.splitlines() if "unavailable" in ln or "_no " in ln))
+        arr = load_comprehensive_results(os.path.join(tmp, "F01_output.mat")).array
+        check(arr.shape == (15600, 22) and np.isfinite(arr[:, INDEX["y_pred"]]).all(),
+              f"run-all artifact {arr.shape}")
+        labels = arr[:, INDEX["label"]]
+        n_blocks = -(-(200 + int((labels == 1).sum())) // 256)  # cli monitor's stream
+        out["launches"] = launches
+        check(launches["train_dnn"] == 2 and launches["mc_dropout"] == 1
+              and launches["residuals"] == train_launches["residuals"] + n_blocks,
+              f"run_all launches {launches}: want the training kernel twice, the MC kernel "
+              f"once, the residual kernel {train_launches['residuals']} + {n_blocks} times")
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            card = json.load(f)
+        t0 = time.perf_counter()
+        host = artifact_metrics(arr, device="cpu")
+        out["metrics_cpu_s"] = time.perf_counter() - t0
+        n_te = int(round(0.9 * len(arr)))
+        diffs = _metrics_close(card, host, n_te)
+        out["metrics_max_diff"] = max(diffs.values())
+        out["metrics"] = card
+
+    # the command in a subprocess over phase 9's checkpoint
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, "run-all", "--from-ckpt",
+                               os.path.join(keep_dir, "ck"), "--out-dir", tmp], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              timeout=900)
+        out["cli_wall_s"] = time.perf_counter() - t0
+        wrote = os.path.exists(os.path.join(tmp, "F01_output.mat"))
+        if have_mpl:
+            check(proc.returncode == 0 and "run-all complete" in proc.stdout,
+                  f"cli run-all exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        else:
+            check(proc.returncode == 1 and "matplotlib" in proc.stderr and wrote
+                  and not os.path.exists(os.path.join(tmp, "report.md")),
+                  f"cli run-all without matplotlib exited {proc.returncode} (want 1 naming "
+                  f"matplotlib after F01_output.mat):\n{proc.stderr[-3000:]}")
+        out["cli"] = ("exit 0" if have_mpl else
+                      "exit 1 naming matplotlib after writing F01_output.mat")
+    print(f"[slice] run_all(plot_dir=None) on the card (default campaign, schedule x 0.1, "
+          f"mc_times 2000): {out['wall_s']:.1f} s; per stage (s, synchronized) "
+          f"{json.dumps({k: round(v, 3) for k, v in out['stage_s'].items()})}; launches "
+          f"{json.dumps(launches)}; report.md with its {len(want_titles)} default sections, none "
+          f"degraded; metrics.json against artifact_metrics on the CPU, largest difference "
+          f"{out['metrics_max_diff']:.3e}: ok; cli run-all --from-ckpt (subprocess, "
+          f"{out['cli_wall_s']:.1f} s): {out['cli']}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, path: str, obj=None):
+    """One request to the loopback server: (status, JSON body or text)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if obj is None else json.dumps(obj).encode(),
+        method="GET" if obj is None else "POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = r.read().decode()
+            return r.status, body if path == "/metrics" else json.loads(body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_process(argv, requests, timeout: int = 300):
+    """``cli serve <argv>`` on the card in a subprocess on a free loopback
+    port, with ``--max-requests len(requests)``: wait for its ready line, send
+    the requests in order, wait for it to end.  Returns (responses, seconds
+    per request, its standard output)."""
+    port = _free_port()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pinnfc_tpu_torch.cli", "serve", *argv, "--port", str(port),
+             "--max-requests", str(len(requests))], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        try:
+            lines = []
+            deadline = time.time() + timeout
+            while time.time() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                if line.startswith("serving OnlineMonitor on"):
+                    break
+            check(lines and lines[-1].startswith("serving OnlineMonitor on"),
+                  f"cli serve {argv} did not start:\n{''.join(lines)}")
+            responses, seconds = [], []
+            for path, obj in requests:
+                t0 = time.perf_counter()
+                responses.append(_http(port, path, obj))
+                seconds.append(time.perf_counter() - t0)
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        check(proc.returncode == 0 and "server closed" in rest,
+              f"cli serve {argv} exited {proc.returncode}:\n{err.read()[-3000:]}")
+    return responses, seconds, "".join(lines) + rest
+
+
+def _in_thread(fn, *args):
+    """Start ``fn(*args)`` in a thread: (thread, box); the box gets its result
+    (or what it raised, ``SystemExit`` from ``fail`` included) and seconds."""
+    import threading
+
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller's thread
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def _joined(thread, box):
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def _replay_requests(monitor, requests) -> list:
+    """The JSON bodies an in-process server would answer ``requests`` with
+    (the observing routes; others None), from ``monitor``."""
+    from pinnfc_tpu_torch.serving.server import _json_payload
+
+    bodies = []
+    for path, obj in requests:
+        body = None
+        if path == "/observe":
+            s = obj.get("stream", "default")
+            body = _json_payload(monitor.observe(np.asarray(obj["x"], np.float32),
+                                                 np.asarray(obj["v"], np.float32), stream=s),
+                                 monitor, s)
+        elif path == "/observe_many":
+            outs = monitor.observe_many(np.asarray(obj["x"], np.float32),
+                                        np.asarray(obj["v"], np.float32), obj["streams"])
+            body = {"results": {s: _json_payload(o, monitor, s) for s, o in outs.items()},
+                    "n_seen": monitor.n_seen}
+        elif path == "/reset":
+            monitor.reset(obj.get("stream"))
+            body = {"ok": True}
+        bodies.append(None if body is None else json.loads(json.dumps(body)))
+    return bodies
+
+
+def run_export_serve_slice(gmm_result, keep_dir: str) -> dict:
+    """Phase 18: ``cli export-model`` three ways over phase 9's checkpoint (one
+    subprocess, no device work); the scorer artifact on the card against the
+    eval forward; phase 16's stream through ``monitor_from_artifact`` on the
+    card against the checkpoint monitor on the card, blocks of 64 and 256,
+    one residual-kernel launch per block; ``observe_many`` of 12 x 64 through
+    the fleet artifact in one call; ``cli serve --ckpt`` and ``--artifact``
+    over loopback against the in-process monitors, and a ``--state-path``
+    restart; their times.  Returns what it prints as one dict."""
+    from pinnfc_tpu_torch.data.contract import INDEX, load_comprehensive_results
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.risk import estimate_mu_sigma_normal
+    from pinnfc_tpu_torch.serving import (
+        DiagnosisHead, OnlineMonitor, load_scorer, monitor_from_artifact)
+    from pinnfc_tpu_torch.uq import normal_calibration_scores
+    from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck, mat = os.path.join(keep_dir, "ck"), os.path.join(keep_dir, "F01_scored.mat")
+    arr = load_comprehensive_results(mat).array
+    mu, sigma = estimate_mu_sigma_normal(arr)
+    calib = normal_calibration_scores(arr, score="absolute", calib_frac=1.0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        head = DiagnosisHead.from_gmm_result(gmm_result).save(os.path.join(tmp, "head"))
+        arts = {k: os.path.join(tmp, f"{k}.pt2") for k in ("scorer", "step", "fleet")}
+        argvs = [["export-model", "--ckpt", ck, "--out", arts["scorer"]],
+                 ["export-model", "--ckpt", ck, "--out", arts["step"], "--monitor-step",
+                  "--head", head, "--conformal-mat", mat, "--conformal-gamma", "0.005"],
+                 ["export-model", "--ckpt", ck, "--out", arts["fleet"], "--monitor-step",
+                  "--fleet-step", "--head", head]]
+        # three processes at once: each traces on the host for about 20 s
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", CLI_RUNNER, *argv], cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for argv in argvs]
+        runs = [(p, *p.communicate(timeout=900)) for p in procs]
+        out["export_wall_s"] = time.perf_counter() - t0
+        for proc, text, err in runs:
+            check(proc.returncode == 0, f"export-model exited {proc.returncode}:\n{err[-3000:]}")
+            launches = json.loads(text.rpartition("LAUNCHES ")[2])
+            check(not any(launches.values()), f"export-model launched kernels: {launches}")
+        sides = {k: json.load(open(p + ".meta.json")) for k, p in arts.items()}
+        check([sides[k]["kind"] for k in arts] == ["pinnfc_torch_scorer"] + [
+            "pinnfc_torch_monitor_step"] * 2 and sides["step"]["conformal_gamma"] == 0.005
+              and sides["fleet"]["fleet_step"], f"sidecars {sides}")
+        out["artifact_bytes"] = {k: os.path.getsize(p) for k, p in arts.items()}
+
+        # the scorer against the eval forward of the checkpoint on the card
+        ckpt = load_checkpoint(ck, device="cuda")
+        scorer = load_scorer(open(arts["scorer"], "rb").read(), device="cuda")
+        out["scorer_err"] = {}
+        for rows in (1, 37, len(arr)):
+            x = torch.as_tensor(arr[:rows, :8].astype(np.float32), device="cuda")
+            v, lv = scorer(x)
+            with torch.no_grad():
+                pred, lv_ref = ckpt["params"]["mlp"](ckpt["scaler_x"].transform(x))
+            v_ref = ckpt["scaler_y"].inverse(pred)[:, 0]
+            check(v.shape == (rows,) and v.is_cuda, f"scorer output {v.shape} {v.device}")
+            torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(lv, lv_ref[:, 0], rtol=1e-5, atol=1e-5)
+            out["scorer_err"][rows] = max(max_abs_err(v, v_ref), max_abs_err(lv, lv_ref[:, 0]))
+
+        # phase 16's stream through the step artifact against the checkpoint monitor
+        x, v, _ = _serving_stream(arr)
+        kw = dict(conformal_calib=calib, conformal_gamma=0.005, device="cuda")
+
+        def ckpt_monitor(**extra):
+            return OnlineMonitor.from_checkpoint(
+                ck, mu, sigma, diagnosis=DiagnosisHead.load(head, device="cuda"), **kw, **extra)
+
+        def art_monitor(name):
+            side = sides[name]
+            return monitor_from_artifact(
+                open(arts[name], "rb").read(), mu, sigma, class_names=side["class_names"],
+                conformal_alpha=side.get("conformal_alpha", 0.1),
+                conformal_gamma=side.get("conformal_gamma", 0.0), device="cuda")
+
+        out["artifact_bitwise"], per_block = {}, []
+        for block in (64, 256):
+            art, ref = art_monitor("step"), ckpt_monitor()
+            bitwise, worst = True, 0.0
+            for lo in range(0, len(x), block):
+                torch.cuda.synchronize()
+                before = build.LAUNCHES["residuals"]
+                a = art.observe(x[lo:lo + block], v[lo:lo + block])
+                torch.cuda.synchronize()
+                per_block.append(build.LAUNCHES["residuals"] - before)
+                check(per_block[-1] == 1,
+                      "the exported step did not launch the residual kernel once per block")
+                b = ref.observe(x[lo:lo + block], v[lo:lo + block])
+                for f in ("rf_smooth", "rf_inst", "residuals", "v_pred", "layer_c",
+                          "fault_probs", "conformal_p", "aci_alpha"):
+                    ga, gb = getattr(a, f), getattr(b, f)
+                    check(np.array_equal(np.isnan(ga), np.isnan(gb)), f"artifact {f} NaN sets")
+                    np.testing.assert_allclose(ga, gb, rtol=1e-5, atol=1e-5, equal_nan=True,
+                                               err_msg=f"artifact {f} against the checkpoint")
+                    bitwise &= np.array_equal(ga, gb, equal_nan=True)
+                    fin = np.isfinite(gb)
+                    worst = max(worst, float(np.max(np.abs(ga[fin] - gb[fin]), initial=0.0)))
+                for f in ("warn", "danger", "v_alarm", "glitch", "sensor_alarm", "oob",
+                          "aci_anomaly", "fault_pred"):
+                    check(np.array_equal(getattr(a, f), getattr(b, f)), f"artifact {f} flags")
+            out["artifact_bitwise"][block] = [bitwise, worst]
+        # residual-kernel launches per exported observe: [fewest, most] over the blocks
+        out["launches_per_exported_observe"] = [min(per_block), max(per_block)]
+
+        # observe_many of 12 x 64 through the fleet artifact: one call
+        fleet = art_monitor("fleet")
+        xb = np.stack([x[64 * i:64 * (i + 1)] for i in range(12)])
+        vb = np.stack([v[64 * i:64 * (i + 1)] for i in range(12)])
+        keys = [f"s{i}" for i in range(12)]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = fleet.observe_many(xb, vb, keys)
+        torch.cuda.synchronize()
+        out["launches_fleet_observe_many"] = build.LAUNCHES["residuals"]
+        check(out["launches_fleet_observe_many"] == 1,
+              f"the fleet artifact launched the residual kernel {build.LAUNCHES['residuals']} "
+              "times for one observe_many")
+        want = OnlineMonitor.from_checkpoint(
+            ck, mu, sigma, diagnosis=DiagnosisHead.load(head, device="cuda"),
+            device="cuda").observe_many(xb, vb, keys)
+        out["fleet_bitwise"] = all(np.array_equal(got[k].rf_smooth, want[k].rf_smooth)
+                                   and np.array_equal(got[k].residuals, want[k].residuals,
+                                                      equal_nan=True) for k in keys)
+        for k in keys:
+            np.testing.assert_allclose(got[k].rf_smooth, want[k].rf_smooth, rtol=1e-5,
+                                       atol=1e-5, err_msg="fleet artifact rf_smooth")
+
+        # times: exported observe per block size (host clock, synchronized, warm)
+        t_art = art_monitor("step")
+        out["artifact_observe_ms"] = {}
+        for b_n in (1, 64, 256):
+            ts = []
+            for rep in range(21):
+                lo = (rep * b_n) % (len(x) - b_n)
+                t0 = time.perf_counter()
+                t_art.observe(x[lo:lo + b_n], v[lo:lo + b_n], stream=f"t{b_n}")
+                ts.append(time.perf_counter() - t0)
+            out["artifact_observe_ms"][b_n] = statistics.median(ts[1:]) * 1e3
+
+        # where an exported observe's time goes at B = 1 and 64: the artifact's
+        # device step alone (its inputs already on the card), against the
+        # eager device step with the scans at the block's own depth, at
+        # BLOCK_MAX's and at 4,096 rows' (the rounds' cost); the rest of the
+        # observe is the copy, the read and the host's packing.  The five
+        # take turns within each repeat, so the host's drift falls on all
+        from pinnfc_tpu_torch.serving.exported import BLOCK_MAX
+
+        def device_step(mon, b_n, max_len=None):
+            carry = torch.as_tensor(mon._carry([mon._fresh_state()]), device="cuda")
+            xs = torch.as_tensor(x[None, :b_n], device="cuda")
+            vs = torch.as_tensor(v[:b_n, None], device="cuda")
+
+            def run():
+                mon._device_step(xs, vs, carry, mon.mu, mon.sigma, max_len)
+                torch.cuda.synchronize()
+            return run
+
+        eager = ckpt_monitor()
+        out["exported_breakdown_ms"] = {}
+        for b_n in (1, 64):
+            fns = {"observe": lambda: t_art.observe(x[:b_n], v[:b_n], stream="split"),
+                   "artifact_device_step": device_step(t_art, b_n),
+                   "eager_device_step": device_step(eager, b_n),
+                   "eager_device_step_block_max": device_step(eager, b_n, BLOCK_MAX),
+                   "eager_device_step_4096": device_step(eager, b_n, 4096)}
+            ts = {k: [] for k in fns}
+            for _ in range(21):
+                for k, fn in fns.items():
+                    t0 = time.perf_counter()
+                    fn()
+                    ts[k].append(time.perf_counter() - t0)
+            out["exported_breakdown_ms"][b_n] = {k: statistics.median(t[1:]) * 1e3
+                                                 for k, t in ts.items()}
+        out["block_max"] = BLOCK_MAX
+
+        # the command line: cli serve over loopback, against the in-process monitors
+        def block(lo, stream=None):
+            body = {"x": x[lo:lo + 64].tolist(), "v": v[lo:lo + 64].tolist()}
+            return body if stream is None else {**body, "stream": stream}
+
+        requests = [("/health", None), ("/observe", block(0)), ("/observe", block(64, "b")),
+                    ("/observe_many", {"streams": ["b", "c"],
+                                       "x": [x[128:192].tolist(), x[192:256].tolist()],
+                                       "v": [v[128:192].tolist(), v[192:256].tolist()]}),
+                    ("/reset", {"stream": "c"}), ("/metrics", None)]
+        timing = [("/observe", block(256 + 64 * (k % 10), "t")) for k in range(21)]
+        serve_flags = ["--mat", mat, "--head", head, "--conformal", "--conformal-gamma", "0.005"]
+        state = os.path.join(tmp, "bank")
+        servers = {  # name: (argv, requests, the in-process monitor)
+            "ckpt": (["--ckpt", ck, *serve_flags], requests + timing, ckpt_monitor),
+            "artifact": (["--mat", mat, "--artifact", arts["step"], "--state-path", state],
+                         requests, lambda: art_monitor("step"))}
+        # the two servers at once, each driven from its own thread
+        out["serve_wall_s"] = {}
+        running = {name: _in_thread(serve_process, argv, reqs)
+                   for name, (argv, reqs, _) in servers.items()}
+        for name, (argv, reqs, local) in servers.items():
+            resp, secs, text = _joined(*running[name])
+            check([c for c, _ in resp] == [200] * len(resp), f"serve {name} statuses "
+                                                             f"{[c for c, _ in resp]}")
+            for (path, _), (_, body), w in zip(reqs, resp, _replay_requests(local(), reqs)):
+                if w is not None:
+                    check(body == w, f"serve {name} {path}: the payload differs from the "
+                                     "in-process monitor's")
+            health, metrics = resp[0][1], resp[5][1]
+            check(health["ok"] and health["streams"] == ["default"]
+                  and "pinnfc_stream_rf_smooth{stream=\"b\"}" in metrics
+                  and "pinnfc_stream_conformal_low_p" in metrics, f"serve {name} health/metrics")
+            if name == "ckpt":
+                out["observe_round_trip_ms"] = statistics.median(secs[-20:]) * 1e3
+            else:
+                check("serving from torch.export artifact" in text, f"serve --artifact:\n{text}")
+        out["serve_wall_s"] = {name: box["s"] for name, (_, box) in running.items()}
+
+        # the artifact server restarted on its --state-path resumes the bank bitwise
+        restart = [("/observe", block(320))]
+        resumed, _, text = serve_process(servers["artifact"][0], restart)
+        check("restored 3 stream(s)" in text, f"serve --state-path did not restore:\n{text}")
+        want = _replay_requests(art_monitor("step"), requests + restart)
+        check(resumed[0][1] == want[-1],
+              "serve --state-path: the restarted server does not continue the bank bitwise")
+    print(f"[slice] export-model x 3 (three processes at once, {out['export_wall_s']:.1f} s, no kernel "
+          f"launch; bytes {json.dumps(out['artifact_bytes'])}); scorer artifact on the card "
+          f"against the eval forward, max abs err {json.dumps(out['scorer_err'])}; the step "
+          f"artifact on the card against the checkpoint monitor [bitwise, max abs err] "
+          f"{json.dumps(out['artifact_bitwise'])}, residual-kernel launches per block "
+          f"{out['launches_per_exported_observe']}; fleet "
+          f"artifact observe_many 12 x 64 in {out['launches_fleet_observe_many']} launch, "
+          f"bitwise {out['fleet_bitwise']}; "
+          f"exported observe ms per block (host clock, warm, median) "
+          f"{json.dumps(out['artifact_observe_ms'])}, where it goes (block_max "
+          f"{out['block_max']}) {json.dumps(out['exported_breakdown_ms'])}; cli serve --ckpt "
+          f"and --artifact over loopback, at once (wall s {json.dumps(out['serve_wall_s'])}): "
+          f"payloads equal to the "
+          f"in-process monitors', /observe round trip at B = 64 "
+          f"{out['observe_round_trip_ms']:.3f} ms (median of 20); --state-path restart "
+          f"bitwise: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -1971,9 +2495,22 @@ def main() -> int:
     # ---- 16. serving and the counterfactual on the card ----
     t0 = time.perf_counter()
     serve = run_serving_slice(trained, gmm_fit, keep.name)
-    keep.cleanup()
     serve["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 16 (s): {serve['phase_s']:.1f}; {json.dumps({'serving': serve})}")
+
+    # ---- 17. run-all and the report on the card ----
+    t0 = time.perf_counter()
+    chain = run_all_slice(train_launches, keep.name)
+    chain["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 17 (s): {chain['phase_s']:.1f}; {json.dumps({'run_all': chain})}")
+
+    # ---- 18. export and serve on the card ----
+    t0 = time.perf_counter()
+    served = run_export_serve_slice(gmm_fit, keep.name)
+    keep.cleanup()
+    served["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 18 (s): {served['phase_s']:.1f}; "
+          f"{json.dumps({'export_serve': served})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
@@ -1989,6 +2526,7 @@ def main() -> int:
          "bitwise_equal_runs": True,
          "launches_campaign_slice": {k: campaign_launches[k]["mc_dropout"]
                                      for k in ("train", "score")},
+         "launches_run_all": chain["launches"]["mc_dropout"],
          "library_ms": None},
         {"name": "residuals", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/residuals.cu",
          "replaces": "pinnfc_tpu/ops/pallas_residuals.py:134",
@@ -1999,6 +2537,9 @@ def main() -> int:
          "bound_by": "bytes",
          "launches_evaluate_metrics": metrics_launches["residuals"],
          "launches_monitor": serve["launches_monitor"],
+         "launches_run_all": chain["launches"]["residuals"],
+         "launches_per_exported_observe": served["launches_per_exported_observe"],
+         "launches_per_fleet_observe_many": served["launches_fleet_observe_many"],
          "launches_campaign_slice": {k: campaign_launches[k]["residuals"]
                                      for k in ("train", "score")},
          "library_ms": None},
@@ -2007,6 +2548,7 @@ def main() -> int:
          "shape": f"x ({n_tr}, 8), flagship; times per step of a 200-step stage",
          "launches": train_launches["train_dnn"],
          "launches_campaign_slice": campaign_launches["train"]["train_dnn"],
+         "launches_run_all": chain["launches"]["train_dnn"],
          "ms_chunk_from_t0": t_chunk_ms, "device_launches_per_step": t_per_step,
          "traced_launches_50_steps": t_traced, "max_abs_err": train_err, "ms": t_ms,
          "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": "operations",

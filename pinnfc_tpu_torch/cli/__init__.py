@@ -1,14 +1,15 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
 {train,score,synth,auc,gmm,compare,risk,inspect,identify,explain,whatif,conformal,
-monitor} ...``.
+monitor,export-model,report,run-all,serve} ...``.
 
 ``train``, ``score``, ``auc``, ``gmm``, ``compare``, ``risk``, ``identify``,
-``explain``, ``whatif`` and ``monitor`` run on the card by default
-(``--device cuda``) and exit with an error when CUDA is absent;
-``--device cpu`` runs the plain PyTorch path.
+``explain``, ``whatif``, ``monitor``, ``report``, ``run-all`` and ``serve``
+run on the card by default (``--device cuda``) and exit with an error when
+CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
 ``synth`` writes a synthetic campaign as .mat files; ``risk --backend numpy``
-runs the float64 host path; ``inspect`` and ``conformal`` do no device work.
-``--plot-dir`` writes the JAX commands' figures (matplotlib).
+runs the float64 host path; ``inspect``, ``conformal`` and ``export-model``
+do no device work (an exported artifact is moved to its device when it is
+loaded).  ``--plot-dir`` writes the JAX commands' figures (matplotlib).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from pinnfc_tpu_torch.cli.diagnose import cmd_auc, cmd_compare, cmd_conformal, cmd_gmm
+from pinnfc_tpu_torch.cli.diagnose import (
+    cmd_auc, cmd_compare, cmd_conformal, cmd_gmm, cmd_report)
 from pinnfc_tpu_torch.cli.explain import cmd_explain, cmd_identify, cmd_inspect, cmd_whatif
+from pinnfc_tpu_torch.cli.export import cmd_export_model
 from pinnfc_tpu_torch.cli.risk import cmd_risk
-from pinnfc_tpu_torch.cli.serve import cmd_monitor
+from pinnfc_tpu_torch.cli.run_all import cmd_run_all
+from pinnfc_tpu_torch.cli.serve import cmd_monitor, cmd_serve
 from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
 
 _PLOT_DIR_HELP = "write the command's figures (PNG) into this directory"
@@ -291,6 +295,117 @@ def build_parser() -> argparse.ArgumentParser:
     cf.add_argument("--plot-dir", default=None,
                     help="save the per-class coverage/p-value figure here")
     cf.set_defaults(fn=cmd_conformal)
+
+    ex = sub.add_parser("export-model", help="serialize the checkpoint's eval-mode scorer to a "
+                                             "self-contained torch.export artifact: weights + "
+                                             "scalers baked in, any batch size (traced on the "
+                                             "CPU, moved to its device at load time)")
+    ex.add_argument("--ckpt", required=True)
+    ex.add_argument("--out", required=True,
+                    help="output artifact path (a .meta.json provenance sidecar is written "
+                         "alongside)")
+    ex.add_argument("--platforms", default="cpu,cuda",
+                    help="comma-separated devices the artifact targets: cpu, cuda (default "
+                         "cpu,cuda)")
+    ex.add_argument("--monitor-step", action="store_true",
+                    help="export the full streaming RF(t) block step (state in/out as a "
+                         "plain tuple; μ/σ runtime inputs) instead of the plain scorer")
+    ex.add_argument("--fleet-step", action="store_true",
+                    help="with --monitor-step: export observe_many's fleet program instead "
+                         "(symbolic stream axis AND block size): one call advances a whole "
+                         "fleet")
+    ex.add_argument("--head", default=None,
+                    help="with --monitor-step: bake this DiagnosisHead (.npz) in for online "
+                         "fault typing")
+    ex.add_argument("--glitch-alarm-n", type=int, default=None,
+                    help="with --monitor-step: bake this consecutive-glitch sensor-alarm "
+                         "threshold in (default: the monitor's)")
+    ex.add_argument("--conformal-mat", default=None,
+                    help="with --monitor-step: bake calibrated anomaly p-values in, "
+                         "calibrated on this artifact's normal rows (|res| scores)")
+    ex.add_argument("--conformal-alpha", type=float, default=None,
+                    help="α recorded in the sidecar for the low-p counter (default 0.1)")
+    ex.add_argument("--conformal-gamma", type=float, default=None,
+                    help="with --conformal-mat: the adaptive conformal step size γ, recorded "
+                         "in the sidecar (the level α_t runs on the host after each step; "
+                         "default 0: static level)")
+    ex.set_defaults(fn=cmd_export_model)
+
+    rp = sub.add_parser("report", help="one-file markdown report: every downstream stage's "
+                                       "findings over an artifact, plus provenance and the "
+                                       "figure gallery")
+    rp.add_argument("--mat", default="F01_output.mat")
+    rp.add_argument("--ckpt", default=None, help="checkpoint for the provenance section")
+    rp.add_argument("--plot-dir", default=None,
+                    help="existing figures directory to link as the gallery")
+    rp.add_argument("--out", default=None, help="output path (default: report.md next to --mat)")
+    rp.add_argument("--baseline", default=None,
+                    help="baseline artifact (.mat) for a direction-aware metric diff — the "
+                         "retrain/rescore regression check")
+    rp.add_argument("--sections", default=None,
+                    help="comma subset of: provenance,overview,auc,gmm,risk,compare,"
+                         "conformal,identifiability,saliency,figures")
+    rp.add_argument("--json", action="store_true",
+                    help="print the artifact metric vector as JSON instead of writing markdown "
+                         "(CI regression tracking)")
+    rp.add_argument("--json-out", default=None,
+                    help="also write the metric vector to this path (run-all drops "
+                         "metrics.json next to report.md)")
+    rp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    rp.set_defaults(fn=cmd_report)
+
+    ra = sub.add_parser("run-all", help="full pipeline 01→02/03/04/05")
+    # (--seed default None: the train stage falls back to 42; the --from-ckpt
+    # score stage to the checkpoint's training seed)
+    ra.add_argument("--out-dir", required=True)
+    ra.add_argument("--from-ckpt", default=None,
+                    help="skip training: score the campaign with this existing checkpoint "
+                         "(see `score`), then run every downstream stage on the scored "
+                         "artifact")
+    ra.add_argument("--small", action="store_true")
+    ra.add_argument("--steps-scale", type=float, default=None,
+                    help="multiply every stage's step count")
+    ra.add_argument("--seed", type=int, default=None)
+    ra.add_argument("--normal-mat", default=None, help="real campaign: normal-operation .mat")
+    ra.add_argument("--fault-dir", default=None,
+                    help="real campaign: directory with the 12 fault .mat files")
+    ra.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ra.set_defaults(fn=cmd_run_all)
+
+    sv = sub.add_parser("serve", help="HTTP scoring endpoint (POST /observe, /observe_many, "
+                                      "/reset; GET /health, /metrics)")
+    sv.add_argument("--mat", default="F01_output.mat",
+                    help="artifact for the normal-operation μ/σ statistics")
+    sv.add_argument("--ckpt", default=None, help="checkpoint from `train --ckpt`")
+    sv.add_argument("--artifact", default=None,
+                    help="serve from an `export-model --monitor-step` torch.export artifact "
+                         "instead of a checkpoint (risk config/glitch threshold/class names "
+                         "adopted from its .meta.json sidecar)")
+    sv.add_argument("--head", default=None,
+                    help="saved diagnosis head (.npz) for online fault typing")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8787)
+    sv.add_argument("--max-requests", type=int, default=None,
+                    help="stop after N requests (bounded demos/tests)")
+    sv.add_argument("--glitch-alarm-n", type=int, default=None,
+                    help="sensor_alarm after N consecutive non-finite samples")
+    sv.add_argument("--state-path", default=None,
+                    help="preemption-safe serving: snapshot the per-stream RF(t) state bank "
+                         "here after every request and restore it on restart (atomic npz)")
+    sv.add_argument("--conformal", action="store_true",
+                    help="with --ckpt: serve calibrated anomaly p-values, calibrated on "
+                         "--mat's normal rows (/observe gains conformal_p; /metrics a low-p "
+                         "counter)")
+    sv.add_argument("--conformal-alpha", type=float, default=None,
+                    help="p<α counts as a calibrated anomaly (default 0.1, or the artifact "
+                         "sidecar's recorded value)")
+    sv.add_argument("--conformal-gamma", type=float, default=None,
+                    help="with --ckpt --conformal: adaptive conformal step size γ — each "
+                         "stream's alarm level α_t tracks drift (/observe gains aci_alpha/"
+                         "aci_anomaly; /metrics a per-stream α_t gauge). Recorded in the "
+                         "sidecar for artifacts (`export-model --conformal-gamma`)")
+    sv.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

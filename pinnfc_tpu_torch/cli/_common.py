@@ -55,14 +55,15 @@ def _train_config(args) -> TrainConfig:
     return cfg
 
 
-def _print_ckpt_provenance(ckpt_path: str) -> None:
+def _print_ckpt_provenance(ckpt_path: str):
     """One line saying which model is about to score, from the checkpoint's
-    ``.meta.json`` sidecar if it has one."""
+    ``.meta.json`` sidecar if it has one; returns that summary dict (None
+    without one), which ``cli serve`` shows on GET /health."""
     from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint_meta
 
     meta = load_checkpoint_meta(ckpt_path)
     if meta is None:
-        return
+        return None
     summary = {key: meta[key] for key in ("created", "framework_version") if key in meta}
     if isinstance(meta.get("config"), dict) and "seed" in meta["config"]:
         summary["seed"] = meta["config"]["seed"]
@@ -71,6 +72,7 @@ def _print_ckpt_provenance(ckpt_path: str) -> None:
         summary["voltage_mae"] = meta["metrics"]["voltage_mae"]
     if summary:
         print("checkpoint provenance: " + " ".join(f"{k}={v}" for k, v in summary.items()))
+    return summary or None
 
 
 def _campaign_from_args(args):

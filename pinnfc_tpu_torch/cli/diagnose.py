@@ -1,9 +1,10 @@
-"""``auc``, ``gmm``, ``compare`` and ``conformal`` subcommands (counterpart
-of ``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``/``cmd_compare``/
-``cmd_conformal``): the AUC table of script 02, the 4-class GMM diagnosis of
-script 03, the six-method comparison of script 05 and the split-conformal
-coverage table over a ``comprehensive_results`` artifact, with the JAX
-commands' printed lines and ``--plot-dir`` figures.
+"""``auc``, ``gmm``, ``compare``, ``conformal`` and ``report`` subcommands
+(counterpart of ``pinnfc_tpu/cli/diagnose.py::cmd_auc``/``cmd_gmm``/
+``cmd_compare``/``cmd_conformal``/``cmd_report``): the AUC table of script 02,
+the 4-class GMM diagnosis of script 03, the six-method comparison of script
+05, the split-conformal coverage table and the consolidated run report over
+a ``comprehensive_results`` artifact, with the JAX commands' printed lines
+and ``--plot-dir`` figures.
 
 ``gmm --data-parallel`` waits for ``parallel/`` (ROADMAP.md Queue 1).
 """
@@ -202,4 +203,44 @@ def cmd_conformal(args) -> int:
     ne = rep.normal_eval
     print(f"held-out normal coverage {ne.coverage:.3f} vs guaranteed "
           f"≥ {1 - rep.alpha:g}; conformal detection AUC {rep.detection_auc:.4f}")
+    return 0
+
+
+def cmd_report(args) -> int:
+    """Consolidated markdown run report (``utils/report``): every downstream
+    stage's findings — AUC, GMM, RF(t) advance table with layer drivers,
+    method comparison, conformal audit, identifiability and saliency — plus
+    checkpoint provenance and the figure gallery, in ONE report.md next to
+    the artifact; the pipelines on ``--device``.  ``--json``/``--json-out``
+    give the artifact's metric vector."""
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.utils.report import artifact_metrics, write_report
+
+    try:
+        results = load_comprehensive_results(args.mat)
+        json_out = getattr(args, "json_out", None)
+        if getattr(args, "json", False) or json_out:
+            # the machine-readable regression vector (the numbers the
+            # baseline section diffs), strict JSON: NaN → null
+            metrics = _finite_or_none(artifact_metrics(results, device=args.device))
+            doc = json.dumps(metrics, indent=2, allow_nan=False)
+            if json_out:
+                with open(json_out, "w") as f:
+                    f.write(doc + "\n")
+                print(f"metrics → {json_out}")
+            if getattr(args, "json", False):
+                print(doc)
+                return 0
+        baseline_path = getattr(args, "baseline", None)
+        baseline = load_comprehensive_results(baseline_path) if baseline_path else None
+        out = args.out or os.path.join(os.path.dirname(os.path.abspath(args.mat)), "report.md")
+        sections = args.sections.split(",") if args.sections else None
+        path = write_report(out, results, ckpt_path=getattr(args, "ckpt", None),
+                            figures_dir=getattr(args, "plot_dir", None), sections=sections,
+                            mat_path=args.mat, baseline=baseline, baseline_path=baseline_path,
+                            device=args.device)
+    except _USER_ERRORS as e:
+        print(f"report: {e}", file=sys.stderr)
+        return 1
+    print(f"report → {path}")
     return 0

@@ -1,8 +1,10 @@
-"""``monitor`` subcommand (counterpart of ``pinnfc_tpu/cli/serve.py::cmd_monitor``):
-a ``comprehensive_results`` artifact replayed through ``OnlineMonitor`` on
-``--device``, block by block as a deployed scorer consumes live
-measurements, or with ``--fleet`` the 12 risk conditions as concurrent
-streams.  The JAX command's lines and argument errors (exit 2)."""
+"""``monitor`` and ``serve`` subcommands (counterpart of ``pinnfc_tpu/cli/serve.py``):
+``monitor`` replays a ``comprehensive_results`` artifact through
+``OnlineMonitor`` on ``--device``, block by block as a deployed scorer
+consumes live measurements, or with ``--fleet`` the 12 risk conditions as
+concurrent streams; ``serve`` puts the monitor (from a checkpoint or an
+exported artifact) behind the HTTP endpoint.  The JAX commands' lines and
+argument errors (exit 2).  ``serve --data-parallel`` waits for ``parallel/``."""
 
 from __future__ import annotations
 
@@ -231,4 +233,135 @@ def cmd_monitor(args) -> int:
             print(f"suggested actuation (model-gain counterfactual over "
                   f"{len(tail)} alarmed rows): {s['dominant']} {d_phys:+.3g} "
                   f"→ {s['recovered_frac']:.0%} recover the alarm line")
+    return 0
+
+
+def _artifact_monitor(args, mu, sigma):
+    """The monitor of ``serve --artifact``: the artifact's program moved to
+    ``--device``, with the risk config, glitch threshold, class names, α*
+    and γ its ``.meta.json`` sidecar recorded.  Returns (monitor, provenance)
+    or an exit code."""
+    import json
+
+    from pinnfc_tpu_torch.config import RiskConfig, risk_config_from_dict
+    from pinnfc_tpu_torch.serving import monitor_from_artifact
+
+    artifact = args.artifact
+    sidecar = None
+    try:
+        with open(artifact + ".meta.json") as f:
+            sidecar = json.load(f)
+    except (OSError, ValueError):
+        print(f"note: no readable sidecar at {artifact}.meta.json — "
+              "serving with default display config", file=sys.stderr)
+    cfg = RiskConfig()
+    side_glitch = class_names = provenance = side_conf_alpha = None
+    side_gamma = 0.0
+    if sidecar:
+        kind = sidecar.get("kind")
+        if kind == "pinnfc_monitor_step_stablehlo":
+            print(f"{artifact} is a 'pinnfc_monitor_step_stablehlo' artifact of the JAX "
+                  "package (StableHLO), which this package cannot run — export the "
+                  "checkpoint again with this package's `export-model --monitor-step`",
+                  file=sys.stderr)
+            return 2
+        if kind != "pinnfc_torch_monitor_step":
+            print(f"{artifact} is a {kind!r} artifact — "
+                  "serve needs an `export-model --monitor-step` one", file=sys.stderr)
+            return 2
+        if isinstance(sidecar.get("risk_config"), dict):
+            cfg = risk_config_from_dict(sidecar["risk_config"])
+        side_glitch = sidecar.get("glitch_alarm_n")
+        class_names = sidecar.get("class_names")
+        side_conf_alpha = sidecar.get("conformal_alpha")
+        side_gamma = sidecar.get("conformal_gamma") or 0.0
+        provenance = sidecar.get("checkpoint_meta") or None
+        if provenance:
+            provenance = {k: provenance[k] for k in ("created", "framework_version")
+                          if k in provenance} or None
+    with open(artifact, "rb") as f:
+        blob = f.read()
+    monitor = monitor_from_artifact(
+        blob, mu, sigma, config=cfg,
+        glitch_alarm_n=side_glitch if side_glitch is not None else _glitch_default(),
+        class_names=class_names,
+        conformal_alpha=(args.conformal_alpha if args.conformal_alpha is not None
+                         else side_conf_alpha if side_conf_alpha is not None else 0.1),
+        conformal_gamma=side_gamma, device=args.device,
+    )
+    print(f"serving from torch.export artifact {artifact}"
+          + (" (conformal p-values baked in)" if monitor.conformal_baked else "")
+          + (" (fleet step: /observe_many is one call)" if monitor.fleet_baked else ""))
+    return monitor, provenance
+
+
+def cmd_serve(args) -> int:
+    """HTTP scoring endpoint: ``OnlineMonitor`` behind POST /observe
+    (``serving/server.py``) on ``--device``.  The normal statistics come from
+    the artifact ``--mat``, the model from a checkpoint (``--ckpt``, with an
+    optional ``--head``) or from an ``export-model --monitor-step`` artifact
+    (``--artifact``: no checkpoint and no model code; the baked risk config,
+    glitch threshold, class names, α* and γ come from its sidecar).  The JAX
+    command's argument errors (exit 2); an unreadable file exits 1."""
+    from pinnfc_tpu_torch.config import RiskConfig
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.risk import estimate_mu_sigma_normal
+    from pinnfc_tpu_torch.serving import DiagnosisHead, OnlineMonitor, serve
+
+    artifact = args.artifact
+    if bool(artifact) == bool(args.ckpt):
+        print("serve needs exactly one of --ckpt or --artifact", file=sys.stderr)
+        return 2
+    if artifact and args.head:
+        print("--head is baked into a --monitor-step artifact at export "
+              "time; it cannot be attached at serve time", file=sys.stderr)
+        return 2
+    if artifact and args.glitch_alarm_n is not None:
+        print("--glitch-alarm-n is baked into the artifact's device "
+              "recurrence at export time (`export-model --glitch-alarm-n`); "
+              "passing it at serve time would silently have no effect", file=sys.stderr)
+        return 2
+    if artifact and args.conformal:
+        print("--conformal calibration is baked into a --monitor-step "
+              "artifact at export time (`export-model --conformal-mat`); "
+              "it cannot be attached at serve time", file=sys.stderr)
+        return 2
+    if artifact and args.conformal_gamma is not None:
+        print("--conformal-gamma is baked into the artifact's device "
+              "recurrence at export time (`export-model --conformal-gamma`);"
+              " passing it at serve time would silently have no effect", file=sys.stderr)
+        return 2
+    if not artifact and args.conformal_gamma and not args.conformal:
+        print("--conformal-gamma needs --conformal (there is no p-value "
+              "to adapt the level against)", file=sys.stderr)
+        return 2
+
+    try:
+        arr = load_comprehensive_results(args.mat).array
+        mu, sigma = estimate_mu_sigma_normal(arr)
+        if artifact:
+            built = _artifact_monitor(args, mu, sigma)
+            if isinstance(built, int):
+                return built
+            monitor, provenance = built
+        else:
+            head = DiagnosisHead.load(args.head, device=args.device) if args.head else None
+            provenance = _print_ckpt_provenance(args.ckpt)
+            conformal_alpha = 0.1 if args.conformal_alpha is None else args.conformal_alpha
+            conformal_calib = None
+            if args.conformal:
+                # normal-row |res| scores of the artifact the μ/σ come from
+                conformal_calib = _streaming_conformal_calib(arr, conformal_alpha)
+            monitor = OnlineMonitor.from_checkpoint(
+                args.ckpt, mu, sigma, RiskConfig(), head,
+                glitch_alarm_n=(args.glitch_alarm_n if args.glitch_alarm_n is not None
+                                else _glitch_default()),
+                conformal_calib=conformal_calib, conformal_alpha=conformal_alpha,
+                conformal_gamma=args.conformal_gamma or 0.0, device=args.device,
+            )
+    except _USER_ERRORS as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
+    serve(monitor, host=args.host, port=args.port, max_requests=args.max_requests,
+          state_path=args.state_path, provenance=provenance)
     return 0

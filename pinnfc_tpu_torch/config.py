@@ -163,6 +163,23 @@ class RiskConfig:
     normal_labels: Tuple[int, ...] = (0,)  # 04:85
 
 
+def risk_config_from_dict(d: Dict) -> RiskConfig:
+    """Inverse of ``dataclasses.asdict(RiskConfig())`` after a JSON round
+    trip (JSON turns every tuple into a list): the risk config an
+    ``export-model --monitor-step`` sidecar recorded as baked."""
+    rebuild = {
+        "res_keys": lambda v: tuple(v),
+        "layer_config": lambda v: tuple((name, tuple(keys)) for name, keys in v),
+        "feature_weights": lambda v: tuple(float(w) for w in v),
+        "layer_weights": lambda v: tuple((name, float(w)) for name, w in v),
+        "normal_labels": lambda v: tuple(int(x) for x in v),
+    }
+    # every other field passes through as it is, read off the dataclass so a
+    # later field is never dropped back to its default
+    return RiskConfig(**{f.name: rebuild.get(f.name, lambda v: v)(d[f.name])
+                         for f in dataclasses.fields(RiskConfig) if f.name in d})
+
+
 # The 12 (current, fault, relative index range) evaluation conditions
 # (reference 04:145-161).
 DEFAULT_RF_CONDITIONS: Tuple[Tuple[float, str, Optional[Tuple[int, Optional[int]]]], ...] = (

@@ -22,18 +22,32 @@ from __future__ import annotations
 import torch
 
 
-def linear_recurrence_assoc(a: torch.Tensor, b: torch.Tensor, y0=0.0) -> torch.Tensor:
+def linear_recurrence_assoc(a: torch.Tensor, b: torch.Tensor, y0=0.0,
+                            max_len: int | None = None) -> torch.Tensor:
     """``y[t] = a[t]·y[t-1] + b[t]`` with ``y[-1] = y0``, as an inclusive
-    doubling scan: after the round of offset d, element i holds the
-    composition of elements (i − 2d, i] (of [0, i] near the start), so
-    ⌈log2 N⌉ rounds leave y[i] in b[i]."""
-    y0 = torch.as_tensor(y0, dtype=b.dtype, device=b.device)
-    b = torch.cat([b[:1] + a[:1] * y0, b[1:]])
+    doubling scan: in the round of offset d, element i is composed with its
+    left neighbour at offset d, or below d with the identity (1, 0), which
+    leaves it as it is; after it, element i holds the composition of elements
+    (i − 2d, i] (of [0, i] near the start), so ⌈log2 N⌉ rounds leave y[i] in
+    b[i].
+
+    ``max_len`` runs the rounds of every length up to it (default N), so the
+    ops do not depend on N: ``torch.export`` traces the scan with a symbolic
+    N.  A round at d ≥ N changes nothing but the sign of a zero (``b·1`` and
+    ``a·0 + b``).  Nothing is sliced at a size that depends on N."""
+    n = b.shape[0]
+    if isinstance(y0, torch.Tensor):
+        y0 = y0.to(b.dtype)
+    # the identity's rows, made once: each round pads with views of them
+    one, zero = torch.ones_like(a[:1]), torch.zeros_like(b[:1])
+    # b[0] + a[0]·y0, and b + 0 below it
+    b = b + torch.cat([a[:1] * y0, zero.expand_as(b)])[:n]
     d = 1
-    while d < b.shape[0]:
-        # left (a[i−d], b[i−d]) composed with right (a[i], b[i])
-        a, b = (torch.cat([a[:d], a[:-d] * a[d:]]),
-                torch.cat([b[:d], a[d:] * b[:-d] + b[d:]]))
+    while d < (n if max_len is None else max_len):
+        # left (a[i−d], b[i−d]), the identity below d, composed with (a[i], b[i])
+        a_left = torch.cat([one.expand((d,) + a.shape[1:]), a])[:n]
+        b_left = torch.cat([zero.expand((d,) + b.shape[1:]), b])[:n]
+        a, b = a_left * a, a * b_left + b
         d *= 2
     return b
 

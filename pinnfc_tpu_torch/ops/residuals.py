@@ -6,6 +6,12 @@
 tensor launches the kernel, a CPU tensor runs the plain version.  On either
 device the inputs must be what the kernel reads in place: float32,
 contiguous, of the right sizes and on one device, else ``ValueError``.
+
+The wrapper reaches the kernel through the registered operator
+``pinnfc_torch::residuals`` (``residuals_op``: the kernel on CUDA, the plain
+version on the CPU, an (8, N) float32 result), so that ``torch.export``
+records the call as one node of a traced program: an exported monitor step
+moved to the card launches the same kernel as the eager monitor.
 """
 
 from __future__ import annotations
@@ -66,12 +72,39 @@ def all_residuals_kernel(
 ) -> ResidualBundle:
     """x_norm (N, 8) and u_norm (N, 1) or (N,), float32 → ResidualBundle of (N, 1)."""
     scalars = kernel_scalars(params, scaler_x, scaler_y)
-    n = x_norm.shape[0]
-    if x_norm.device.type == "cpu":
-        u_flat = check_inputs(x_norm, u_norm, scalars)
-        return all_residuals(params, x_norm, u_flat.reshape(n, 1), scaler_x, scaler_y)
-    out = launch_residuals(x_norm, u_norm, scalars)
-    return ResidualBundle(*out.view(8, n, 1).unbind(0))
+    u_flat = check_inputs(x_norm, u_norm, scalars)
+    out = residuals_op(x_norm, u_flat, *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    return ResidualBundle(*out.view(8, x_norm.shape[0], 1).unbind(0))
+
+
+def _scaler(scale: torch.Tensor, min_: torch.Tensor) -> AffineScaler:
+    # the physics reads a scaler's scale and min only (``inverse``)
+    return AffineScaler(scale=scale, min=min_, data_min=min_, data_max=min_)
+
+
+@torch.library.custom_op("pinnfc_torch::residuals", mutates_args=(), device_types="cpu")
+def residuals_op(x: torch.Tensor, u: torch.Tensor, lam_v: torch.Tensor, lam_t: torch.Tensor,
+                 lam_h: torch.Tensor, lam_o: torch.Tensor, sx_scale: torch.Tensor,
+                 sx_min: torch.Tensor, sy_scale: torch.Tensor,
+                 sy_min: torch.Tensor) -> torch.Tensor:
+    """The residual rows (8, N) of x (N, 8) and u (N,): on the CPU the plain
+    version ``physics.residuals.all_residuals``, on CUDA the kernel."""
+    params = {"lam_v": lam_v, "lam_t": lam_t, "lam_h": lam_h, "lam_o": lam_o}
+    bundle = all_residuals(params, x, u.reshape(-1, 1), _scaler(sx_scale, sx_min),
+                           _scaler(sy_scale, sy_min))
+    return torch.stack([t.reshape(-1) for t in bundle])
+
+
+@residuals_op.register_kernel("cuda")
+def _residuals_cuda(x, u, lam_v, lam_t, lam_h, lam_o, sx_scale, sx_min, sy_scale, sy_min):
+    names = build.RESIDUAL_SCALAR_SIZES
+    scalars = dict(zip(names, (lam_v, lam_t, lam_h, lam_o, sx_scale, sx_min, sy_scale, sy_min)))
+    return launch_residuals(x, u, scalars)
+
+
+@residuals_op.register_fake
+def _residuals_fake(x, u, *scalars):
+    return x.new_empty((8, x.shape[0]))
 
 
 def launch_residuals(x: torch.Tensor, u: torch.Tensor,

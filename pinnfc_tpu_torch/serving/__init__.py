@@ -1,9 +1,15 @@
 """Serving: the streaming monitor (``OnlineMonitor`` with its optional
-``DiagnosisHead``) and the fleet replay of the 12 risk conditions.
+``DiagnosisHead``), the fleet replay of the 12 risk conditions, the
+``torch.export`` artifacts (the scorer, the monitor's block step and its
+fleet step) and the HTTP server."""
 
-The JAX package's exported monitor step and its HTTP server
-(``serving/exported.py``, ``serving/server.py``) are not ported yet."""
-
+from pinnfc_tpu_torch.serving.exported import (
+    export_monitor_fleet_step,
+    export_monitor_step,
+    export_scorer,
+    load_scorer,
+    monitor_from_artifact,
+)
 from pinnfc_tpu_torch.serving.monitor import (
     DiagnosisHead,
     MonitorOutput,
@@ -11,6 +17,7 @@ from pinnfc_tpu_torch.serving.monitor import (
     OnlineMonitor,
 )
 from pinnfc_tpu_torch.serving.replay import FleetConditionResult, fleet_replay
+from pinnfc_tpu_torch.serving.server import make_server, serve
 
 __all__ = [
     "DiagnosisHead",
@@ -18,5 +25,12 @@ __all__ = [
     "MonitorOutput",
     "MonitorState",
     "OnlineMonitor",
+    "export_monitor_fleet_step",
+    "export_monitor_step",
+    "export_scorer",
     "fleet_replay",
+    "load_scorer",
+    "make_server",
+    "monitor_from_artifact",
+    "serve",
 ]

@@ -228,24 +228,36 @@ class MonitorOutput:
     aci_anomaly: np.ndarray | None = None  # (B,) bool — p_t ≤ α_t
 
 
-def _excitation_block(r, mu, sigma, cfg: RiskConfig, w_feat, key_to_idx, layer_w):
-    """Per-layer weighted p-norm excitations of the standardized truncated
-    residuals r (..., 5) (04:244-259) → (s_tot (...), layer_scores (..., L)),
-    before the gating; NaN feature rows give NaN columns."""
-    a_trunc = torch.clamp_min(torch.abs((r - mu) / sigma) - cfg.z_safe, 0.0)
-    s_tot = torch.zeros(r.shape[:-1], dtype=torch.float32, device=r.device)
-    layer_contribs = []
+def _layer_columns(cfg: RiskConfig, device) -> list:
+    """(layer weight, column index tensor on ``device``) per contributing layer
+    of ``cfg``, in config order: the columns of the residual stack it sums."""
+    key_to_idx = {k: i for i, k in enumerate(cfg.res_keys)}
+    layer_w = dict(cfg.layer_weights)
+    out = []
     for lname, keys in cfg.layer_config:
         idxs = [key_to_idx[k] for k in keys if k in key_to_idx]
-        if not idxs:
-            continue
-        contrib = layer_w.get(lname, 1.0) * torch.pow(
+        if idxs:
+            out.append((layer_w.get(lname, 1.0),
+                        torch.as_tensor(idxs, dtype=torch.int64, device=device)))
+    return out
+
+
+def _excitation_block(r, mu, sigma, cfg: RiskConfig, w_feat, layer_columns):
+    """Per-layer weighted p-norm excitations of the standardized truncated
+    residuals r (..., 5) (04:244-259) → (s_tot (...), layer_scores (..., L)),
+    before the gating; NaN feature rows give NaN columns.  ``layer_columns``
+    is ``_layer_columns(cfg)``."""
+    a_trunc = torch.clamp_min(torch.abs((r - mu) / sigma) - cfg.z_safe, 0.0)
+    s_tot = torch.zeros_like(r[..., 0])
+    layer_contribs = []
+    for weight, idxs in layer_columns:
+        contrib = weight * torch.pow(
             torch.sum(w_feat[idxs] * torch.pow(a_trunc[..., idxs], cfg.p_layer), dim=-1),
             1.0 / cfg.p_layer)
         s_tot = s_tot + contrib
         layer_contribs.append(contrib)
     layer_scores = (torch.stack(layer_contribs, dim=-1) if layer_contribs
-                    else s_tot.new_zeros(s_tot.shape + (0,)))
+                    else s_tot[..., None][..., :0])
     return s_tot, layer_scores
 
 
@@ -261,21 +273,21 @@ def _gate_block(s_tot, v_meas, first):
     return glitch, gate, torch.where(gate, 0.0, s_tot)
 
 
-def _layer_c_block(layer_scores, gate, c0, cfg: RiskConfig):
+def _layer_c_block(layer_scores, gate, c0, cfg: RiskConfig, max_len=None):
     """Per-layer risk integral (B, S, L) from the carried (S, L) ``c0``: the
     same leaky recurrence on each layer's gated term, so Σ_l C_l ≡ C."""
     layer_gated = torch.where(gate[..., None], 0.0, layer_scores)
     if layer_gated.shape[-1]:
         return linear_recurrence_assoc(torch.full_like(layer_gated, cfg.lambda_decay),
-                                       layer_gated, c0)
+                                       layer_gated, c0, max_len)
     return layer_gated
 
 
-def _glitch_run_block(glitch, run0, glitch_alarm_n: int):
+def _glitch_run_block(glitch, run0, glitch_alarm_n: int, max_len=None):
     """Consecutive-glitch run length run[i] = glitch[i]·(run[i-1]+1), the
     same first-order recurrence as C[t] → (series, sensor alarm)."""
     gf = glitch.to(torch.float32)
-    series = linear_recurrence_assoc(gf, gf, run0)
+    series = linear_recurrence_assoc(gf, gf, run0, max_len)
     return series, series >= glitch_alarm_n
 
 
@@ -312,7 +324,7 @@ def _conformal_block(res, calib):
     s_conf = torch.abs(res)
     ge = calib.shape[0] - torch.searchsorted(calib, s_conf.contiguous(), side="left")
     # a tensor divisor: CUDA divides by a Python scalar through its reciprocal
-    n_plus_1 = torch.tensor(calib.shape[0] + 1.0, dtype=torch.float32, device=res.device)
+    n_plus_1 = torch.full_like(s_conf[..., :1], calib.shape[0] + 1.0)
     p_conf = (1.0 + ge.to(torch.float32)) / n_plus_1
     return torch.where(torch.isfinite(s_conf), p_conf, float("nan"))
 
@@ -334,11 +346,12 @@ def _aci_block(conformal_p: np.ndarray, alpha0, gamma: float, alpha_star: float)
     return alphas, errs, a
 
 
-def _diagnosis_block(head: DiagnosisHead, r, glitch):
+def _diagnosis_block(head: DiagnosisHead, r, glitch, feature_columns):
     """Script-03 posterior mapping (03:417-425) of rows r (N, 5) → (probs
     (N, K), pred (N,)); glitched rows (NaN posterior, whose argmax would be a
-    confident-looking class) get pred = -1."""
-    feats = r[:, list(head.feature_indices)]
+    confident-looking class) get pred = -1.  ``feature_columns``: the head's
+    feature indices as a tensor on r's device."""
+    feats = r[:, feature_columns]
     resp = gmm_predict_proba(head.gmm, feats)
     probs = torch.clamp(resp @ head.comp_fault_prob.to(resp.dtype), 1e-12, 1.0)
     probs = probs / torch.sum(probs, dim=1, keepdim=True)
@@ -346,11 +359,34 @@ def _diagnosis_block(head: DiagnosisHead, r, glitch):
     return probs.to(torch.float32), pred
 
 
-def _rf_block(s_tot, c0, rf0, first, cfg: RiskConfig):
+def _split_columns(cols, per_stream, n_layers: int, n_classes: int, conformal: bool) -> dict:
+    """The fields of ``OnlineMonitor._device_step``'s outputs, the one place
+    that knows their column order: per-sample columns (..., n) and per-stream
+    columns (..., 4 + F), as numpy arrays or tensors alike (slices and
+    comparisons only); absent fields are None."""
+    i = 11 + 2 * n_layers
+    out = {"rf_inst": cols[..., 0], "rf_smooth": cols[..., 1], "residuals": cols[..., 2:7],
+           "v_pred": cols[..., 7], "v_alarm": cols[..., 8] > 0, "glitch": cols[..., 9] > 0,
+           "sensor_alarm": cols[..., 10] > 0, "layer_scores": cols[..., 11:11 + n_layers],
+           "layer_c": cols[..., 11 + n_layers:i], "oob": cols[..., i] > 0,
+           "conformal_p": None, "fault_probs": None, "fault_pred": None,
+           "c": per_stream[..., 0], "glitch_run": per_stream[..., 1],
+           "v_first": per_stream[..., 2], "v_first_set": per_stream[..., 3] > 0,
+           "oob_count": per_stream[..., 4:]}
+    i += 1
+    if conformal:
+        out["conformal_p"], i = cols[..., i], i + 1
+    if n_classes:
+        out["fault_probs"], out["fault_pred"] = cols[..., i:i + n_classes], cols[..., i + n_classes]
+    return out
+
+
+def _rf_block(s_tot, c0, rf0, first, cfg: RiskConfig, max_len=None):
     """Continue the RF recurrences over a (B, S) block from the carried C and
     EMA values; on a stream's first-ever sample the EMA is seeded with
     rf_inst[0] (04:277).  Returns (rf_inst, rf_smooth, C series)."""
-    c_series = linear_recurrence_assoc(torch.full_like(s_tot, cfg.lambda_decay), s_tot, c0)
+    c_series = linear_recurrence_assoc(torch.full_like(s_tot, cfg.lambda_decay), s_tot, c0,
+                                       max_len)
     c_clip = torch.clamp(c_series, 0.0, cfg.c_max)
     k, c0_log = cfg.k_logistic, cfg.c0_logistic
     l_0, denom = _logistic_constants(cfg)
@@ -359,7 +395,7 @@ def _rf_block(s_tot, c0, rf0, first, cfg: RiskConfig):
     alpha = cfg.alpha_smooth
     seed = torch.where(first, rf_inst[0], rf0)
     rf_smooth = linear_recurrence_assoc(torch.full_like(rf_inst, 1.0 - alpha),
-                                        alpha * rf_inst, seed)
+                                        alpha * rf_inst, seed, max_len)
     # first-ever sample: rf_smooth[0] equals rf_inst[0] exactly
     rf_smooth[0] = torch.where(first, rf_inst[0], rf_smooth[0])
     return rf_inst, rf_smooth, c_series
@@ -384,19 +420,7 @@ class OnlineMonitor:
         conformal_gamma: float = 0.0,
         device="cuda",
     ):
-        if glitch_alarm_n < 1:
-            raise ValueError(f"glitch_alarm_n must be >= 1 (a run of 0 would alarm on "
-                             f"every healthy sample), got {glitch_alarm_n}")
-        self.device = resolve_device(device)
-        self.params = params
-        self.scaler_x = scaler_x
-        self.scaler_y = scaler_y
-        self._n_features = int(scaler_x.scale.shape[0])
-        self.mu = torch.as_tensor(np.asarray(mu, np.float32), device=self.device)
-        self.sigma = torch.as_tensor(np.asarray(sigma, np.float32), device=self.device)
-        self.config = config
-        self.diagnosis = diagnosis
-        self.glitch_alarm_n = int(glitch_alarm_n)
+        calib = None
         if conformal_calib is not None:
             calib = np.asarray(conformal_calib, np.float32).ravel()
             if calib.size == 0:
@@ -404,28 +428,52 @@ class OnlineMonitor:
             if not np.isfinite(calib).all():
                 raise ValueError("conformal_calib must be finite (uq.normal_calibration_"
                                  "scores already drops non-finite rows)")
-            if not 0.0 < conformal_alpha < 1.0:
-                raise ValueError(f"conformal_alpha must be in (0, 1), got {conformal_alpha}")
-            self.conformal_calib = np.sort(calib)
-        else:
-            self.conformal_calib = None
-        self.conformal_alpha = float(conformal_alpha)
-        if not 0.0 <= conformal_gamma < 1.0:
-            raise ValueError(f"conformal_gamma must be in [0, 1), got {conformal_gamma}")
-        if conformal_gamma > 0.0 and conformal_calib is None:
-            raise ValueError("conformal_gamma needs a conformal_calib vector (there is "
-                             "no p-value to adapt the level against)")
-        self.conformal_gamma = float(conformal_gamma)
-        self.layer_names = contributing_layer_names(config)
+            calib = np.sort(calib)
+        self._init_options(mu, sigma, config, diagnosis, glitch_alarm_n, calib is not None,
+                           conformal_alpha, conformal_gamma, int(scaler_x.scale.shape[0]),
+                           device)
+        self.params = params
+        self.scaler_x = scaler_x
+        self.scaler_y = scaler_y
+        self.conformal_calib = calib
         # the step's constants on the device
         self._w_feat = torch.as_tensor(np.asarray(config.feature_weights, np.float32),
                                        device=self.device)
-        self._key_to_idx = {k: i for i, k in enumerate(config.res_keys)}
-        self._layer_w = dict(config.layer_weights)
+        self._layer_columns = _layer_columns(config, self.device)
+        self._head_columns = (None if diagnosis is None else torch.as_tensor(
+            diagnosis.feature_indices, dtype=torch.int64, device=self.device))
         self._box_lo = scaler_x.data_min.to(self.device)
         self._box_hi = scaler_x.data_max.to(self.device)
         self._calib = (None if self.conformal_calib is None
                        else torch.as_tensor(self.conformal_calib, device=self.device))
+
+    def _init_options(self, mu, sigma, config: RiskConfig, diagnosis, glitch_alarm_n: int,
+                      conformal: bool, conformal_alpha: float, conformal_gamma: float,
+                      n_features: int, device) -> None:
+        """The checks and attributes that do not depend on how the step is
+        computed, shared with ``serving/exported.py``'s artifact monitor:
+        ``conformal`` says whether the step computes p-values."""
+        if glitch_alarm_n < 1:
+            raise ValueError(f"glitch_alarm_n must be >= 1 (a run of 0 would alarm on "
+                             f"every healthy sample), got {glitch_alarm_n}")
+        if conformal and not 0.0 < conformal_alpha < 1.0:
+            raise ValueError(f"conformal_alpha must be in (0, 1), got {conformal_alpha}")
+        if not 0.0 <= conformal_gamma < 1.0:
+            raise ValueError(f"conformal_gamma must be in [0, 1), got {conformal_gamma}")
+        if conformal_gamma > 0.0 and not conformal:
+            raise ValueError("conformal_gamma needs a conformal_calib vector (there is "
+                             "no p-value to adapt the level against)")
+        self.device = resolve_device(device)
+        self.mu = torch.as_tensor(np.asarray(mu, np.float32), device=self.device)
+        self.sigma = torch.as_tensor(np.asarray(sigma, np.float32), device=self.device)
+        self.config = config
+        self.diagnosis = diagnosis
+        self.glitch_alarm_n = int(glitch_alarm_n)
+        self.conformal_alpha = float(conformal_alpha)
+        self.conformal_gamma = float(conformal_gamma)
+        self._conformal = conformal  # whether the step computes p-values
+        self.layer_names = contributing_layer_names(config)
+        self._n_features = n_features
         # the multi-stream state bank: each stream key carries its own RF(t)
         # state; "default" is the single-stream API's
         self._streams: dict[str, MonitorState] = {"default": self._fresh_state()}
@@ -450,29 +498,22 @@ class OnlineMonitor:
     # v_first_set, first (n_seen == 0), glitch_run, then layer_c
     _CARRY = 6
 
-    def _step(self, x_bank: np.ndarray, v_bank: np.ndarray, states) -> list:
-        """Advance S streams by one (B,) block each: x_bank (S, B, F), v_bank
-        (S, B), ``states`` S host states → S (state, step outputs) pairs.
-        One host→device copy, one residual-kernel launch on the card, one
-        device→host read."""
+    def _device_step(self, x_raw, v_meas, carry, mu, sigma, max_len=None):
+        """The device program of one step over S streams of B rows, a function
+        of tensors only (``_step`` runs it eagerly, ``serving/exported.py``
+        traces it): x_raw (S, B, F), v_meas (B, S), carry
+        (S, _CARRY + L) float32, mu and sigma (5,) → (per_sample (B, S, n)
+        float32, per_stream (S, 4 + F) float32) in the column order of
+        ``_split_columns``.  One residual-kernel launch on the card.
+        ``max_len``: run the recurrences' scans at the fixed depth of blocks
+        up to that size (``ops/recurrences.py``)."""
         cfg = self.config
-        s_n, b_n, f_n = x_bank.shape
-        n_l = len(self.layer_names)
-        carry = np.array([[st.c, st.rf_smooth, st.v_first, st.v_first_set,
-                           st.n_seen == 0, st.glitch_run, *np.asarray(st.layer_c)]
-                          for st in states], np.float32).reshape(s_n, self._CARRY + n_l)
-        buf = torch.from_numpy(np.concatenate([x_bank.ravel(), v_bank.ravel(), carry.ravel()]))
-        buf = buf.to(self.device)
-        n_x = s_n * b_n * f_n
-        x_raw = buf[:n_x].view(s_n * b_n, f_n)
-        v_meas = buf[n_x:n_x + s_n * b_n].view(s_n, b_n).T  # (B, S)
-        carry = buf[n_x + s_n * b_n:].view(s_n, self._CARRY + n_l)
+        s_n, b_n, f_n = x_raw.shape
         first = carry[:, 4] > 0
-
         with torch.no_grad():
             # forward and residual stack (col 12 semantics for ``res``)
             mlp = self.params["mlp"]
-            x_norm = self.scaler_x.transform(x_raw)
+            x_norm = self.scaler_x.transform(x_raw.reshape(s_n * b_n, f_n))
             h = x_norm
             for lin in mlp.hidden:
                 h = torch.tanh(lin(h))
@@ -489,17 +530,17 @@ class OnlineMonitor:
             r = torch.stack([res, bs(bundle.f_v), bs(bundle.f_t), bs(bundle.f_h),
                              bs(bundle.f_o)], dim=-1)  # (B, S, 5)
 
-            s_tot, layer_scores = _excitation_block(r, self.mu, self.sigma, cfg, self._w_feat,
-                                                    self._key_to_idx, self._layer_w)
+            s_tot, layer_scores = _excitation_block(r, mu, sigma, cfg, self._w_feat,
+                                                    self._layer_columns)
             glitch, gate, s_tot = _gate_block(s_tot, v_meas, first)
             rf_inst, rf_smooth, c_series = _rf_block(s_tot, carry[:, 0], carry[:, 1], first,
-                                                     cfg)
-            lc_series = _layer_c_block(layer_scores, gate, carry[:, self._CARRY:], cfg)
+                                                     cfg, max_len)
+            lc_series = _layer_c_block(layer_scores, gate, carry[:, self._CARRY:], cfg, max_len)
             glitch_series, sensor_alarm = _glitch_run_block(glitch, carry[:, 5],
-                                                            self.glitch_alarm_n)
+                                                            self.glitch_alarm_n, max_len)
             v_first, v_first_set, v_alarm = _voltage_alarm_block(v_meas, carry[:, 2],
                                                                  carry[:, 3] > 0, cfg)
-            oob_ch, oob = _drift_block(x_raw.view(s_n, b_n, f_n), self._box_lo, self._box_hi)
+            oob_ch, oob = _drift_block(x_raw, self._box_lo, self._box_hi)
 
             f32 = torch.float32
             per_sample = [rf_inst, rf_smooth, *r.unbind(-1), v_pred, v_alarm.to(f32),
@@ -510,55 +551,76 @@ class OnlineMonitor:
             head = self.diagnosis
             if head is not None:
                 probs, pred = _diagnosis_block(head, r.reshape(b_n * s_n, 5),
-                                               glitch.reshape(-1))
+                                               glitch.reshape(-1), self._head_columns)
                 per_sample += [*probs.view(b_n, s_n, -1).unbind(-1),
                                pred.view(b_n, s_n).to(f32)]
             per_stream = [c_series[-1], glitch_series[-1], v_first, v_first_set.to(f32),
                           *oob_ch.sum(dim=1).to(f32).unbind(-1)]
-            n_sample = len(per_sample)
-            packed = torch.cat([torch.stack(per_sample, dim=-1).reshape(-1),
-                                torch.stack(per_stream, dim=-1).reshape(-1)])
-        host = packed.cpu().numpy()  # the one device→host read
+            return torch.stack(per_sample, dim=-1), torch.stack(per_stream, dim=-1)
+
+    def _carry(self, states) -> np.ndarray:
+        """The (S, _CARRY + L) float32 carry of S host states."""
+        n_l = len(self.layer_names)
+        return np.array([[st.c, st.rf_smooth, st.v_first, st.v_first_set, st.n_seen == 0,
+                          st.glitch_run, *np.asarray(st.layer_c)] for st in states],
+                        np.float32).reshape(len(states), self._CARRY + n_l)
+
+    def _step(self, x_bank: np.ndarray, v_bank: np.ndarray, states) -> list:
+        """Advance S streams by one (B,) block each: x_bank (S, B, F), v_bank
+        (S, B), ``states`` S host states → S (state, step outputs) pairs.
+        One host→device copy, one residual-kernel launch on the card, one
+        device→host read."""
+        s_n, b_n, f_n = x_bank.shape
+        carry = self._carry(states)
+        buf = torch.from_numpy(np.concatenate([x_bank.ravel(), v_bank.ravel(), carry.ravel()]))
+        buf = buf.to(self.device)
+        n_x = s_n * b_n * f_n
+        x_raw = buf[:n_x].view(s_n, b_n, f_n)
+        v_meas = buf[n_x:n_x + s_n * b_n].view(s_n, b_n).T  # (B, S)
+        carry = buf[n_x + s_n * b_n:].view(s_n, -1)
+        per_sample, per_stream = self._device_step(x_raw, v_meas, carry, self.mu, self.sigma)
+        n_sample = per_sample.shape[-1]
+        host = torch.cat([per_sample.reshape(-1), per_stream.reshape(-1)]).cpu().numpy()
         cols = host[:b_n * s_n * n_sample].reshape(b_n, s_n, n_sample)
         last = host[b_n * s_n * n_sample:].reshape(s_n, -1)
+        return self._unpack(cols, last, states)
 
-        def take(col, k):  # the next k columns of the iterator as (B, k)
-            return np.stack([next(col) for _ in range(k)] or [np.zeros(b_n, np.float32)],
-                            axis=1)[:, :k]
-
+    def _unpack(self, cols: np.ndarray, last: np.ndarray, states) -> list:
+        """S (state, step outputs) pairs from ``_device_step``'s columns read
+        to the host: cols (B, S, n), last (S, 4 + F); the ACI level runs
+        here, after the read."""
+        b_n = cols.shape[0]
+        head = self.diagnosis
         results = []
         for i, st in enumerate(states):
-            col = iter(np.moveaxis(cols[:, i, :], 1, 0))  # per-column (B,) arrays
-            rf_i, rf_s = next(col), next(col)
-            r_i = take(col, 5)
-            vp, va, gl, sa = next(col), next(col) > 0, next(col) > 0, next(col) > 0
-            ls, lc = take(col, n_l), take(col, n_l)
-            ob = next(col) > 0
-            conf_p = aci_a = aci_e = None
+            f = _split_columns(cols[:, i, :], last[i], len(self.layer_names),
+                               0 if head is None else len(head.class_names),
+                               self._conformal)
+            aci_a = aci_e = None
             aci_last = st.aci_alpha
-            if self._calib is not None:
-                conf_p = next(col)
-                aci_a, aci_e, aci_last = _aci_block(conf_p, st.aci_alpha, self.conformal_gamma,
-                                                    self.conformal_alpha)
+            if f["conformal_p"] is not None:
+                aci_a, aci_e, aci_last = _aci_block(f["conformal_p"], st.aci_alpha,
+                                                    self.conformal_gamma, self.conformal_alpha)
             fault = (None, None)
             if head is not None:
-                pr = take(col, len(head.class_names))
-                fault = (pr, next(col).astype(np.int32))
-            c_last, g_last, v_first_i, vfs_i = last[i, :4]
+                fault = (f["fault_probs"], f["fault_pred"].astype(np.int32))
             new_state = MonitorState(
-                c=np.float32(c_last),
-                rf_smooth=np.float32(rf_s[-1]),
-                v_first=np.float32(v_first_i),
+                c=np.float32(f["c"]),
+                rf_smooth=np.float32(f["rf_smooth"][-1]),
+                v_first=np.float32(f["v_first"]),
                 n_seen=np.int32(st.n_seen + b_n),
-                v_first_set=np.bool_(vfs_i > 0),
-                glitch_run=np.float32(g_last),
-                layer_c=lc[-1].astype(np.float32),
+                v_first_set=np.bool_(f["v_first_set"]),
+                glitch_run=np.float32(f["glitch_run"]),
+                layer_c=f["layer_c"][-1].astype(np.float32),
                 oob_count=(np.asarray(st.oob_count)
-                           + last[i, 4:4 + f_n].astype(np.int32)).astype(np.int32),
+                           + f["oob_count"].astype(np.int32)).astype(np.int32),
                 aci_alpha=np.float32(aci_last),
             )
-            results.append((new_state, (rf_i, rf_s, r_i, vp, va, gl, sa, fault, ls, lc, ob,
-                                        conf_p, aci_a, aci_e)))
+            results.append((new_state, (f["rf_inst"], f["rf_smooth"], f["residuals"],
+                                        f["v_pred"], f["v_alarm"], f["glitch"],
+                                        f["sensor_alarm"], fault, f["layer_scores"],
+                                        f["layer_c"], f["oob"], f["conformal_p"], aci_a,
+                                        aci_e)))
         return results
 
     # ---- single-stream surface ----------------------------------------

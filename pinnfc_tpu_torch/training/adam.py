@@ -35,7 +35,7 @@ def adam_init(w: torch.Tensor) -> AdamState:
 
 
 # marks a snapshot's optimizer state as this package's (the JAX package stores
-# an optax state tree there, which the port cannot resume)
+# an optax state tree there; ``adam_tree_from_optax`` reads it)
 SNAPSHOT_WRITER = "pinnfc_tpu_torch"
 
 
@@ -53,6 +53,27 @@ def adam_state_to_numpy(state: AdamState,
 def is_port_adam_state(tree) -> bool:
     """Whether a snapshot's ``opt`` entry was written by ``adam_state_to_numpy``."""
     return isinstance(tree, dict) and str(tree.get("writer", "")) == SNAPSHOT_WRITER
+
+
+def adam_tree_from_optax(tree) -> Optional[Dict[str, Any]]:
+    """The ``adam_state_to_numpy`` payload of an optax state of the JAX
+    package's ``_opt_init`` (``optax.adam`` over a StepLR schedule), as a
+    snapshot file holds it: ``[[count, mu, nu], [schedule count]]`` (the
+    ``ScaleByAdamState`` and the ``ScaleByScheduleState``).  The two counts
+    advance together (the JAX package's non-finite skip holds both back), and
+    the port's one count drives both roles.  None for any other tree, or when
+    the counts differ."""
+    if not (isinstance(tree, (list, tuple)) and len(tree) == 2
+            and isinstance(tree[0], (list, tuple)) and len(tree[0]) == 3
+            and isinstance(tree[1], (list, tuple)) and len(tree[1]) == 1):
+        return None
+    (count, mu, nu), (sched_count,) = tree
+    count, sched_count = np.asarray(count), np.asarray(sched_count)
+    if (count.shape != () or sched_count.shape != () or count.dtype.kind not in "iu"
+            or sched_count.dtype.kind not in "iu" or int(count) != int(sched_count)):
+        return None
+    return {"writer": np.asarray(SNAPSHOT_WRITER), "count": count.astype(np.int64), "m": mu,
+            "v": nu}
 
 
 def adam_state_from_numpy(tree: Dict[str, Any], device,

@@ -53,8 +53,8 @@ from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_simple
 from pinnfc_tpu_torch.physics.voltage import voltage_residual
 from pinnfc_tpu_torch.training.adam import (
-    AdamState, adam_init, adam_state_from_numpy, adam_state_to_numpy, adam_step, all_finite,
-    is_port_adam_state, keep_if_nonfinite)
+    AdamState, adam_init, adam_state_from_numpy, adam_state_to_numpy, adam_step,
+    adam_tree_from_optax, all_finite, is_port_adam_state, keep_if_nonfinite)
 from pinnfc_tpu_torch.utils import checkpoint
 from pinnfc_tpu_torch.utils.jax_params import (
     mlp_tree_from_flat, mlp_tree_to_flat, params_from_jax, params_to_numpy)
@@ -322,7 +322,8 @@ def run_schedule(
     uninterrupted chunked run ends, bit for bit.  Without ``ckpt_every`` a
     stage is one chunk of its ``n_iter`` steps, and a stage resumed from a
     mid-stage snapshot runs the rest of it as one chunk.  A mid-stage snapshot of the JAX package
-    (an optax state) raises ``ValueError``; its per-stage snapshots resume."""
+    resumes too: its optax Adam state maps onto ``AdamState``
+    (``adam_tree_from_optax``); any other optimizer tree raises ``ValueError``."""
     schedule = default_schedule() if schedule is None else schedule
     if ckpt_every is not None and ckpt_every < 1:
         raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
@@ -347,15 +348,17 @@ def run_schedule(
             if step_done is None or step_done >= schedule[k0].n_iter:
                 start_stage = k0 + 1
             else:
-                if not is_port_adam_state(payload.get("opt")):
+                opt = payload.get("opt")
+                if not is_port_adam_state(opt):  # the JAX package's optax state
+                    opt = adam_tree_from_optax(opt)
+                if opt is None:
                     raise ValueError(
                         f"checkpoint at {ckpt_path} is a mid-stage snapshot (stage {k0}, "
-                        f"step {step_done}) whose optimizer state this package did not "
-                        "write (the JAX package's optax state); the port cannot resume "
-                        "it: finish the stage with the package that wrote it, or remove "
-                        "the snapshot to start the schedule anew")
+                        f"step {step_done}) whose optimizer state is neither this "
+                        "package's nor the JAX package's optax Adam state; remove the "
+                        "snapshot to start the schedule anew")
                 start_stage = k0
-                mid_resume = (step_done, payload["opt"], np.asarray(payload["losses"]))
+                mid_resume = (step_done, opt, np.asarray(payload["losses"]))
             params = params_from_jax(payload["params"], device=dev)
             if verbose:
                 where = (f"stage {start_stage}" if mid_resume is None

@@ -34,7 +34,10 @@ counterfactual on the card against the CPU: the monitor's series at rtol
 1e-5 (atol 1e-5; layer_c 1e-4, the posteriors 1e-4), its flags and p-value
 ranks equal, one residual-kernel launch per ``observe``/``observe_many``;
 a 40-step recovery solve with δ within 2e-5 of the range and v_after within
-2e-6 V.
+2e-6 V.  The registered operator ``pinnfc_torch::residuals`` on the card
+against the plain version at the residual kernel's tolerances; a monitor
+step exported on the CPU and moved to the card bitwise the eager monitor on
+the card, one kernel launch per call.
 
 Diagnosis on the card against the port on the CPU with the same CPU-generator
 draws: the forest's feature, size and threshold tables identical (the
@@ -680,3 +683,72 @@ def test_counterfactual_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_allclose(card.v_after, host.v_after, atol=2e-6)
     np.testing.assert_allclose(card.delta_range, host.delta_range, atol=2e-5)
     np.testing.assert_array_equal(card.recovered, host.recovered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15600, 37])
+def test_registered_residual_operator_on_the_card(cuda_device, campaign_rows, n):
+    """``pinnfc_torch::residuals`` on CUDA tensors launches the kernel once
+    and agrees with the plain version (rtol = atol = 2e-5, NaN sets equal);
+    its fake form gives the (8, N) float32 shape."""
+    from pinnfc_tpu_torch.ops.residuals import kernel_scalars, residuals_op
+
+    ds = campaign_rows
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    params["lam_v"][2] = 1.2
+    sx, sy = ds.scaler_x.to(cuda_device), ds.scaler_y.to(cuda_device)
+    x = ds.x_test[:n].to(cuda_device)
+    with torch.no_grad():
+        u = params["mlp"](x)[0][:, 0].contiguous()
+    scalars = kernel_scalars(params, sx, sy)
+    before = build.LAUNCHES["residuals"]
+    got = residuals_op(x, u, *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    assert build.LAUNCHES["residuals"] == before + 1
+    assert got.shape == (8, n) and got.dtype == torch.float32 and got.device == x.device
+    want = all_residuals(params, x, u[:, None], sx, sy)
+    for row, w in zip(got, want):
+        assert torch.equal(torch.isnan(row), torch.isnan(w[:, 0]))
+        torch.testing.assert_close(row, w[:, 0], rtol=2e-5, atol=2e-5, equal_nan=True)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = residuals_op(torch.empty(5, 8, device=cuda_device),
+                            torch.empty(5, device=cuda_device),
+                            *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    assert fake.shape == (8, 5) and fake.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_exported_monitor_step_moved_to_the_card(cuda_device):
+    """A monitor step exported on the CPU and moved to CUDA: bitwise the eager
+    monitor on the card (the same traced function, the same kernel), one
+    residual-kernel launch per ``observe``; the fleet artifact one launch per
+    ``observe_many``."""
+    from pinnfc_tpu_torch.serving import (
+        export_monitor_fleet_step, export_monitor_step, monitor_from_artifact)
+
+    x, v, make = _monitor_inputs()
+    src, eager = make("cpu"), make(cuda_device)
+    kw = dict(class_names=("a", "b"), glitch_alarm_n=5, conformal_gamma=0.01,
+              device=cuda_device)
+    art = monitor_from_artifact(export_monitor_step(src), src.mu.numpy(), src.sigma.numpy(),
+                                **kw)
+    for lo in range(0, 640, 64):
+        before = build.LAUNCHES["residuals"]
+        a = art.observe(x[lo:lo + 64], v[lo:lo + 64])
+        assert build.LAUNCHES["residuals"] == before + 1
+        b = eager.observe(x[lo:lo + 64], v[lo:lo + 64])
+        for f in ("rf_smooth", "rf_inst", "residuals", "v_pred", "layer_c", "fault_probs",
+                  "conformal_p", "aci_alpha", "warn", "glitch", "oob", "aci_anomaly"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    fleet = monitor_from_artifact(export_monitor_fleet_step(src), src.mu.numpy(),
+                                  src.sigma.numpy(), **kw)
+    xb = np.stack([x[0:64], x[200:264], x[500:564]])
+    vb = np.stack([v[0:64], v[200:264], v[500:564]])
+    before = build.LAUNCHES["residuals"]
+    got = fleet.observe_many(xb, vb, ["a", "b", "c"])
+    assert build.LAUNCHES["residuals"] == before + 1
+    want = make(cuda_device).observe_many(xb, vb, ["a", "b", "c"])
+    for k in got:
+        np.testing.assert_array_equal(got[k].rf_smooth, want[k].rf_smooth)
+        np.testing.assert_array_equal(got[k].residuals, want[k].residuals)

@@ -26,7 +26,8 @@ from pinnfc_tpu.utils.checkpoint import save_params_npz as jax_save_params_npz
 from pinnfc_tpu_torch.config import default_schedule
 from pinnfc_tpu_torch.ops import train_dnn as td
 from pinnfc_tpu_torch.training import stages
-from pinnfc_tpu_torch.training.adam import AdamState
+from pinnfc_tpu_torch.training.adam import (
+    AdamState, adam_state_from_numpy, adam_tree_from_optax)
 from pinnfc_tpu_torch.utils import checkpoint as ckpt_mod
 from pinnfc_tpu_torch.utils.jax_params import params_to_numpy
 from pinnfc_tpu_torch.utils.threads import one_thread
@@ -220,28 +221,122 @@ def test_kill_and_resume_equals_the_uninterrupted_run(campaign, tmp_path, monkey
         np.testing.assert_array_equal(losses, traces[name])
 
 
-def _jax_snapshot(path, params, stage, step, n_iter_losses):
+def _jax_snapshot(path, params, stage, step, n_iter_losses, opt_init=None):
     """A snapshot as the JAX package's run_schedule writes it: its optax state
-    (an Adam state and a schedule count) under ``opt``."""
+    (an Adam state and a schedule count) under ``opt``, or ``opt_init(piece)``."""
     jparams = jax.tree_util.tree_map(np.asarray, params_to_numpy(params))
     piece = jparams["mlp"] if stage == 0 else jparams["lam_v"]
     payload = {"params": jparams, "stage": np.asarray(stage)}
     if step is not None:
-        payload.update(step=np.asarray(step),
-                       opt=jax_stages._opt_init(piece, lr=0.01, lr_step=3, lr_gamma=0.8),
+        opt = (jax_stages._opt_init(piece, lr=0.01, lr_step=3, lr_gamma=0.8)
+               if opt_init is None else opt_init(piece))
+        payload.update(step=np.asarray(step), opt=opt,
                        losses=np.zeros(n_iter_losses, np.float32))
     jax_save_params_npz(payload, path)
 
 
 @pytest.mark.parametrize("stage", [0, 1])
 def test_a_jax_mid_stage_snapshot_is_refused(campaign, tmp_path, stage):  # noqa: F811
+    """A mid-stage snapshot whose optimizer tree is neither the port's nor the
+    JAX package's optax Adam state (here optax SGD with momentum) raises,
+    naming the file."""
+    import optax
+
     ds = campaign.ds
     path = tmp_path / "schedule_ckpt.npz"
-    _jax_snapshot(str(path), campaign.params(), stage, 4, 4)
+    _jax_snapshot(str(path), campaign.params(), stage, 4, 4,
+                  opt_init=optax.sgd(0.1, momentum=0.9).init)
     with pytest.raises(ValueError, match="optax") as e:
         stages.run_schedule(campaign.params(), ds.x_train, ds.y_train, ds.scaler_x,
                             ds.scaler_y, schedule=_sched(), checkpoint_dir=str(tmp_path))
     assert str(path) in str(e.value)
+
+
+def test_adam_tree_from_optax_maps_the_jax_state():
+    """The optax tree of ``_opt_init`` maps onto the port's payload; trees of
+    another shape, or with the two counts apart, map to None."""
+    lam = np.arange(4, dtype=np.float32)
+    opt = jax_stages._opt_init(lam, lr=0.01, lr_step=3, lr_gamma=0.8)
+    tree = [[np.asarray(opt[0].count) + 5, np.asarray(opt[0].mu) + 1, np.asarray(opt[0].nu) + 2],
+            [np.asarray(opt[1].count) + 5]]
+    got = adam_tree_from_optax(tree)
+    state = adam_state_from_numpy(got, "cpu")
+    assert int(state.count) == 5 and state.count.dtype == torch.int64
+    np.testing.assert_array_equal(state.m.numpy(), np.ones(4, np.float32))
+    np.testing.assert_array_equal(state.v.numpy(), np.full(4, 2, np.float32))
+    assert adam_tree_from_optax([tree[0], [np.asarray(6)]]) is None
+    assert adam_tree_from_optax([tree[0]]) is None
+    assert adam_tree_from_optax({"m": 0}) is None
+
+
+def _jax_resume_sched(names):
+    """``_sched`` with the DNN stages at lr 1e-3, as
+    ``tests/test_torch_training.py`` compares whole schedules at dropout 0."""
+    return tuple(dataclasses.replace(s, lr=1e-3) if s.name == "dnn" else s
+                 for s in _sched(names))
+
+
+@pytest.mark.parametrize("names,kill_after,where", [
+    (("dnn", "lambda_v"), 2, (0, 6)),  # inside the DNN stage, dropout 0
+    (("dnn", "lambda_v"), 5, (1, 6)),  # inside the voltage-λ stage
+    (("dnn", "lambda_v", "thermal"), 7, (2, 3)),  # inside the thermal stage
+])
+def test_a_jax_mid_stage_snapshot_resumes(campaign, tmp_path, monkeypatch,  # noqa: F811
+                                          names, kill_after, where):
+    """The JAX package's run_schedule (chunks of 3, dropout 0) is killed after
+    its Nth chunk snapshot; the port and the JAX package each resume a copy
+    of that snapshot and end at the same place: loss traces rtol 2e-5, λ rtol
+    2e-5 (atol 1e-7), MLP weights rtol 1e-3 atol 1e-4, the tolerances of
+    ``tests/test_torch_training.py::test_run_schedule_matches_jax``."""
+    import shutil
+
+    from pinnfc_tpu import config as jax_config
+    from pinnfc_tpu.utils import checkpoint as jax_ckpt_mod
+
+    ds = campaign.ds
+    jds = jax_campaign.load_campaign_dataset(jax_campaign.CampaignConfig.from_dir(
+        campaign.config.normal_path, campaign.ascii_dir))
+    sched = _jax_resume_sched(names)
+    jsched = tuple(jax_config.StageConfig(**dataclasses.asdict(s)) for s in sched)
+    jparams0 = jax.tree_util.tree_map(np.asarray, params_to_numpy(campaign.params()))
+    jargs = (jds.x_train, jds.y_train, jds.scaler_x, jds.scaler_y)
+    real_save = jax_ckpt_mod.save_params_npz
+    calls = {"n": 0}
+
+    def killing_save(payload, path):
+        real_save(payload, path)
+        calls["n"] += 1
+        if calls["n"] == kill_after:
+            raise KeyboardInterrupt("simulated preemption")
+
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    monkeypatch.setattr(jax_ckpt_mod, "save_params_npz", killing_save)
+    with pytest.raises(KeyboardInterrupt):
+        jax_stages.run_schedule(jparams0, *jargs, schedule=jsched, dropout_p=0.0,
+                                checkpoint_dir=jax_dir, ckpt_every=3)
+    monkeypatch.setattr(jax_ckpt_mod, "save_params_npz", real_save)
+    shutil.copytree(jax_dir, port_dir)
+    snap = ckpt_mod.load_params_npz(f"{port_dir}/schedule_ckpt.npz")
+    assert (int(snap["stage"]), int(snap["step"])) == where
+    assert not stages.is_port_adam_state(snap["opt"])
+
+    jparams, jlog = jax_stages.run_schedule(jparams0, *jargs, schedule=jsched, dropout_p=0.0,
+                                            checkpoint_dir=jax_dir)
+    params, log = stages.run_schedule(campaign.params(), ds.x_train, ds.y_train, ds.scaler_x,
+                                      ds.scaler_y, schedule=sched, seed=5, dropout_p=0.0,
+                                      checkpoint_dir=port_dir)
+    assert [n for n, _ in log.stages] == [n for n, _ in jlog.stages]
+    assert [n for n, _ in log.stages][0] == f"{where[0]}:{sched[where[0]].name}"
+    for (name, a), (_, b) in zip(jlog.stages, log.stages):
+        assert b.shape == (sched[int(name.split(":")[0])].n_iter,)
+        np.testing.assert_allclose(b, np.asarray(a), rtol=2e-5, err_msg=name)
+    got = params_to_numpy(params)
+    for g in ("lam_v", "lam_t", "lam_h", "lam_o"):
+        np.testing.assert_allclose(got[g], np.asarray(jparams[g]), rtol=2e-5, atol=1e-7,
+                                   err_msg=g)
+    want_leaves = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jparams["mlp"]))
+    for a, b in zip(jax.tree_util.tree_leaves(got["mlp"]), want_leaves):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("step", [None, 8])
