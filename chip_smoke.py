@@ -150,8 +150,33 @@ Phases, any failure exits non-zero before the result line:
    64 and 256, at B = 1 and 64 split into the artifact's device step and
    the rest, and the eager device step with the scans at three depths (the
    cost of the fixed rounds), and per /observe round trip at B = 64;
+19. ensembles and data-parallel training on the card: ``cli ensemble
+   --members 8 --steps 2000 --uq`` in a subprocess (6,000 training rows,
+   flagship; one training-kernel launch per member); ``train_dnn_ensemble``
+   on 2 members bitwise two lone ``train_dnn_stage`` calls with the members'
+   seeds; ``run_training_pipeline(mesh=make_mesh(devices=["cuda:0"] * 4))``
+   at flagship width on the default campaign, the schedule x 0.05 and
+   mc_times 2000, the launch counters reset just before and read just after
+   (the DNN stages through the training kernel's per-step entries, the MC
+   export one launch per row shard): its MC columns bitwise those of the
+   unsharded export of its params, its λ_t, λ_h and λ_o against an
+   unsharded run's, its λ_v at ``LAM_V_WHOLE_RTOL`` of the unsharded run's,
+   its two λ_v stages at 25 steps sharded against unsharded from its MLP
+   (and their reading at 200 steps printed); the sharded DNN stage against
+   the whole-stage kernel at phase 6's tolerances, and from the trained MLP
+   at ``TRAINED_WEIGHT_ATOL`` beside the whole-stage kernel against its
+   plain version; a planted fault (every shard's masks at row offset 0)
+   must fail both bounds; phase 9's ``cli train`` (without its report flags) and ``cli
+   score`` again with ``--data-parallel``, whose artifacts must equal phase
+   9's bitwise and the checkpoint byte for byte; the sharded DNN stage's
+   ms/step against the whole-stage kernel's, the MC kernel over four shards
+   against one launch, per-member training seconds and ``ensemble_moments``
+   at E = 8 and N = 15,600;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
+
+``python3 chip_smoke.py --kernel-times`` runs none of it and prints the two
+kernels' times at the main path's shapes (``kernel_times``).
 
 Imports torch and the port only.
 """
@@ -159,6 +184,7 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -651,6 +677,9 @@ def run_campaign_slice(dev, keep_dir):
         check(np.array_equal(scored, arr, equal_nan=True),
               "cli score on the campaign does not reproduce the train-time artifact")
         shutil.copy(mats["score"], os.path.join(keep_dir, "F01_scored.mat"))
+        # for phase 19: the campaign and the train-time artifact
+        shutil.copy(mats["train"], os.path.join(keep_dir, "F01_train.mat"))
+        shutil.copytree(camp, os.path.join(keep_dir, "campaign"))
         for ext in (".npz", ".meta.json"):
             shutil.copy(ck + ext, os.path.join(keep_dir, "ck" + ext))
         trained = load_checkpoint(ck, device=dev)
@@ -2231,6 +2260,278 @@ def run_export_serve_slice(gmm_result, keep_dir: str) -> dict:
     return out
 
 
+def _same_files(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+# phase 19's bounds on a sharded run against an unsharded one, each between
+# the sound run's reading and a planted fault's (both printed by the phase):
+# λ_v of the whole pipelines (relative), and the weights after 20 DNN steps
+# from the trained MLP (absolute)
+LAM_V_WHOLE_RTOL = 4e-2
+TRAINED_WEIGHT_ATOL = 4e-2
+
+
+@contextlib.contextmanager
+def _row_offsets_lost():
+    """A planted fault for phase 19: ``run_schedule``'s row shards all claim
+    global row 0, so every shard draws the masks of the first rows."""
+    from pinnfc_tpu_torch.training import stages
+
+    real = stages.shard_batch
+
+    def lost(*args, **kw):
+        sh = real(*args, **kw)
+        return sh._replace(offsets=(0,) * len(sh.offsets))
+
+    stages.shard_batch = lost
+    try:
+        yield
+    finally:
+        stages.shard_batch = real
+
+
+def run_parallel_slice(dev, train_ds, campaign_launches: dict, keep_dir: str) -> dict:
+    """Phase 19: ``cli ensemble`` on the card, member independence, the
+    data-parallel training pipeline on a mesh that lists the card four times,
+    the sharded DNN stage against the whole-stage kernel, ``train`` and
+    ``score --data-parallel`` on phase 9's files, and their times.  Returns
+    what it measured."""
+    import dataclasses
+
+    from pinnfc_tpu_torch.cli._common import _train_config
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.models.mlp import MLP
+    from pinnfc_tpu_torch.models.pinn import LAMBDA_GROUPS
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout
+    from pinnfc_tpu_torch.models.pinn import init_pinn
+    from pinnfc_tpu_torch.ops.train_dnn import (
+        mlp_weights, train_dnn, train_dnn_sharded, train_dnn_sharded_plain,
+        train_dnn_stage_plain)
+    from pinnfc_tpu_torch.parallel.ensemble import (
+        init_ensemble, mc_dropout_sharded, member_seed, train_dnn_ensemble)
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results, default_mc_seed
+    from pinnfc_tpu_torch.pipeline.train_pipeline import run_training_pipeline
+    from pinnfc_tpu_torch.training.stages import run_schedule, train_dnn_stage
+    from pinnfc_tpu_torch.uq.deep_ensemble import ensemble_moments
+
+    out = {}
+    # the ensemble command at full size
+    ens_out, ens_l, ens_wall = run_cli("ensemble", "--members", "8", "--steps", "2000", "--uq")
+    check(ens_l["train_dnn"] == 8 and ens_l["mc_dropout"] == 0,
+          f"cli ensemble launches {ens_l}")
+    rows = [ln for ln in ens_out.splitlines() if ln.strip() and ln.split()[0].isdigit()]
+    check(len(rows) == 8 and "ensemble spread" in ens_out and "deep-ensemble UQ" in ens_out,
+          f"cli ensemble output:\n{ens_out[-2000:]}")
+    print("[slice] cli ensemble --members 8 --steps 2000 --uq on the card (wall "
+          f"{ens_wall:.1f} s): launches {json.dumps(ens_l)}")
+    print("\n".join(ln for ln in ens_out.splitlines() if not ln.startswith("LAUNCHES")))
+    out.update(launches_ensemble=ens_l, ensemble_wall_s=ens_wall)
+
+    # member independence, and per-member seconds
+    x, y = train_ds.x_train, train_ds.y_train
+    ens = init_ensemble(3, 2, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, losses = train_dnn_ensemble(ens, x, y, 11, 2000)
+    torch.cuda.synchronize()
+    out["member_train_s"] = (time.perf_counter() - t0) / 2
+    for e in range(2):
+        lone = train_dnn_stage(ens["mlp"][e], x, y, member_seed(11, e), 2000)
+        same = torch.equal(lone.losses, losses[e]) and all(
+            torch.equal(u, v) for u, v in zip(mlp_weights(lone.params),
+                                               mlp_weights(trained["mlp"][e])))
+        check(same, f"ensemble member {e} differs from a lone stage with its seed")
+    print(f"[check] train_dnn_ensemble on 2 members (2,000 steps, N={x.shape[0]}) equals two "
+          f"lone train_dnn_stage calls with the members' seeds bitwise; "
+          f"{out['member_train_s']:.3f} s per member: ok")
+
+    # the data-parallel training pipeline on [cuda:0] * 4
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    cfg = _train_config(argparse.Namespace(small=False, seed=42, steps_scale=0.05,
+                                           precision=None, skip_nonfinite=False))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_training_pipeline(cfg, n_normal=6000, n_fault=800, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    dp_wall = time.perf_counter() - t0
+    dp_l = dict(build.LAUNCHES)
+    dnn_steps = sum(s.n_iter for s in cfg.schedule if s.name == "dnn")
+    check(dp_l["train_dnn"] == 0 and dp_l["train_dnn_grad"] == 4 * dnn_steps
+          and dp_l["train_dnn_adam"] == dnn_steps and dp_l["mc_dropout"] == 4
+          and dp_l["residuals"] >= 1, f"data-parallel pipeline launches {dp_l}")
+    ref = run_training_pipeline(cfg, n_normal=6000, n_fault=800, device="cuda")
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    # λ_t, λ_h, λ_o see x alone: float32 summation order apart.  λ_v reads the
+    # MLP's prediction, whose first DNN stage (200 dropout steps) Adam moves
+    # apart in the two runs; and a λ_v stage near its optimum turns the
+    # shards' summation order into ±lr steps where a gradient element changes
+    # sign.  So λ_v of the whole runs is held at LAM_V_WHOLE_RTOL, between
+    # the sound run's reading and that of a planted fault (every shard's DNN
+    # masks drawn at row offset 0, as if the global row were lost), and its
+    # two stages from one MLP at rtol 1e-4 at 25 steps each, the length of
+    # JAX's own mesh-parity test (tests/test_parallel.py,
+    # TestDataParallelSchedule); their reading at the schedule's 200 steps
+    # each is printed.
+    lam_err = {g: rel(res.params[g], ref.params[g]) for g in LAMBDA_GROUPS}
+    d = res.dataset
+    for steps in (25, None):
+        lam_v_only = tuple(dataclasses.replace(s, n_iter=steps or s.n_iter)
+                           for s in cfg.schedule if s.name == "lambda_v")
+        v_dp, _ = run_schedule(res.params, d.x_train, d.y_train, d.scaler_x, d.scaler_y,
+                               schedule=lam_v_only, mesh=mesh)
+        v_one, _ = run_schedule(res.params, d.x_train, d.y_train, d.scaler_x, d.scaler_y,
+                                schedule=lam_v_only)
+        n_v = lam_v_only[0].n_iter
+        lam_err[f"lam_v, 2 x {n_v} steps from one MLP"] = rel(v_dp["lam_v"], v_one["lam_v"])
+        if steps is not None:
+            torch.testing.assert_close(v_dp["lam_v"], v_one["lam_v"], rtol=1e-4, atol=1e-6)
+    head = cfg.schedule[:3]  # the first DNN stage and both λ_v stages set λ_v
+    check([s.name for s in head] == ["dnn", "lambda_v", "lambda_v"]
+          and all(s.name != "lambda_v" for s in cfg.schedule[3:]),
+          f"the schedule's λ_v no longer ends at stage 2: {cfg.schedule}")
+    params0 = init_pinn(cfg.model.layers, generator=torch.Generator().manual_seed(cfg.seed),
+                        device=dev)
+    with _row_offsets_lost():
+        planted, _ = run_schedule(params0, d.x_train, d.y_train, d.scaler_x, d.scaler_y,
+                                  schedule=head, seed=cfg.seed, dropout_p=cfg.model.dropout_p,
+                                  mesh=mesh)
+    lam_err["lam_v, planted fault (row offsets 0)"] = rel(planted["lam_v"], ref.params["lam_v"])
+    print(f"[check] λ sharded against unsharded, max relative difference "
+          f"{json.dumps(lam_err)}")
+    for g in ("lam_t", "lam_h", "lam_o"):
+        torch.testing.assert_close(res.params[g], ref.params[g], rtol=1e-4, atol=1e-6)
+    check(lam_err["lam_v"] <= LAM_V_WHOLE_RTOL,
+          f"λ_v of the sharded and unsharded pipelines {lam_err['lam_v']:.3e} apart "
+          f"(relative), over {LAM_V_WHOLE_RTOL:g}")
+    check(lam_err["lam_v, planted fault (row offsets 0)"] > LAM_V_WHOLE_RTOL,
+          "the planted fault passes λ_v's bound: the bound tells nothing")
+    build.reset_launches()
+    again, _ = build_comprehensive_results(
+        res.params, res.dataset, mc_seed=default_mc_seed(cfg.seed), mc_times=cfg.mc_times,
+        dropout=cfg.mc_dropout, smooth_window=cfg.smooth_window)
+    check(build.LAUNCHES["mc_dropout"] == 1, "the unsharded export did not run the MC kernel once")
+    check(np.array_equal(res.results.array, again.array, equal_nan=True),
+          "the sharded export differs from the unsharded export of the same params")
+    print(f"[slice] data-parallel training on {mesh} (schedule x 0.05, N={x.shape[0]}; wall "
+          f"{dp_wall:.1f} s): launches {json.dumps(dp_l)}; per stage (s) "
+          f"{json.dumps({n: round(t, 4) for n, t in res.log.seconds})}; the artifact (MC "
+          f"columns included) equals the unsharded export of its params bitwise; λ_t, λ_h, "
+          f"λ_o and the λ_v stages from one MLP (25 steps each) against the unsharded runs at "
+          f"rtol 1e-4, λ_v of the whole runs at {LAM_V_WHOLE_RTOL:g} (the planted fault "
+          f"over it): ok")
+    out.update(launches_data_parallel=dp_l, dp_pipeline_wall_s=dp_wall,
+               dp_stage_s=dict(res.log.seconds), lam_rel_err=lam_err)
+
+    # the sharded DNN stage against the whole-stage kernel, from phase 6's
+    # initial weights as phase 6 holds the kernel, at phase 6's tolerances;
+    # the loss trace at rtol 5e-3 of its own scale (its largest |loss|): the
+    # heteroscedastic loss crosses zero, where a relative band means nothing
+    # (a step at loss 1.6e-3 came 6.6e-5 apart, the whole trace 1.8e-3)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=dev)
+    shards = shard_batch(mesh, x, y)
+    hp = dict(lr_step=5, lr_gamma=0.5, dropout_p=0.2)
+    k_sh = train_dnn_sharded(mlp, shards, 7, 20, **hp)
+    k_whole = train_dnn(mlp, x, y, 7, 20, **hp)
+    p_sh = train_dnn_sharded_plain(mlp, shards, 7, 20, **hp)
+    torch.cuda.synchronize()
+    errs = {name: (float((k_sh.losses - o.losses).abs().max()),
+                   max(max_abs_err(a, b) for a, b in zip(mlp_weights(k_sh.mlp),
+                                                         mlp_weights(o.mlp))))
+            for name, o in (("whole-stage kernel", k_whole), ("per-shard plain", p_sh))}
+    print(f"[check] sharded DNN stage, max |Δloss| and |Δweight| against {json.dumps(errs)}")
+    for other in (k_whole, p_sh):
+        torch.testing.assert_close(k_sh.losses[0], other.losses[0], rtol=2e-5, atol=0)
+        scale = float(other.losses.abs().max())
+        torch.testing.assert_close(k_sh.losses, other.losses, rtol=5e-3,
+                                   atol=max(1e-5, 5e-3 * scale))
+        for a, b in zip(mlp_weights(k_sh.mlp), mlp_weights(other.mlp)):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+    err = max(e for pair in errs.values() for e in pair)
+
+    # from the trained MLP, where Adam moves runs of another summation order
+    # apart: the sharded stage against the whole-stage kernel, beside the
+    # whole-stage kernel against its own plain version (the same 20 steps;
+    # the second witness of the size of a summation-order gap there) and a
+    # planted fault (every shard's masks at row offset 0)
+    mlp = res.params["mlp"]
+    k_sh = train_dnn_sharded(mlp, shards, 7, 20, **hp)
+    k_whole = train_dnn(mlp, x, y, 7, 20, **hp)
+    p_whole = train_dnn_stage_plain(mlp, x, y, 7, 20, **hp)
+    k_lost = train_dnn_sharded(mlp, shards._replace(offsets=(0,) * len(shards.offsets)), 7,
+                               20, **hp)
+    torch.cuda.synchronize()
+
+    def weight_gap(a, b):
+        return max(max_abs_err(u, v) for u, v in zip(mlp_weights(a.mlp), mlp_weights(b.mlp)))
+
+    trained_gaps = {"sharded vs whole-stage kernel": weight_gap(k_sh, k_whole),
+                    "whole-stage kernel vs its plain version": weight_gap(k_whole, p_whole),
+                    "planted fault (row offsets 0) vs whole-stage kernel":
+                        weight_gap(k_lost, k_whole)}
+    print(f"[check] from the trained MLP, 20 steps, max |Δweight| {json.dumps(trained_gaps)}")
+    check(trained_gaps["sharded vs whole-stage kernel"] <= TRAINED_WEIGHT_ATOL,
+          f"from the trained MLP the sharded stage is over {TRAINED_WEIGHT_ATOL:g} from the "
+          f"whole-stage kernel: {trained_gaps}")
+    check(trained_gaps["planted fault (row offsets 0) vs whole-stage kernel"]
+          > TRAINED_WEIGHT_ATOL, "the planted fault passes the trained-MLP bound")
+    out["trained_mlp_weight_gaps"] = trained_gaps
+    out["dp_step_ms"] = cuda_ms(lambda: train_dnn_sharded(mlp, shards, 7, 200), repeats=3) / 200
+    out["whole_step_ms"] = cuda_ms(lambda: train_dnn(mlp, x, y, 7, 200), repeats=3) / 200
+    out["dp_max_abs_err"] = err
+    print(f"[check] sharded DNN stage (4 shards on one card, 20 steps) against the whole-stage "
+          f"kernel and its per-shard plain version: loss[0] rtol 2e-5, losses rtol 5e-3 (atol "
+          f"5e-3 of the trace's largest |loss|), weights rtol=atol=5e-3, max |Δ| {err:.3e}: ok")
+    print(f"[time] DNN stage per step: sharded over 4 shards on one card "
+          f"{out['dp_step_ms']:.4f} ms, whole-stage kernel {out['whole_step_ms']:.4f} ms "
+          f"(CUDA events, 200-step stages, median of 3)")
+
+    # the MC kernel over four shards against one launch; ensemble_moments
+    xt, seed = res.dataset.x_test, default_mc_seed(cfg.seed)
+    out["mc_sharded_ms"] = cuda_ms(lambda: mc_dropout_sharded(mlp, xt, seed, mesh), repeats=3)
+    out["mc_whole_ms"] = cuda_ms(lambda: mc_dropout(mlp, xt, seed), repeats=3)
+    ens8 = init_ensemble(0, 8, device=dev)
+    out["ensemble_moments_ms"] = cuda_ms(lambda: ensemble_moments(ens8, xt), repeats=5)
+    print(f"[time] MC kernel over 4 row shards {out['mc_sharded_ms']:.3f} ms, one launch "
+          f"{out['mc_whole_ms']:.3f} ms (N={xt.shape[0]}, mc_times 2000); ensemble_moments at "
+          f"E=8, N={xt.shape[0]}: {out['ensemble_moments_ms']:.3f} ms")
+
+    # phase 9's commands again with --data-parallel
+    camp = os.path.join(keep_dir, "campaign")
+    flags = ["--normal-mat", os.path.join(camp, "Polar-1.mat"), "--fault-dir", camp]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, mats = os.path.join(tmp, "ck"), {k: os.path.join(tmp, f"{k}.mat")
+                                            for k in ("train", "score")}
+        t_out, t_l, t_wall = run_cli(
+            "train", *flags, "--steps-scale", "0.1", "--resume-dir", os.path.join(tmp, "rd"),
+            "--ckpt-every", "100", "--ckpt", ck, "--mat-out", mats["train"], "--data-parallel")
+        check("data-parallel over 1 devices" in t_out and t_l == campaign_launches["train"],
+              f"cli train --data-parallel launches {t_l}, phase 9 {campaign_launches['train']}")
+        s_out, s_l, s_wall = run_cli("score", "--ckpt", os.path.join(keep_dir, "ck"), *flags,
+                                     "--mat-out", mats["score"], "--data-parallel")
+        check("MC export sharded over 1 devices" in s_out and s_l == campaign_launches["score"],
+              f"cli score --data-parallel launches {s_l}")
+        # a .mat header carries its creation time: the arrays are compared
+        same = [np.array_equal(load_comprehensive_results(mats[k]).array,
+                               load_comprehensive_results(os.path.join(keep_dir, f)).array,
+                               equal_nan=True)
+                for k, f in (("train", "F01_train.mat"), ("score", "F01_scored.mat"))]
+        check(all(same) and _same_files(ck + ".npz", os.path.join(keep_dir, "ck.npz")),
+              f"--data-parallel on one card changed the artifacts {same} or the checkpoint")
+    print(f"[slice] phase 9's cli train (wall {t_wall:.1f} s) and cli score (wall {s_wall:.1f} "
+          "s) with --data-parallel on one card: the same launches; the artifacts equal phase "
+          "9's bitwise and the checkpoint byte for byte: ok")
+    out.update(dp_cli_train_wall_s=t_wall, dp_cli_score_wall_s=s_wall)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -2507,10 +2808,16 @@ def main() -> int:
     # ---- 18. export and serve on the card ----
     t0 = time.perf_counter()
     served = run_export_serve_slice(gmm_fit, keep.name)
-    keep.cleanup()
     served["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 18 (s): {served['phase_s']:.1f}; "
           f"{json.dumps({'export_serve': served})}")
+
+    # ---- 19. ensembles and data-parallel training on the card ----
+    t0 = time.perf_counter()
+    par = run_parallel_slice(dev, train_ds, campaign_launches, keep.name)
+    keep.cleanup()
+    par["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 19 (s): {par['phase_s']:.1f}; {json.dumps({'parallel': par})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
@@ -2527,6 +2834,8 @@ def main() -> int:
          "launches_campaign_slice": {k: campaign_launches[k]["mc_dropout"]
                                      for k in ("train", "score")},
          "launches_run_all": chain["launches"]["mc_dropout"],
+         "launches_sharded_export": par["launches_data_parallel"]["mc_dropout"],
+         "ms_sharded_4": par["mc_sharded_ms"], "ms_whole_same_call": par["mc_whole_ms"],
          "library_ms": None},
         {"name": "residuals", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/residuals.cu",
          "replaces": "pinnfc_tpu/ops/pallas_residuals.py:134",
@@ -2555,6 +2864,10 @@ def main() -> int:
          "bound_is": "3xTF32 on the tensor cores", "bound_fp32_ms": t_bound_fp32,
          "bound_tf32_ms": t_flop / TF32_PEAK * 1e3, "kernel_ms_per_step": t_breakdown,
          "sass_hmma": {k: v for k, v in hmma.items() if not k.startswith("mc_")},
+         "launches_ensemble": par["launches_ensemble"]["train_dnn"],
+         "launches_data_parallel_grad": par["launches_data_parallel"]["train_dnn_grad"],
+         "launches_data_parallel_adam": par["launches_data_parallel"]["train_dnn_adam"],
+         "ms_sharded_4": par["dp_step_ms"], "ms_whole_same_call": par["whole_step_ms"],
          "library_ms": None},
     ]
     print(f"[time] λ-stage ms/step {json.dumps(lam_ms)}")
@@ -2565,5 +2878,34 @@ def main() -> int:
     return 0
 
 
+def kernel_times() -> int:
+    """``--kernel-times``: the whole-stage training kernel per step of a
+    200-step stage on the default campaign's 6,000 training rows (median of 5)
+    and the MC kernel's 2,000 passes over its 15,600 rows (median of 3),
+    flagship weights from ``torch.Generator().manual_seed(0)``, as one line.
+    It calls only what both kernels had when they were ported, so a copy of
+    this file beside another checkout of the port times that tree: parent,
+    change, change, parent in one call compare two trees on one card."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    from pinnfc_tpu_torch.data.combine import combine_and_normalize
+    from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+    from pinnfc_tpu_torch.models.mlp import MLP
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout_sums
+    from pinnfc_tpu_torch.ops.train_dnn import train_dnn
+
+    build.build()
+    build.load()
+    dev = torch.device("cuda")
+    normal, faults = synthesize_stack_data(n_normal=6000, n_fault=800, seed=42)
+    ds = combine_and_normalize(normal, faults, device=dev)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=dev)
+    t = cuda_ms(lambda: train_dnn(mlp, ds.x_train, ds.y_train, 7, 200), repeats=5) / 200
+    m = cuda_ms(lambda: mc_dropout_sums(mlp, ds.x_test, 12345, 2000), repeats=3)
+    print(f"TIMES train_dnn {t:.5f} ms/step, mc_dropout {m:.3f} ms")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_times() if sys.argv[1:] == ["--kernel-times"] else main())

@@ -1,9 +1,10 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
-{train,score,synth,auc,gmm,compare,risk,inspect,identify,explain,whatif,conformal,
-monitor,export-model,report,run-all,serve} ...``.
+{train,score,synth,ensemble,auc,gmm,compare,risk,inspect,identify,explain,whatif,
+conformal,monitor,export-model,report,run-all,serve} ...``.
 
-``train``, ``score``, ``auc``, ``gmm``, ``compare``, ``risk``, ``identify``,
-``explain``, ``whatif``, ``monitor``, ``report``, ``run-all`` and ``serve``
+``train``, ``score``, ``ensemble``, ``auc``, ``gmm``, ``compare``, ``risk``,
+``identify``, ``explain``, ``whatif``, ``monitor``, ``report``, ``run-all`` and
+``serve``
 run on the card by default (``--device cuda``) and exit with an error when
 CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
 ``synth`` writes a synthetic campaign as .mat files; ``risk --backend numpy``
@@ -24,7 +25,7 @@ from pinnfc_tpu_torch.cli.export import cmd_export_model
 from pinnfc_tpu_torch.cli.risk import cmd_risk
 from pinnfc_tpu_torch.cli.run_all import cmd_run_all
 from pinnfc_tpu_torch.cli.serve import cmd_monitor, cmd_serve
-from pinnfc_tpu_torch.cli.train import cmd_score, cmd_synth, cmd_train
+from pinnfc_tpu_torch.cli.train import cmd_ensemble, cmd_score, cmd_synth, cmd_train
 
 _PLOT_DIR_HELP = "write the command's figures (PNG) into this directory"
 
@@ -74,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="real campaign: directory with the 12 fault .mat files "
                         "(<type>_<108|270|405>A.mat, Chinese or ASCII stems)")
     t.add_argument("--plot-dir", default=None, help=_PLOT_DIR_HELP)
+    t.add_argument("--data-parallel", action="store_true",
+                   help="shard batch rows over all visible devices (the CPU once with "
+                        "--device cpu; one device runs the unsharded path)")
     t.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     t.set_defaults(fn=cmd_train)
 
@@ -108,6 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--plot-dir", default=None,
                     help="emit the script-01 figure set for the scored artifact "
                          "(uncertainty/detailed/split/temp)")
+    sc.add_argument("--data-parallel", action="store_true",
+                    help="shard the MC export's rows over all visible devices (the CPU once "
+                         "with --device cpu; one device runs the unsharded path)")
     sc.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sc.set_defaults(fn=cmd_score)
 
@@ -125,6 +132,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the Chinese fault-file stems the reference ships (default: "
                          "ASCII aliases)")
     sy.set_defaults(fn=cmd_synth)
+
+    e = sub.add_parser("ensemble", help="many-seed parallel PINN ensemble")
+    e.add_argument("--members", type=int, default=8)
+    e.add_argument("--steps", type=int, default=2000)
+    e.add_argument("--mesh-shape", default=None, metavar="MxD",
+                   help="hybrid 2-D mesh, e.g. 4x2: members over M devices, each member's "
+                        "batch rows over D devices")
+    e.add_argument("--small", action="store_true")
+    e.add_argument("--seed", type=int, default=42)
+    e.add_argument("--uq", action="store_true",
+                   help="deep-ensemble mixture-moment UQ on the test split, compared against "
+                        "member-0 MC dropout")
+    e.add_argument("--uq-mc-times", type=int, default=256,
+                   help="MC-dropout samples for the --uq comparison")
+    e.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    e.set_defaults(fn=cmd_ensemble)
 
     a = sub.add_parser("auc", help="stage auc over F01_output.mat: the detection AUCs of "
                                    "script 02 (logistic regression per feature group, "

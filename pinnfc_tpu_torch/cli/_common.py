@@ -55,6 +55,19 @@ def _train_config(args) -> TrainConfig:
     return cfg
 
 
+def _data_parallel_mesh(args):
+    """The mesh of ``--data-parallel``: one ``"data"`` axis over every visible
+    device (``parallel/mesh.py::visible_devices``); None without the flag.  Raises
+    RuntimeError when CUDA is asked for and absent."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from pinnfc_tpu_torch.device import resolve_device
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh, visible_devices
+
+    resolve_device(args.device)
+    return make_mesh(devices=visible_devices(args.device))
+
+
 def _print_ckpt_provenance(ckpt_path: str):
     """One line saying which model is about to score, from the checkpoint's
     ``.meta.json`` sidecar if it has one; returns that summary dict (None

@@ -1,4 +1,4 @@
-"""``train``, ``score`` and ``synth`` subcommands (counterpart of
+"""``train``, ``score``, ``synth`` and ``ensemble`` subcommands (counterpart of
 ``pinnfc_tpu/cli/train.py``)."""
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import sys
 
 from pinnfc_tpu_torch.cli._common import (
     _campaign_from_args,
+    _data_parallel_mesh,
     _draw_figures,
     _print_ckpt_provenance,
     _print_lambda_table,
@@ -42,6 +43,13 @@ def cmd_train(args) -> int:
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
+    try:
+        mesh = _data_parallel_mesh(args)
+    except (RuntimeError, ValueError) as e:
+        print(f"train: {e}", file=sys.stderr)
+        return 1
+    if mesh is not None:
+        print(f"data-parallel over {mesh.size} devices")
 
     if args.profile_dir:
         from pinnfc_tpu_torch.utils.observability import trace_profiler
@@ -55,7 +63,7 @@ def cmd_train(args) -> int:
             res = run_training_pipeline(
                 cfg, campaign=campaign, mat_path=args.mat_out, n_normal=n_normal,
                 n_fault=n_fault, verbose=True, checkpoint_dir=args.resume_dir,
-                ckpt_every=args.ckpt_every, device=args.device,
+                ckpt_every=args.ckpt_every, device=args.device, mesh=mesh,
             )
     except (RuntimeError, ValueError) as e:
         print(f"train: {e}", file=sys.stderr)
@@ -187,11 +195,18 @@ def cmd_score(args) -> int:
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
+    try:
+        mesh = _data_parallel_mesh(args)
+    except (RuntimeError, ValueError) as e:
+        print(f"score: {e}", file=sys.stderr)
+        return 1
+    if mesh is not None:
+        print(f"MC export sharded over {mesh.size} devices")
     _print_ckpt_provenance(args.ckpt)
     try:
         res = run_scoring_pipeline(
             args.ckpt, config=cfg, campaign=campaign, mat_path=args.mat_out,
-            n_normal=n_normal, n_fault=n_fault, verbose=True, device=args.device,
+            n_normal=n_normal, n_fault=n_fault, verbose=True, device=args.device, mesh=mesh,
         )
     except (RuntimeError, ValueError) as e:
         print(f"score: {e}", file=sys.stderr)
@@ -222,4 +237,87 @@ def cmd_synth(args) -> int:
           f"{len(normal[0])} rows + {len(faults)} fault segments × {args.n_fault} rows)")
     print("train on it: python -m pinnfc_tpu_torch.cli train "
           f"--normal-mat {cfg.normal_path} --fault-dir {args.out_dir}")
+    return 0
+
+
+def cmd_ensemble(args) -> int:
+    """Many-seed PINN ensemble on the synthetic campaign (all normal rows for
+    training, every row for the test): E members through one DNN stage each
+    (one training-kernel launch per flagship member on the card), over a mesh
+    when more than one device is visible and divides the members, or over
+    ``--mesh-shape MxD`` (members over M devices, each member's rows over
+    D).  Prints the JAX command's tables; ``--uq`` adds the deep-ensemble
+    moments against member 0's MC dropout (``mc_dropout_samples``)."""
+    import numpy as np
+    import torch
+
+    from pinnfc_tpu_torch.data.combine import combine_and_normalize
+    from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
+    from pinnfc_tpu_torch.device import resolve_device
+    from pinnfc_tpu_torch.parallel.ensemble import (
+        ensemble_predict, init_ensemble, train_dnn_ensemble, train_dnn_ensemble_2d)
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh, visible_devices
+
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"ensemble: {e}", file=sys.stderr)
+        return 1
+    normal, faults = synthesize_stack_data(
+        n_normal=1500 if args.small else 6000, n_fault=200 if args.small else 800,
+        seed=args.seed)
+    ds = combine_and_normalize(normal, faults, training_rate=1.0, seed=args.seed, device=dev)
+
+    ens = init_ensemble(args.seed, args.members, device=dev)
+    visible = visible_devices(args.device)
+    n_dev = len(visible)
+    # the dropout seed is seed + 1, as the JAX command keys its dropout
+    if args.mesh_shape:
+        m, d = (int(v) for v in args.mesh_shape.lower().split("x"))
+        mesh = make_mesh(m * d, axis_names=("model", "data"), shape=(m, d), devices=visible)
+        print(f"2-D mesh: {args.members} members over {m} × rows over {d}")
+        ens, losses = train_dnn_ensemble_2d(ens, ds.x_train, ds.y_train, args.seed + 1,
+                                            args.steps, mesh)
+    else:
+        mesh = None
+        if n_dev > 1 and args.members % n_dev == 0:
+            mesh = make_mesh(n_dev, devices=visible)
+            print(f"sharding {args.members} members over {n_dev} devices")
+        ens, losses = train_dnn_ensemble(ens, ds.x_train, ds.y_train, args.seed + 1,
+                                         args.steps, mesh=mesh)
+    preds = ensemble_predict(ens, ds.x_test).cpu().numpy()  # (E, N, 1)
+    losses = losses.cpu().numpy()
+    y = ds.scaler_y.inverse(ds.y_test)[:, 0].cpu().numpy()
+    scale_y = ds.scaler_y.scale.cpu().numpy()
+    min_y = ds.scaler_y.min.cpu().numpy()
+    preds_real = (preds[:, :, 0] - min_y) / scale_y
+    mae = np.abs(preds_real - y[None, :]).mean(axis=1)
+    print(f"{'member':>7} {'final loss':>12} {'test MAE [V]':>13}")
+    for e in range(args.members):
+        print(f"{e:7d} {float(losses[e, -1]):12.4e} {mae[e]:13.4f}")
+    spread = preds_real.std(axis=0).mean()
+    print(f"ensemble spread (mean member std): {spread:.4f} V")
+
+    if args.uq:
+        from pinnfc_tpu_torch.uq.deep_ensemble import ensemble_moments
+        from pinnfc_tpu_torch.uq.mc_dropout import mc_dropout_samples
+
+        de = ensemble_moments(ens, ds.x_test)
+        gen = torch.Generator(dev).manual_seed(args.seed + 2)
+        mc, _ = mc_dropout_samples(ens["mlp"][0], ds.x_test, gen, mc_times=args.uq_mc_times)
+        # de-normalize the stds through the exporter's affine constants
+        # (pipeline/export.py, reference 01:1924-1932)
+        sc = float(scale_y.reshape(-1)[0]) + 1e-12
+        print(f"\ndeep-ensemble UQ (E={args.members}) vs MC dropout "
+              f"(member 0, {args.uq_mc_times} samples):")
+        print(f"{'estimator':>14} {'mean ale [V]':>13} {'mean epi [V]':>13} "
+              f"{'max epi [V]':>12}")
+        for name, s in (("ensemble", de), ("mc-dropout", mc)):
+            ale, epi = s.aleatoric_std.cpu().numpy(), s.epistemic_std.cpu().numpy()
+            print(f"{name:>14} {np.mean(ale) / sc:13.4f} {np.mean(epi) / sc:13.4f} "
+                  f"{np.max(epi) / sc:12.4f}")
+        a, b = de.epistemic_std.cpu().numpy(), mc.epistemic_std.cpu().numpy()
+        if np.std(a) > 0 and np.std(b) > 0:
+            corr = float(np.corrcoef(a, b)[0, 1])
+            print(f"epistemic profile correlation (ensemble vs MC): {corr:.3f}")
     return 0

@@ -87,7 +87,11 @@
 // (width W) keeps its value iff
 //   wang(lr*W + c ^ wang(salt + 0x9E3779B9)) >= thresh,
 //   salt = seed*7919 + blk*104729 + s*15485863 + l   (uint32, wrapping),
-// and a kept value is multiplied by the float32 constant 1/(1-p).  The counter
+// and a kept value is multiplied by the float32 constant 1/(1-p).  A call on a
+// row shard whose first row is global row 256*block0 passes block0: its row r
+// draws the masks of global block block0 + r / 256, so the shards of a split at
+// multiples of 256 rows give the unsplit call's sums, bit for bit (a row's
+// place in its 128-row CTA is the same in both).  The counter
 // lr*W + c is below 2^16, so the hash's first step (x ^ 61) ^ (x >> 16) of
 // x = ctr ^ hs is ctr ^ (hs ^ 61 ^ (hs >> 16)): one XOR with a per-layer key.
 // Within a thread's fragment the column offsets use bits disjoint from the
@@ -502,7 +506,7 @@ __device__ __forceinline__ void sample_layer0(const float* xs, const float* __re
 
 __global__ void __launch_bounds__(STHREADS, 1)
 mc_sample_kernel(const float* __restrict__ x, int n, SampleWeights wt, float* __restrict__ out,
-                 uint32_t seed, int mc_times, uint32_t thresh, float inv_keep) {
+                 uint32_t seed, uint32_t block0, int mc_times, uint32_t thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char ssmem[];
   uint16_t* actA = reinterpret_cast<uint16_t*>(ssmem);
   uint16_t* actB = reinterpret_cast<uint16_t*>(ssmem + ACT_BYTES);
@@ -525,7 +529,7 @@ mc_sample_kernel(const float* __restrict__ x, int n, SampleWeights wt, float* __
   __syncthreads();
 
   const uint32_t lr0 = (uint32_t)row0 % MASK_BLOCK;
-  const uint32_t block_salt = seed * 7919u + ((uint32_t)row0 / MASK_BLOCK) * 104729u;
+  const uint32_t block_salt = seed * 7919u + (block0 + (uint32_t)row0 / MASK_BLOCK) * 104729u;
   float s_d = 0.0f, s_d2 = 0.0f, s_lv = 0.0f;
   for (int s = 0; s < mc_times; ++s) {
     const uint32_t salt = block_salt + (uint32_t)s * 15485863u;
@@ -596,14 +600,16 @@ int set_smem(Kernel kernel, size_t bytes) {
 // read: the base pass has no variance head, and the sample passes read the
 // bf16 copies.  out is (n, 4):
 // mc_base_kernel writes column 0, mc_sample_kernel reads it and writes 1-3.
+// block0: the global mask block of x's first row (0 for a whole call).
 extern "C" int pinnfc_mc_dropout(const float* x, int n, const float* w0, const float* b0,
                                  const float* w1, const float* b1, const float* w2,
                                  const float* b2, const float* mw, const float* mb,
                                  const float* v0w, const float* v0b, const float* v1w,
                                  const float* v1b, const float* v2w, const float* v2b,
                                  const uint16_t* w1h, const uint16_t* w2h, const uint16_t* v0wh,
-                                 const uint16_t* v1wh, float* out, uint32_t seed, int mc_times,
-                                 uint32_t thresh, float inv_keep, void* stream) {
+                                 const uint16_t* v1wh, float* out, uint32_t seed,
+                                 uint32_t block0, int mc_times, uint32_t thresh, float inv_keep,
+                                 void* stream) {
   if (n <= 0) return 0;
   int err = set_smem(mc_base_kernel, BSMEM_BYTES);
   if (err == 0) err = set_smem(mc_sample_kernel, SSMEM_BYTES);
@@ -615,6 +621,6 @@ extern "C" int pinnfc_mc_dropout(const float* x, int n, const float* w0, const f
   if (err != 0) return err;
   const SampleWeights sw{w0, b0, b1, b2, mw, mb, v0b, v1b, v2w, v2b, w1h, w2h, v0wh, v1wh};
   mc_sample_kernel<<<(n + SROWS - 1) / SROWS, STHREADS, SSMEM_BYTES, s>>>(
-      x, n, sw, out, seed, mc_times, thresh, inv_keep);
+      x, n, sw, out, seed, block0, mc_times, thresh, inv_keep);
   return (int)cudaGetLastError();
 }

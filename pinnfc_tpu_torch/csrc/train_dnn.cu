@@ -82,6 +82,16 @@
 // float32 constant 1/(1-p).  A CTA's rows may straddle two mask blocks.  Rows
 // past n take no part in the loss or the gradients, and the mean divides by
 // the true n.  tanhf/logf/expf/log1pf are the accurate versions (no fast math).
+//
+// Data-parallel steps.  A whole-stage launch cannot sum gradients across
+// devices, so two more entries split a step: pinnfc_train_dnn_grad runs
+// kernels 1-3 for one row shard (its rows are global rows row_off ..
+// row_off + n - 1 for the masks, and inv_n is 1 / the rows of all shards, so
+// the shard's gradient and loss are its terms of the whole mean), and
+// pinnfc_train_dnn_adam runs kernel 4 from the gradient summed over the
+// shards.  The caller sums the shards' gradients, losses and flags in a fixed
+// order between the two.  The whole-stage entry is the same code at
+// row_off = 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,6 +173,7 @@ struct Step {
   Scratch s;
   uint32_t seed;
   int t;
+  int row_off;  // global row of row 0: the masks' rows
   uint32_t thresh;
   float inv_keep;
   float inv_n;
@@ -351,7 +362,8 @@ __device__ __forceinline__ void store_split4(float* hi, int plane, const float (
 }
 
 // The hashed salts of one layer's mask in the (at most two) mask blocks that
-// a CTA's rows touch: global rows below `split` lie in the first.
+// a CTA's rows touch (global rows: local row + row_off): global rows below
+// `split` lie in the first.
 struct LayerSalt {
   uint32_t first, second;
   int split;
@@ -387,7 +399,8 @@ __device__ __forceinline__ void fwd_layer(const Step& st, const float* in,
     const float4 b = __ldg(reinterpret_cast<const float4*>(bias + c));
     float hd[4] = {tanhf(a.x + b.x), tanhf(a.y + b.y), tanhf(a.z + b.z), tanhf(a.w + b.w)};
     if (DROP) {
-      const uint32_t s = hs.at(row), lr = (uint32_t)row % MASK_BLOCK;
+      const int grow = row + st.row_off;
+      const uint32_t s = hs.at(grow), lr = (uint32_t)grow % MASK_BLOCK;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         hd[q] = keep(s, lr, N, c + q, st.thresh) ? hd[q] * st.inv_keep : 0.0f;
@@ -439,7 +452,8 @@ __device__ __forceinline__ void bwd_layer(const Step& st, const float* __restric
                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float h[4] = {hv.x * keep_scale, hv.y * keep_scale, hv.z * keep_scale,
                         hv.w * keep_scale};
-    const uint32_t s = hs.at(row), lr = (uint32_t)row % MASK_BLOCK;
+    const int grow = row + st.row_off;
+    const uint32_t s = hs.at(grow), lr = (uint32_t)grow % MASK_BLOCK;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       d[q] = keep(s, lr, N, c + q, st.thresh) ? d[q] * st.inv_keep : 0.0f;
@@ -500,7 +514,7 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
 
   // mask salts of the layers (0..2 the trunk, 3 the first variance layer) in
   // the mask blocks of this CTA's rows
-  const uint32_t blk = (uint32_t)row0 / MASK_BLOCK;
+  const uint32_t blk = (uint32_t)(row0 + st.row_off) / MASK_BLOCK;
   const uint32_t base = st.seed * 2654435761u + (uint32_t)st.t * 40503u;
   LayerSalt hs[4];
 #pragma unroll
@@ -883,6 +897,54 @@ size_t carve(float* work, int n, Workspace* w) {
   return off;
 }
 
+// The kernels' arguments for n rows of x and y: the workspace carved, the
+// weight-gradient pass and the step (row_off 0, t 0); returns the first error
+// of raising the kernels' shared-memory limits.
+int prepare(const float* x, const float* y, int n, const float* params, float* work,
+            uint32_t seed, uint32_t thresh, float inv_keep, float inv_n, Workspace* w,
+            GradPass* gp, Step* st) {
+  cudaError_t err = cudaFuncSetAttribute(fwd_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GSMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  carve(work, n, w);
+  const float* a_src[NT] = {x, w->s.h1d, w->s.h2d, w->s.h3d, w->s.h3d, w->s.t1d, w->s.t2};
+  const float* d_src[NT] = {w->s.da1, w->s.da2, w->s.da3, w->s.dpred, w->s.dq1, w->s.dq2,
+                            w->s.dq3};
+  const int ks[NT] = {D_IN, H, H, H, H, V0, V1};
+  const int js[NT] = {H, H, H, 1, V0, V1, 1};
+  const int offs[NT] = {OFF_W1, OFF_W2, OFF_W3, OFF_WM, OFF_V1, OFF_V2, OFF_V3};
+  gp->unit0[0] = 0;
+  for (int i = 0; i < NT; ++i) {
+    gp->g[i] = GradTensor{a_src[i], d_src[i], ks[i], js[i], offs[i]};
+    const int units = ((ks[i] + GT - 1) / GT) * ((js[i] + GT - 1) / GT);
+    gp->unit0[i + 1] = gp->unit0[i] + units;
+  }
+  gp->part = w->part;
+  gp->n = n;
+  gp->seg_rows = ((n + SPLIT - 1) / SPLIT + GR - 1) / GR * GR;
+
+  st->x = x;
+  st->y = y;
+  st->n = n;
+  st->p = params;
+  st->w2t = w->tr.w2t;
+  st->w3t = w->tr.w3t;
+  st->v1t = w->tr.v1t;
+  st->v2t = w->tr.v2t;
+  st->s = w->s;
+  st->seed = seed;
+  st->t = 0;
+  st->row_off = 0;
+  st->thresh = thresh;
+  st->inv_keep = inv_keep;
+  st->inv_n = inv_n;
+  return 0;
+}
+
 }  // namespace
 
 // Layout of the flat parameter buffer: out[i] (i < 7) is the offset of tensor
@@ -918,51 +980,16 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   // wgrad_kernel reads x's rows as float4
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err = cudaFuncSetAttribute(fwd_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GSMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
   Workspace w;
-  carve(work, n, &w);
+  GradPass gp;
+  Step st;
+  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &st);
+  if (status != 0) return status;
   int* flags = ints;
   int* counts = ints + n_iter;
 
-  GradPass gp;
-  const float* a_src[NT] = {x, w.s.h1d, w.s.h2d, w.s.h3d, w.s.h3d, w.s.t1d, w.s.t2};
-  const float* d_src[NT] = {w.s.da1, w.s.da2, w.s.da3, w.s.dpred, w.s.dq1, w.s.dq2, w.s.dq3};
-  const int ks[NT] = {D_IN, H, H, H, H, V0, V1};
-  const int js[NT] = {H, H, H, 1, V0, V1, 1};
-  const int offs[NT] = {OFF_W1, OFF_W2, OFF_W3, OFF_WM, OFF_V1, OFF_V2, OFF_V3};
-  gp.unit0[0] = 0;
-  for (int i = 0; i < NT; ++i) {
-    gp.g[i] = GradTensor{a_src[i], d_src[i], ks[i], js[i], offs[i]};
-    const int units = ((ks[i] + GT - 1) / GT) * ((js[i] + GT - 1) / GT);
-    gp.unit0[i + 1] = gp.unit0[i] + units;
-  }
-  gp.part = w.part;
-  gp.n = n;
-  gp.seg_rows = ((n + SPLIT - 1) / SPLIT + GR - 1) / GR * GR;
-
-  Step st;
-  st.x = x;
-  st.y = y;
-  st.n = n;
-  st.p = params;
-  st.w2t = w.tr.w2t;
-  st.w3t = w.tr.w3t;
-  st.v1t = w.tr.v1t;
-  st.v2t = w.tr.v2t;
-  st.s = w.s;
-  st.seed = seed;
-  st.thresh = thresh;
-  st.inv_keep = inv_keep;
-  st.inv_n = inv_n;
-
   // partial tiles never cover the layout's gaps: zero them once
-  err = cudaMemsetAsync(w.part, 0, sizeof(float) * (size_t)SPLIT * N_PARAM, stream);
+  cudaError_t err = cudaMemsetAsync(w.part, 0, sizeof(float) * (size_t)SPLIT * N_PARAM, stream);
   if (err != cudaSuccess) return (int)err;
   const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
   transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
@@ -981,5 +1008,56 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
       if (err != cudaSuccess) return (int)err;
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// Step t of a stage on one row shard of a data-parallel step, on `stream`:
+// the transposed weight copies from params, then kernels 1-3 over the shard's
+// n rows, which are global rows row_off .. row_off + n - 1 for the masks.
+// grad (the layout above) receives the shard's gradient of the whole mean
+// loss, loss[0] the shard's rows' loss sum times inv_n (1 / the rows of all
+// shards), flag[0] 1 if either is not finite (else 0).  work:
+// workspace_floats(n) floats.  Returns the first CUDA error (0 on success).
+extern "C" int pinnfc_train_dnn_grad(const float* x, const float* y, int n, int row_off,
+                                     const float* params, float* work, float* grad,
+                                     float* loss, int* flag, uint32_t seed, int t,
+                                     uint32_t thresh, float inv_keep, float inv_n,
+                                     void* stream_ptr) {
+  if (n <= 0 || row_off < 0) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  Workspace w;
+  GradPass gp;
+  Step st;
+  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &st);
+  if (status != 0) return status;
+  st.t = t;
+  st.row_off = row_off;
+  cudaError_t err = cudaMemsetAsync(w.part, 0, sizeof(float) * (size_t)SPLIT * N_PARAM, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(flag, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
+  transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
+  fwd_bwd_kernel<<<(n + ROWS - 1) / ROWS, THREADS, SMEM_BYTES, stream>>>(st);
+  wgrad_kernel<<<dim3(gp.unit0[NT], SPLIT), THREADS, GSMEM_BYTES, stream>>>(gp);
+  finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, grad, w.s.lossrow, n, inv_n,
+                                                        loss, flag, 0);
+  return (int)cudaGetLastError();
+}
+
+// The Adam + StepLR update of a data-parallel step on `stream`, from grad
+// (the layout above), the gradient summed over the shards.  ints: 3 int32:
+// the shards' flags summed (the step is skipped when skip and it is not 0),
+// the Adam count before the step, and the count after it (written).  params,
+// m, v as in pinnfc_train_dnn; work: a workspace of pinnfc_train_dnn_grad,
+// whose transposed weight copies are refreshed.
+extern "C" int pinnfc_train_dnn_adam(float* params, float* m, float* v, const float* grad,
+                                     float* work, int* ints, float lr, int lr_step,
+                                     float lr_gamma, int skip, void* stream_ptr) {
+  Workspace w;
+  carve(work, 0, &w);
+  const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
+  adam_kernel<<<pblocks, THREADS, 0, (cudaStream_t)stream_ptr>>>(
+      params, m, v, grad, w.tr, ints, ints + 1, 0, lr, lr_step, lr_gamma, skip);
   return (int)cudaGetLastError();
 }

@@ -125,8 +125,14 @@ def draw_keep_masks(mlp: MLP, shape: Sequence[int], p: float,
             for w in mlp.dropout_widths()]
 
 
-def aleatoric_loss(y_true, y_pred, log_var, reg_weight: float = 0.01):
-    """Heteroscedastic Gaussian NLL + L1 logvar regularizer (01:916-927)."""
+def aleatoric_loss(y_true, y_pred, log_var, reg_weight: float = 0.01,
+                   n_total: Optional[int] = None):
+    """Heteroscedastic Gaussian NLL + L1 logvar regularizer (01:916-927).
+    With ``n_total``, a row shard's term of that loss over ``n_total`` rows:
+    its rows' sums of both parts divided by ``n_total``."""
     precision = torch.exp(-log_var)
-    nll = torch.mean(0.5 * precision * (y_true - y_pred) ** 2 + 0.5 * log_var)
-    return nll + reg_weight * torch.mean(torch.abs(log_var))
+    if n_total is None:
+        nll = torch.mean(0.5 * precision * (y_true - y_pred) ** 2 + 0.5 * log_var)
+        return nll + reg_weight * torch.mean(torch.abs(log_var))
+    nll = torch.sum(0.5 * precision * (y_true - y_pred) ** 2 + 0.5 * log_var)
+    return (nll + reg_weight * torch.sum(torch.abs(log_var))) / n_total

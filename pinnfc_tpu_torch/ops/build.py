@@ -28,10 +28,10 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 FILE_FLAGS = {"residuals.cu": ["-fmad=false"]}
 
 # C signature of pinnfc_mc_dropout: x, n, 14 float32 weights and biases, 4 bf16
-# wide weights, out, seed, mc_times, thresh, inv_keep, stream
+# wide weights, out, seed, block0, mc_times, thresh, inv_keep, stream
 MC_DROPOUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, *([ctypes.c_void_p] * 18),
-                       ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_uint32,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                       ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
 
 # csrc/residuals.cu's ResidualScalars: one pointer to each scalar tensor, of this
 # many float32 values, in this order
@@ -43,8 +43,11 @@ class ResidualScalars(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in RESIDUAL_SCALAR_SIZES]
 
 
-# launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0, "train_dnn": 0}
+# launches per kernel entry; each wrapper adds one where it launches its kernel
+# (train_dnn_grad and train_dnn_adam: the per-step entries of csrc/train_dnn.cu
+# that a data-parallel DNN stage runs)
+LAUNCHES: Dict[str, int] = {"mc_dropout": 0, "residuals": 0, "train_dnn": 0,
+                            "train_dnn_grad": 0, "train_dnn_adam": 0}
 
 
 def reset_launches() -> None:
@@ -139,6 +142,13 @@ def load() -> ctypes.CDLL:
     handle.pinnfc_train_dnn.argtypes = [p, p, i, p, p, p, p, p, p, u, i, i, f, i, f, u, f, f,
                                         i, p]
     handle.pinnfc_train_dnn.restype = i
+    # x, y, n, row_off, params, work, grad, loss, flag, seed, t, thresh, inv_keep,
+    # inv_n, stream
+    handle.pinnfc_train_dnn_grad.argtypes = [p, p, i, i, p, p, p, p, p, u, i, u, f, f, p]
+    handle.pinnfc_train_dnn_grad.restype = i
+    # params, m, v, grad, work, ints, lr, lr_step, lr_gamma, skip, stream
+    handle.pinnfc_train_dnn_adam.argtypes = [p, p, p, p, p, p, f, i, f, i, p]
+    handle.pinnfc_train_dnn_adam.restype = i
     _Library.handle = handle
     return handle
 
@@ -147,3 +157,16 @@ def check(status: int, kernel: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a C entry."""
     if status != 0:
         raise RuntimeError(f"CUDA kernel '{kernel}' failed to launch (cudaError {status})")
+
+
+def launch(entry, kernel: str, device, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the current stream of the
+    CUDA ``device``, with that device made the current one (an entry raises
+    its kernels' shared-memory limits and launches on the current device, so
+    a tensor on another card than the current one needs this), and raise on
+    its error."""
+    import torch
+
+    with torch.cuda.device(device):
+        status = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(status, kernel)

@@ -6,7 +6,11 @@ Both produce, per row, [base, Σ(pred−base), Σ(pred−base)², Σlogvar] over
 counter-based Wang hash, bit for bit: global row r lies in mask block
 ``r // 256`` at local row ``r % 256``, and element (lr, c) of layer l (width W)
 is kept iff ``wang(lr·W + c ^ wang(salt + 0x9E3779B9)) >= thresh`` with
-``salt = seed·7919 + blk·104729 + s·15485863 + l`` in wrapping uint32.
+``salt = seed·7919 + blk·104729 + s·15485863 + l`` in wrapping uint32.  A
+call on a row shard whose first row is global row ``256·block0`` passes
+``block0``: its row r draws the masks of global block ``block0 + r // 256``, so
+the shards of a split at multiples of 256 rows give the sums of one call over
+all rows (rows do not interact).
 
 Precision.  The TPU kernel runs its base pass at ``Precision.HIGHEST`` and its
 sample passes at the default matmul precision, which is one bf16 pass on a
@@ -142,16 +146,17 @@ def sample_pass(mlp: MLP, x: torch.Tensor, local_rows: torch.Tensor, salt: torch
 @torch.no_grad()
 def mc_dropout_sums_plain(
     mlp: MLP, x: torch.Tensor, seed: int, mc_times: int = 2000, dropout: float = 0.4,
-    sample_dtype: torch.dtype = torch.float32,
+    sample_dtype: torch.dtype = torch.float32, block0: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version: (N, 4) [base, Σd, Σd², Σlogvar], any topology.
     The base pass is float32; the sample passes run in ``sample_dtype``
-    (bf16: the kernel's rounding contract, see the module docstring)."""
+    (bf16: the kernel's rounding contract, see the module docstring).  Row r
+    draws the masks of global mask block ``block0 + r // 256``."""
     thresh, inv_keep = dropout_constants(dropout)
     n = x.shape[0]
     rows = torch.arange(n, dtype=torch.int64, device=x.device)
     local = rows % MASK_BLOCK
-    block_salt = (int(seed) * 7919 + (rows // MASK_BLOCK) * 104729) & _U32
+    block_salt = (int(seed) * 7919 + (int(block0) + rows // MASK_BLOCK) * 104729) & _U32
 
     base = mlp(x)[0][:, 0]
     s_d = torch.zeros_like(base)
@@ -178,15 +183,19 @@ def _check_inputs(mlp: MLP, x: torch.Tensor) -> None:
 
 
 def mc_dropout_sums(
-    mlp: MLP, x: torch.Tensor, seed: int, mc_times: int = 2000, dropout: float = 0.4
+    mlp: MLP, x: torch.Tensor, seed: int, mc_times: int = 2000, dropout: float = 0.4,
+    block0: int = 0,
 ) -> torch.Tensor:
     """(N, 4) [base, Σd, Σd², Σlogvar]: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor.  ``block0``: the global mask block of x's
+    first row (a row shard's; 0 for all rows)."""
     _check_inputs(mlp, x)
     if mc_times < 1:
         raise ValueError(f"mc_times must be >= 1, got {mc_times}")
+    if not 0 <= block0 <= _U32:
+        raise ValueError(f"block0 must be a uint32, got {block0}")
     if x.device.type == "cpu":
-        return mc_dropout_sums_plain(mlp, x, seed, mc_times, dropout)
+        return mc_dropout_sums_plain(mlp, x, seed, mc_times, dropout, block0=block0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not mlp.is_flagship():
@@ -194,13 +203,13 @@ def mc_dropout_sums(
             f"the MC-dropout kernel covers the flagship topology (8, 256, 256, 256, 1) "
             f"only; this MLP is {mlp.layers}"
         )
-    out = launch_kernel(build.load(), mlp, x, seed, mc_times, dropout)
+    out = launch_kernel(build.load(), mlp, x, seed, mc_times, dropout, block0)
     build.LAUNCHES["mc_dropout"] += 1
     return out
 
 
 def launch_kernel(lib, mlp: MLP, x: torch.Tensor, seed: int, mc_times: int,
-                  dropout: float) -> torch.Tensor:
+                  dropout: float, block0: int = 0) -> torch.Tensor:
     """Launch ``pinnfc_mc_dropout`` of the loaded library ``lib`` on CUDA
     tensors (flagship MLP, inputs checked by the caller); returns the (N, 4)
     sums."""
@@ -214,12 +223,11 @@ def launch_kernel(lib, mlp: MLP, x: torch.Tensor, seed: int, mc_times: int,
         weights += [lin.weight.detach().t().contiguous(), lin.bias.detach().contiguous()]
     wide = [lin.weight.detach().t().to(torch.bfloat16).contiguous() for lin in wide_linears(mlp)]
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.pinnfc_mc_dropout(
+    build.launch(
+        lib.pinnfc_mc_dropout, "mc_dropout", x.device,
         x.data_ptr(), n, *[w.data_ptr() for w in weights], *[w.data_ptr() for w in wide],
-        out.data_ptr(), int(seed) & _U32, int(mc_times), thresh, inv_keep, stream,
+        out.data_ptr(), int(seed) & _U32, int(block0), int(mc_times), thresh, inv_keep,
     )
-    build.check(status, "mc_dropout")
     return out
 
 

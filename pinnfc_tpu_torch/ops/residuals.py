@@ -123,10 +123,8 @@ def launch_residuals(x: torch.Tensor, u: torch.Tensor,
     out = torch.empty((8, n), dtype=torch.float32, device=x.device)
     lib = build.load()
     ptrs = build.ResidualScalars(*(scalars[k].data_ptr() for k in build.RESIDUAL_SCALAR_SIZES))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.pinnfc_residuals(x.data_ptr(), u_flat.data_ptr(), u_flat.stride(0), ptrs,
-                                  out.data_ptr(), n, stream)
-    build.check(status, "residuals")
+    build.launch(lib.pinnfc_residuals, "residuals", x.device, x.data_ptr(), u_flat.data_ptr(),
+                 u_flat.stride(0), ptrs, out.data_ptr(), n)
     build.LAUNCHES["residuals"] += 1
     return out
 
@@ -135,5 +133,4 @@ def launch_floor(n: int, device) -> None:
     """Launch the empty kernel on the grid of ``launch_residuals`` for ``n``
     rows: the launch floor under the kernel's time (timing only; not counted)."""
     lib = build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    build.check(lib.pinnfc_residuals_floor(n, stream), "residuals_floor")
+    build.launch(lib.pinnfc_residuals_floor, "residuals_floor", device, n)

@@ -25,6 +25,13 @@ state (moments and count) draws the masks of steps t0, t0 + 1, … and continues
 the StepLR staircase and the bias correction from the carried count, so the
 chunks of a stage walk the trajectory of the whole stage.
 
+A stage can also run data-parallel over row shards (``train_dnn_sharded``):
+per step, each shard's gradient and loss terms of the whole mean (its rows'
+masks by global row, divided by the rows of all shards), their sum in shard
+order (``parallel/mesh.py::all_sum``), then one Adam step.  On CUDA tensors
+that is one ``pinnfc_train_dnn_grad`` launch per shard and one
+``pinnfc_train_dnn_adam``; on CPU tensors ``loss_and_grads`` per shard.
+
 ``train_dnn`` launches the kernel for CUDA tensors (flagship topology only)
 and runs the plain version only for CPU tensors.
 """
@@ -49,10 +56,10 @@ MASK_BLOCK = 512  # rows per mask block: part of the random stream's contract
 REG_WEIGHT = 0.01  # |logvar| regularizer of the loss (01:916-927)
 
 
-def step_salts(n: int, seed: int, t: int, device) -> torch.Tensor:
-    """(n,) int64: the salt of layer 0 for every row at step ``t`` (add l for
-    layer l)."""
-    rows = torch.arange(n, dtype=torch.int64, device=device)
+def step_salts(n: int, seed: int, t: int, device, row0: int = 0) -> torch.Tensor:
+    """(n,) int64: the salt of layer 0 for global rows row0 .. row0 + n − 1 at
+    step ``t`` (add l for layer l)."""
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
     base = (int(seed) * 2654435761 + int(t) * 40503) & _U32
     return (base + (rows // MASK_BLOCK) * 7919) & _U32
 
@@ -68,16 +75,17 @@ def _mask_columns(widths: Tuple[int, ...], device: torch.device) -> Tuple[torch.
 
 
 def keep_masks(n: int, widths: Sequence[int], seed: int, t: int, thresh: int,
-               device) -> List[torch.Tensor]:
-    """Bool keep masks, (n, width) per dropout layer, for step ``t``: layer l's
-    mask is ``random_bits(local, width_l, salt + l) >= thresh``, computed for
-    all layers in one pass over their columns side by side (one row key per
-    row and layer, then one hash per element)."""
+               device, row0: int = 0) -> List[torch.Tensor]:
+    """Bool keep masks, (n, width) per dropout layer, for step ``t`` and global
+    rows row0 .. row0 + n − 1: layer l's mask is ``random_bits(local, width_l,
+    salt + l) >= thresh``, computed for all layers in one pass over their
+    columns side by side (one row key per row and layer, then one hash per
+    element)."""
     widths = tuple(int(w) for w in widths)
     device = torch.device(device)
     layer, width, col = _mask_columns(widths, device)
-    local = torch.arange(n, dtype=torch.int64, device=device) % MASK_BLOCK
-    salt = step_salts(n, seed, t, device)
+    local = torch.arange(row0, row0 + n, dtype=torch.int64, device=device) % MASK_BLOCK
+    salt = step_salts(n, seed, t, device, row0)
     layers = torch.arange(len(widths), dtype=torch.int64, device=device)
     row_keys = wang_hash((salt[:, None] + layers[None, :] + _GOLDEN) & _U32)
     ctr = local[:, None] * width[None, :] + col[None, :]
@@ -178,10 +186,7 @@ def unflat_weights(flat: torch.Tensor, mlp: MLP) -> List[torch.Tensor]:
     return [v.view(s) for v, s in zip(torch.split(flat, sizes), shapes)]
 
 
-def check_stage_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, t0: int,
-                       state: Optional[AdamState]) -> None:
-    """Validate a stage call: x, y and the weights float32 on one device, the
-    step counts, and a carried Adam state over ``flat_weights``' layout."""
+def _check_rows(mlp: MLP, x: torch.Tensor, y: torch.Tensor) -> None:
     n = x.shape[0] if x.dim() == 2 else -1
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != mlp.layers[0] or n < 1:
         raise ValueError(f"x must be float32 (N, {mlp.layers[0]}) with N >= 1, "
@@ -189,6 +194,13 @@ def check_stage_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, 
     if y.dtype != torch.float32 or tuple(y.shape) != (n, 1) or y.device != x.device:
         raise ValueError(f"y must be float32 ({n}, 1) on x's device, got {y.dtype} "
                          f"{tuple(y.shape)} on {y.device}")
+
+
+def check_stage_inputs(mlp: MLP, x: torch.Tensor, y: torch.Tensor, n_iter: int, t0: int,
+                       state: Optional[AdamState]) -> None:
+    """Validate a stage call: x, y and the weights float32 on one device, the
+    step counts, and a carried Adam state over ``flat_weights``' layout."""
+    _check_rows(mlp, x, y)
     for p in mlp.parameters():
         if p.device != x.device or p.dtype != torch.float32:
             raise ValueError("MLP weights must be float32 on x's device")
@@ -214,9 +226,40 @@ def _inv_n(n: int) -> float:
 # (weights of ``unflat_weights``, keep masks or None) -> (loss, gradients)
 GradFn = Callable[[List[torch.Tensor], Optional[List[torch.Tensor]]],
                   Tuple[torch.Tensor, Sequence[torch.Tensor]]]
+# (weights of ``unflat_weights``, step index t) -> (loss, flat gradient)
+StepGradFn = Callable[[List[torch.Tensor], int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def flat_grad(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([gi.reshape(-1) for gi in grads])
 
 
 @torch.no_grad()
+def adam_steps(
+    mlp: MLP, n_iter: int, step_grad: StepGradFn, lr: float = 0.01, lr_step: int = 1000,
+    lr_gamma: float = 0.8, skip_nonfinite: bool = False, t0: int = 0,
+    state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Steps t0 .. t0 + n_iter − 1 of a DNN stage on the MLP's device: per
+    step the loss and flat gradient of ``step_grad``, and Adam + StepLR over
+    the flat layout of ``flat_weights`` from the carried ``state`` (fresh when
+    None); with ``skip_nonfinite`` a step with a non-finite loss or gradient
+    keeps the weights and the state.  The loss is taken before its step's
+    update."""
+    flat = flat_weights(mlp)
+    state = adam_init(flat) if state is None else state._replace(
+        count=state.count.reshape(()).to(torch.int64))
+    losses = []
+    for t in range(t0, t0 + n_iter):
+        loss, g = step_grad(unflat_weights(flat, mlp), t)
+        new = adam_step(flat, g, state, lr, lr_step, lr_gamma)
+        if skip_nonfinite:
+            new = keep_if_nonfinite(all_finite(loss, g), new, (flat, state))
+        flat, state = new
+        losses.append(loss)
+    return DnnStageOut(mlp_with_weights(mlp, unflat_weights(flat, mlp)), torch.stack(losses), state)
+
+
 def stage_steps(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, grad_fn: GradFn,
     lr: float = 0.01, lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
@@ -224,30 +267,20 @@ def stage_steps(
 ) -> DnnStageOut:
     """Steps t0 .. t0 + n_iter − 1 of a DNN stage, step by step, any
     topology, on x's device: per step the hash masks of step t
-    (``keep_masks``), the loss and gradients from ``grad_fn``, and Adam +
-    StepLR over the flat layout of ``flat_weights`` from the carried ``state``
-    (fresh when None); with ``skip_nonfinite`` a step with a non-finite loss
-    or gradient keeps the weights and the state.  The loss is taken before its
-    step's update.  The one step loop of the plain version and of the
+    (``keep_masks``), the loss and gradients from ``grad_fn``, and the Adam
+    loop of ``adam_steps``.  The one step loop of the plain version and of the
     autograd stage, so a stage run in chunks takes the steps of the whole
     stage, bit for bit, on either."""
     check_stage_inputs(mlp, x, y, n_iter, t0, state)
     thresh, _ = dropout_constants(dropout_p)
     n, widths = x.shape[0], mlp.dropout_widths()
-    flat = flat_weights(mlp)
-    state = adam_init(flat) if state is None else state._replace(
-        count=state.count.reshape(()).to(torch.int64))
-    losses = []
-    for t in range(t0, t0 + n_iter):
+
+    def step_grad(ws, t):
         keep = keep_masks(n, widths, seed, t, thresh, x.device) if thresh > 0 else None
-        loss, grads = grad_fn(unflat_weights(flat, mlp), keep)
-        g = torch.cat([gi.reshape(-1) for gi in grads])
-        new = adam_step(flat, g, state, lr, lr_step, lr_gamma)
-        if skip_nonfinite:
-            new = keep_if_nonfinite(all_finite(loss, g), new, (flat, state))
-        flat, state = new
-        losses.append(loss)
-    return DnnStageOut(mlp_with_weights(mlp, unflat_weights(flat, mlp)), torch.stack(losses), state)
+        loss, grads = grad_fn(ws, keep)
+        return loss, flat_grad(grads)
+
+    return adam_steps(mlp, n_iter, step_grad, lr, lr_step, lr_gamma, skip_nonfinite, t0, state)
 
 
 def train_dnn_stage_plain(
@@ -289,6 +322,47 @@ def _flat_layout(buf: torch.Tensor, ws: Sequence[torch.Tensor],
                       for off, w, b in zip(offsets, ws[0::2], ws[1::2])])
 
 
+def _layout(lib) -> Tuple[List[int], int]:
+    """The kernel buffer's block offsets (one per weight/bias pair) and size."""
+    layout = (ctypes.c_int * 8)()
+    lib.pinnfc_train_dnn_layout(layout)
+    return list(layout)[:7], layout[7]
+
+
+class _KernelState(NamedTuple):
+    """A stage's parameters and Adam moments in the kernel's buffer layout."""
+
+    ws: List[torch.Tensor]  # mlp_weights of the MLP the stage starts from
+    offsets: List[int]
+    params: torch.Tensor
+    m: torch.Tensor
+    v: torch.Tensor
+
+
+def _to_kernel(lib, mlp: MLP, state: Optional[AdamState]) -> _KernelState:
+    """``mlp``'s weights and the carried Adam ``state``'s moments (zeros when
+    None) in the kernel's buffer layout, on the MLP's device."""
+    offsets, total = _layout(lib)
+    ws = mlp_weights(mlp)
+    params = _kernel_layout(flat_weights(mlp), ws, offsets, total)
+    if state is None:
+        return _KernelState(ws, offsets, params, torch.zeros_like(params),
+                            torch.zeros_like(params))
+    return _KernelState(ws, offsets, params, _kernel_layout(state.m, ws, offsets, total),
+                        _kernel_layout(state.v, ws, offsets, total))
+
+
+def _stage_out(mlp: MLP, ks: _KernelState, count: torch.Tensor,
+               losses: torch.Tensor) -> DnnStageOut:
+    """Inverse of ``_to_kernel`` after the steps: the trained copy of ``mlp``,
+    the losses and the Adam state (``flat_weights``' layout, the count as
+    int64)."""
+    new_state = AdamState(_flat_layout(ks.m, ks.ws, ks.offsets),
+                          _flat_layout(ks.v, ks.ws, ks.offsets), count.to(torch.int64))
+    trained = unflat_weights(_flat_layout(ks.params, ks.ws, ks.offsets), mlp)
+    return DnnStageOut(mlp_with_weights(mlp, trained), losses, new_state)
+
+
 def train_dnn(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
@@ -313,17 +387,7 @@ def train_dnn(
     x, y = x.contiguous(), y.contiguous()
     n, dev = x.shape[0], x.device
     lib = build.load()
-    layout = (ctypes.c_int * 8)()
-    lib.pinnfc_train_dnn_layout(layout)
-    offsets, total = list(layout)[:7], layout[7]
-    ws = mlp_weights(mlp)
-    params = _kernel_layout(flat_weights(mlp), ws, offsets, total)
-    if state is None:
-        m = torch.zeros_like(params)
-        v = torch.zeros_like(params)
-    else:
-        m = _kernel_layout(state.m, ws, offsets, total)
-        v = _kernel_layout(state.v, ws, offsets, total)
+    ks = _to_kernel(lib, mlp, state)
     work = torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(n)), dtype=torch.float32,
                        device=dev)
     # the step flags, then the Adam count before each step: counts[0] =
@@ -332,16 +396,151 @@ def train_dnn(
     if state is not None:
         ints[n_iter:n_iter + 1].copy_(state.count.reshape(1))
     losses = torch.empty(n_iter, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.pinnfc_train_dnn(
-        x.data_ptr(), y.data_ptr(), n, params.data_ptr(), m.data_ptr(), v.data_ptr(),
+    build.launch(
+        lib.pinnfc_train_dnn, "train_dnn", dev,
+        x.data_ptr(), y.data_ptr(), n, ks.params.data_ptr(), ks.m.data_ptr(), ks.v.data_ptr(),
         work.data_ptr(), ints.data_ptr(), losses.data_ptr(), int(seed) & _U32, int(t0),
         int(n_iter), float(lr), int(lr_step), float(lr_gamma), thresh, inv_keep, _inv_n(n),
-        int(bool(skip_nonfinite)), stream,
+        int(bool(skip_nonfinite)),
     )
-    build.check(status, "train_dnn")
     build.LAUNCHES["train_dnn"] += 1
-    new_state = AdamState(_flat_layout(m, ws, offsets), _flat_layout(v, ws, offsets),
-                          ints[2 * n_iter].to(torch.int64))
-    trained = unflat_weights(_flat_layout(params, ws, offsets), mlp)
-    return DnnStageOut(mlp_with_weights(mlp, trained), losses, new_state)
+    return _stage_out(mlp, ks, ints[2 * n_iter], losses)
+
+
+# (weights on the shard's device, x, y, keep masks or None) -> (the shard's
+# loss and gradient terms of the whole mean)
+ShardGradFn = Callable[[List[torch.Tensor], torch.Tensor, torch.Tensor,
+                        Optional[List[torch.Tensor]]], Tuple[torch.Tensor, Sequence[torch.Tensor]]]
+
+
+def check_shards(mlp: MLP, shards, n_iter: int, t0: int, state: Optional[AdamState]) -> None:
+    """Validate a sharded stage call: every shard (x, y) as ``check_stage_inputs``
+    wants them on its own device, the MLP (and a carried state) on the first
+    shard's device, and one device type for all."""
+    if len(shards.parts) < 1:
+        raise ValueError("no row shards")
+    if len({x.device.type for x, _ in shards.parts}) != 1:
+        raise ValueError(f"shards on mixed device types: {shards.devices}")
+    for x_k, y_k in shards.parts:
+        _check_rows(mlp, x_k, y_k)
+    check_stage_inputs(mlp, *shards.parts[0], n_iter, t0, state)
+
+
+def sharded_steps(
+    mlp: MLP, shards, seed: int, n_iter: int, shard_grad: ShardGradFn, lr: float = 0.01,
+    lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """The step loop of ``adam_steps`` over row shards (``parallel/mesh.py::
+    RowShards`` of (x, y)): per step, on every shard in order, the masks of its
+    global rows and ``shard_grad``'s loss and gradient terms; their sums
+    (``all_sum``, on the first shard's device, in shard order); then Adam on
+    the first shard's device, where the MLP lies."""
+    from pinnfc_tpu_torch.parallel.mesh import all_sum
+
+    check_shards(mlp, shards, n_iter, t0, state)
+    thresh, _ = dropout_constants(dropout_p)
+    widths = mlp.dropout_widths()
+
+    def step_grad(ws, t):
+        losses, grads = [], []
+        for (x_k, y_k), off in zip(shards.parts, shards.offsets):
+            ws_k = [w.to(x_k.device) for w in ws]
+            keep = (keep_masks(x_k.shape[0], widths, seed, t, thresh, x_k.device, off)
+                    if thresh > 0 else None)
+            loss_k, g_k = shard_grad(ws_k, x_k, y_k, keep)
+            losses.append(loss_k)
+            grads.append(flat_grad(g_k))
+        return all_sum(losses), all_sum(grads)
+
+    return adam_steps(mlp, n_iter, step_grad, lr, lr_step, lr_gamma, skip_nonfinite, t0, state)
+
+
+def train_dnn_sharded_plain(
+    mlp: MLP, shards, seed: int, n_iter: int, lr: float = 0.01, lr_step: int = 1000,
+    lr_gamma: float = 0.8, dropout_p: float = 0.2, skip_nonfinite: bool = False, t0: int = 0,
+    state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Plain version of ``train_dnn_sharded``, any topology: ``loss_and_grads``
+    on every shard with its global rows' masks and 1 / (the rows of all
+    shards) as the mean's factor, the terms summed in shard order."""
+    _, inv_keep = dropout_constants(dropout_p)
+    inv_n = _inv_n(shards.n)
+
+    def shard_grad(ws, x_k, y_k, keep):
+        return loss_and_grads(ws, x_k, y_k, keep, inv_keep, inv_n)
+
+    return sharded_steps(mlp, shards, seed, n_iter, shard_grad, lr, lr_step, lr_gamma,
+                         dropout_p, skip_nonfinite, t0, state)
+
+
+def train_dnn_sharded(
+    mlp: MLP, shards, seed: int, n_iter: int, lr: float = 0.01, lr_step: int = 1000,
+    lr_gamma: float = 0.8, dropout_p: float = 0.2, skip_nonfinite: bool = False, t0: int = 0,
+    state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """Steps t0 .. t0 + n_iter − 1 of a DNN stage over row shards (``RowShards``
+    of (x, y), the MLP on the first shard's device): per step one
+    ``pinnfc_train_dnn_grad`` launch per shard (on its device), the shards'
+    gradients, losses and flags summed in shard order on the first device, and
+    one ``pinnfc_train_dnn_adam`` launch there; the plain version for CPU
+    shards.  The objective is the mean over all rows, each row under the
+    masks of its global row: one shard gives the whole-stage kernel's
+    trajectory up to summation order.  Returns the trained copy of ``mlp``,
+    the per-step losses and the Adam state (``flat_weights``' layout)."""
+    from pinnfc_tpu_torch.parallel.mesh import all_sum
+
+    check_shards(mlp, shards, n_iter, t0, state)
+    dev_type = shards.devices[0].type
+    if dev_type == "cpu":
+        return train_dnn_sharded_plain(mlp, shards, seed, n_iter, lr, lr_step, lr_gamma,
+                                       dropout_p, skip_nonfinite, t0, state)
+    if dev_type != "cuda":
+        raise ValueError(f"unsupported device {shards.devices[0]}")
+    if not mlp.is_flagship():
+        raise ValueError(
+            f"the training kernel covers the flagship topology (8, 256, 256, 256, 1) "
+            f"only; this MLP is {mlp.layers}"
+        )
+    thresh, inv_keep = dropout_constants(dropout_p)
+    inv_n = _inv_n(shards.n)
+    dev0 = shards.devices[0]
+    lib = build.load()
+    ks = _to_kernel(lib, mlp, state)
+    total = ks.params.numel()
+    # per step t: [the shards' flags summed, the Adam count before, after]
+    ints = torch.zeros((n_iter, 3), dtype=torch.int32, device=dev0)
+    if state is not None:
+        ints[0, 1:2].copy_(state.count.reshape(1))
+    losses = torch.empty(n_iter, dtype=torch.float32, device=dev0)
+    bufs = []  # per shard: x, y, workspace, gradient, loss, flag
+    for x_k, y_k in shards.parts:
+        d = x_k.device
+        bufs.append((
+            x_k.contiguous(), y_k.contiguous(),
+            torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(x_k.shape[0])),
+                        dtype=torch.float32, device=d),
+            torch.empty(total, dtype=torch.float32, device=d),
+            torch.empty(1, dtype=torch.float32, device=d),
+            torch.empty(1, dtype=torch.int32, device=d)))
+    for t in range(n_iter):
+        for (x_k, y_k, work, grad, loss, flag), off in zip(bufs, shards.offsets):
+            build.launch(
+                lib.pinnfc_train_dnn_grad, "train_dnn_grad", x_k.device,
+                x_k.data_ptr(), y_k.data_ptr(), x_k.shape[0], int(off),
+                ks.params.to(x_k.device).data_ptr(), work.data_ptr(), grad.data_ptr(),
+                loss.data_ptr(), flag.data_ptr(), int(seed) & _U32, int(t0 + t), thresh,
+                inv_keep, inv_n)
+            build.LAUNCHES["train_dnn_grad"] += 1
+        losses[t:t + 1].copy_(all_sum([b[4] for b in bufs]))
+        ints[t, 0:1].copy_(all_sum([b[5] for b in bufs]))
+        if t > 0:
+            ints[t, 1:2].copy_(ints[t - 1, 2:3])
+        g = all_sum([b[3] for b in bufs])
+        build.launch(
+            lib.pinnfc_train_dnn_adam, "train_dnn_adam", dev0,
+            ks.params.data_ptr(), ks.m.data_ptr(), ks.v.data_ptr(), g.data_ptr(),
+            bufs[0][2].data_ptr(), ints[t].data_ptr(), float(lr), int(lr_step),
+            float(lr_gamma), int(bool(skip_nonfinite)))
+        build.LAUNCHES["train_dnn_adam"] += 1
+    return _stage_out(mlp, ks, ints[n_iter - 1, 2], losses)

@@ -14,7 +14,7 @@ tensors their plain versions.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from pinnfc_tpu_torch.models.pinn import PinnParams
 from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.ops.smoothing import smooth_by_segments
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size
 from pinnfc_tpu_torch.uq.mc_dropout import mc_dropout_samples
 
 
@@ -49,6 +50,7 @@ def build_comprehensive_results(
     mc_times: int = 2000,
     dropout: float = 0.4,
     smooth_window: int = 200,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[ComprehensiveResults, Dict[str, object]]:
     """Full exporter (reference 01:1877-2010 + main call 01:2156-2158):
     (artifact, {"sampler", "mc_passes"}).
@@ -63,11 +65,26 @@ def build_comprehensive_results(
     ``default_mc_seed(config.seed)``.  The residuals are evaluated on the MC
     base prediction, which is the eval-mode DNN output the reference uses
     (01:1947).
+
+    With ``mesh``, the MC phase (the exporter's dominant cost) runs with the
+    rows split over the mesh's ``"data"`` axis (``parallel/ensemble.py::
+    mc_dropout_sharded``): for the flagship one MC-kernel launch per row
+    shard, whose statistics are the unsharded kernel's bit for bit; the
+    residual kernel then runs once on the gathered rows.  The JAX exporter
+    refuses its Pallas kernel with a mesh and samples with ``vmap``; the
+    port's kernel has no such limit and keeps running.  A data axis of size 1
+    takes the unsharded path.
     """
     sx, sy = dataset.scaler_x, dataset.scaler_y
     x_test = dataset.x_test
     mlp = params["mlp"]
-    if mlp.is_flagship():
+    if data_size(mesh) > 1:
+        from pinnfc_tpu_torch.parallel.ensemble import mc_dropout_sharded
+
+        mc, passes = mc_dropout_sharded(mlp, x_test, int(mc_seed), mesh, mc_times=mc_times,
+                                        dropout=dropout)
+        export = {"sampler": "kernel" if mlp.is_flagship() else "vmap", "mc_passes": passes}
+    elif mlp.is_flagship():
         mc = mc_dropout(mlp, x_test, int(mc_seed), mc_times=mc_times, dropout=dropout)
         export = {"sampler": "kernel", "mc_passes": int(mc_times)}
     else:

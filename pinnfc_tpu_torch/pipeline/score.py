@@ -25,6 +25,7 @@ from pinnfc_tpu_torch.data.contract import ComprehensiveResults, save_comprehens
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.models.pinn import PinnParams
+from pinnfc_tpu_torch.parallel.mesh import Mesh
 from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results, default_mc_seed
 from pinnfc_tpu_torch.pipeline.train_pipeline import evaluate_voltage_metrics
 from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta
@@ -67,6 +68,7 @@ def run_scoring_pipeline(
     verbose: bool = False,
     device="cuda",
     mc_seed: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> ScoreResult:
     """Checkpoint + new measurements → ``comprehensive_results`` artifact.
 
@@ -79,7 +81,9 @@ def run_scoring_pipeline(
     checkpoint's ``.meta.json`` training config, else ``TrainConfig()``.
     ``mc_seed`` defaults to ``default_mc_seed(config.seed)``.  ``device``
     defaults to the card and raises when CUDA is absent.  ``export`` names
-    the MC sampler that ran (chosen by topology) and its passes.
+    the MC sampler that ran (chosen by topology) and its passes.  With
+    ``mesh``, the MC phase shards its rows over the mesh's ``"data"`` axis
+    (see ``build_comprehensive_results``); the data lie on ``device``.
     """
     dev = resolve_device(device)
     if config is None:
@@ -142,6 +146,7 @@ def run_scoring_pipeline(
         mc_times=config.mc_times,
         dropout=config.mc_dropout,
         smooth_window=config.smooth_window,
+        mesh=mesh,
     )
     timings["export_s"] = time.perf_counter() - t0
 

@@ -28,6 +28,7 @@ from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.models.pinn import PinnParams, init_pinn
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
+from pinnfc_tpu_torch.parallel.mesh import Mesh
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_euler
@@ -152,6 +153,7 @@ def run_training_pipeline(
     checkpoint_dir: Optional[str] = None,
     ckpt_every: Optional[int] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> PipelineResult:
     """Execute the stage-01 pipeline on ``device`` (the card by default; it
     raises when CUDA is absent).  Data source precedence: ``dataset``
@@ -162,7 +164,11 @@ def run_training_pipeline(
     resumes a restarted run (see ``run_schedule``).  ``timings`` holds
     ``data_s``, ``train_s`` and ``export_s``; the metric block gains
     ``final_loss/<k:stage>``; ``export`` names the MC sampler that ran
-    ('kernel' for the flagship topology, else 'vmap') and its passes."""
+    ('kernel' for the flagship topology, else 'vmap') and its passes.  With
+    ``mesh``, the schedule runs data-parallel over its ``"data"`` axis
+    (``run_schedule(mesh=)``: rows edge-padded to a multiple of the mesh's
+    size, as the JAX pipeline pads them) and the MC export shards its rows
+    (``build_comprehensive_results(mesh=)``); the data lie on ``device``."""
     dev = resolve_device(device)
     timings: Dict[str, float] = {}
 
@@ -188,14 +194,14 @@ def run_training_pipeline(
         schedule=config.schedule, seed=config.seed, dropout_p=config.model.dropout_p,
         verbose=verbose, checkpoint_dir=checkpoint_dir, ckpt_every=ckpt_every,
         precision=config.model.precision,
-        skip_nonfinite=config.skip_nonfinite,
+        skip_nonfinite=config.skip_nonfinite, mesh=mesh,
     )  # each stage ends by copying its losses to the host, which syncs the device
     timings["train_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     results, export = build_comprehensive_results(
         params, dataset, mc_seed=default_mc_seed(config.seed), mc_times=config.mc_times,
-        dropout=config.mc_dropout, smooth_window=config.smooth_window,
+        dropout=config.mc_dropout, smooth_window=config.smooth_window, mesh=mesh,
     )
     timings["export_s"] = time.perf_counter() - t0
 

@@ -31,6 +31,15 @@ Each stage can also run in chunks (``train_dnn_chunk``,
 chunks takes the same steps as the whole stage.  ``run_schedule`` with
 ``ckpt_every`` snapshots after every chunk, so a run killed mid-stage resumes
 at its last chunk boundary.
+
+Data-parallel (``run_schedule(mesh=)``, the ``*_chunk_sharded`` functions):
+the rows are split over the devices of the mesh's ``"data"`` axis
+(``parallel/mesh.py::RowShards``), each step computes every shard's terms of
+the whole mean loss and its gradient on the shard's device, sums them in
+shard order on the first device (``all_sum``) and steps Adam there.  The
+flagship's DNN stages run the training kernel's per-step entries
+(``ops/train_dnn.py::train_dnn_sharded``); any other topology, and the λ
+stages, autograd per shard.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +56,10 @@ from pinnfc_tpu_torch.config import default_schedule
 from pinnfc_tpu_torch.data.scaling import AffineScaler
 from pinnfc_tpu_torch.models.mlp import MLP, aleatoric_loss
 from pinnfc_tpu_torch.models.pinn import LAMBDA_BOUNDS, PinnParams
-from pinnfc_tpu_torch.ops.train_dnn import DnnStageOut, stage_steps, train_dnn
+from pinnfc_tpu_torch.ops.train_dnn import (
+    DnnStageOut, sharded_steps, stage_steps, train_dnn, train_dnn_sharded)
+from pinnfc_tpu_torch.parallel.mesh import (
+    Mesh, RowShards, all_sum, data_size, pad_to_multiple, replicate, shard_batch)
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_simple
@@ -119,6 +131,43 @@ def train_dnn_autograd(
                        skip_nonfinite, t0, state)
 
 
+def train_dnn_autograd_sharded(
+    mlp: MLP, shards: RowShards, seed: int, n_iter: int, lr: float = 0.01,
+    lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
+    skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+) -> DnnStageOut:
+    """``train_dnn_autograd`` over row shards, any topology: per step, on every
+    shard, ``torch.autograd.grad`` of its term of the whole mean loss (its
+    global rows' hash masks), the terms summed in shard order, then Adam."""
+
+    def shard_grad(ws, x_k, y_k, keep):
+        ws = [w.detach().requires_grad_(True) for w in ws]
+        with torch.enable_grad():
+            pred, log_var = torch.func.functional_call(
+                mlp, _named_params(ws, mlp), (x_k,), {"keep": keep, "dropout_p": dropout_p})
+            loss = aleatoric_loss(y_k, pred, log_var, n_total=shards.n)
+            grads = torch.autograd.grad(loss, ws)
+        return loss.detach(), grads
+
+    return sharded_steps(mlp, shards, seed, n_iter, shard_grad, lr, lr_step, lr_gamma,
+                         dropout_p, skip_nonfinite, t0, state)
+
+
+def train_dnn_chunk_sharded(
+    mlp: MLP, opt_state: Optional[AdamState], shards: RowShards, seed: int, start: int,
+    length: int, lr: float = 0.01, lr_step: int = 1000, lr_gamma: float = 0.8,
+    dropout_p: float = 0.2, precision: str = "highest", skip_nonfinite: bool = False,
+) -> Tuple[MLP, AdamState, torch.Tensor]:
+    """``train_dnn_chunk`` over row shards: the training kernel's per-step
+    entries for the flagship (their plain version on CPU shards), the
+    autograd stage for any other topology."""
+    _check_precision(precision, shards.parts[0][0])
+    steps = train_dnn_sharded if mlp.is_flagship() else train_dnn_autograd_sharded
+    out = steps(mlp, shards, seed, length, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite,
+                t0=start, state=opt_state)
+    return out.mlp, out.state, out.losses
+
+
 def _dnn_steps(mlp: MLP):
     """The DNN stage's implementation, by topology alone: the training kernel
     (its plain version on a CPU tensor) for the flagship, the autograd stage
@@ -164,21 +213,37 @@ def train_dnn_chunk(
     return out.mlp, out.state, out.losses
 
 
-def _lambda_steps(loss_fn: Callable[[torch.Tensor], torch.Tensor], lam: torch.Tensor,
+LossFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _value_and_grad(loss_fns: Sequence[Tuple[torch.device, LossFn]],
+                    lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Σ_k loss_k(λ) and its gradient: each term and its gradient by autograd
+    on its own device, the sums in order on λ's device (one term: that term)."""
+    losses, grads = [], []
+    for dev, loss_fn in loss_fns:
+        var = lam.to(dev).detach().requires_grad_(True)
+        loss = loss_fn(var)
+        (g,) = torch.autograd.grad(loss, var)
+        losses.append(loss.detach())
+        grads.append(g.detach())
+    return all_sum(losses), all_sum(grads)
+
+
+def _lambda_steps(loss_fns: Sequence[Tuple[torch.device, LossFn]], lam: torch.Tensor,
                   state: Optional[AdamState], group: str, length: int, lr: float,
                   lr_step: int, lr_gamma: float, skip_nonfinite: bool,
                   ) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
-    """``length`` Adam + post-step box-clamp steps over one λ vector from the
-    carried state (None: fresh): (λ, state, losses)."""
+    """``length`` Adam + post-step box-clamp steps over one λ vector (or a
+    stack of them, (E, k), elementwise) from the carried state (None: fresh):
+    (λ, state, losses).  The loss is the sum of the ``(device, loss_fn)``
+    terms (one per row shard; one for unsharded rows)."""
     lo, hi = (torch.as_tensor(b, device=lam.device) for b in LAMBDA_BOUNDS[group])
     lam = lam.detach().clone()
     state = adam_init(lam) if state is None else state
     losses = []
     for _ in range(length):
-        var = lam.detach().requires_grad_(True)
-        loss = loss_fn(var)
-        (g,) = torch.autograd.grad(loss, var)
-        loss, g = loss.detach(), g.detach()
+        loss, g = _value_and_grad(loss_fns, lam)
         lam2, state2 = adam_step(lam, g, state, lr, lr_step, lr_gamma)
         new = (torch.clamp(lam2, lo, hi), state2)
         if skip_nonfinite:
@@ -188,25 +253,32 @@ def _lambda_steps(loss_fn: Callable[[torch.Tensor], torch.Tensor], lam: torch.Te
     return lam, state, torch.stack(losses)
 
 
-def _lambda_v_loss_fn(x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, dnn_para):
-    """Voltage-λ stage loss (01:1025-1032), shared by the stage and its chunks."""
+def _mean_or_part(sq: torch.Tensor, n_total: Optional[int]) -> torch.Tensor:
+    """mean(sq), or with ``n_total`` a shard's term of the mean over all rows."""
+    return torch.mean(sq) if n_total is None else torch.sum(sq) / n_total
+
+
+def _lambda_v_loss_fn(x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, dnn_para,
+                      n_total: Optional[int] = None):
+    """Voltage-λ stage loss (01:1025-1032), shared by the stage and its chunks;
+    with ``n_total``, the term of a row shard."""
     scale_y, min_y = scaler_y.loss_affine()
     u_pred_norm = u_pred_norm.detach()
 
     def loss_fn(lam):
         v = voltage_residual(lam, x_norm, u_pred_norm, scaler_x, scaler_y)
         if dnn_para:
-            return torch.mean(v.f**2)
-        return torch.mean((y_norm - (v.v_out_est_stack * scale_y + min_y)) ** 2)
+            return _mean_or_part(v.f**2, n_total)
+        return _mean_or_part((y_norm - (v.v_out_est_stack * scale_y + min_y)) ** 2, n_total)
 
     return loss_fn
 
 
-def _residual_loss_fn(x_norm, scaler_x, group):
+def _residual_loss_fn(x_norm, scaler_x, group, n_total: Optional[int] = None):
     residual = _RESIDUAL[group]
 
     def loss_fn(lam):
-        return torch.mean(residual(lam, x_norm, scaler_x).f ** 2)
+        return _mean_or_part(residual(lam, x_norm, scaler_x).f ** 2, n_total)
 
     return loss_fn
 
@@ -239,7 +311,23 @@ def train_lambda_v_chunk(
     (None: fresh): (λ, state, losses).  The count in the state carries the
     StepLR staircase across chunk boundaries."""
     loss_fn = _lambda_v_loss_fn(x_norm, y_norm, u_pred_norm, scaler_x, scaler_y, dnn_para)
-    return _lambda_steps(loss_fn, lam_v, opt_state, "lam_v", length, lr, lr_step, lr_gamma,
+    return _lambda_steps([(lam_v.device, loss_fn)], lam_v, opt_state, "lam_v", length, lr,
+                         lr_step, lr_gamma, skip_nonfinite)
+
+
+def train_lambda_v_chunk_sharded(
+    lam_v: torch.Tensor, opt_state: Optional[AdamState], shards: RowShards,
+    u_preds: Sequence[torch.Tensor], scaler_x: AffineScaler, scaler_y: AffineScaler,
+    length: int, lr: float = 1e-3, lr_step: int = 1000, lr_gamma: float = 0.8,
+    dnn_para: bool = False, skip_nonfinite: bool = False,
+) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
+    """``train_lambda_v_chunk`` over row shards of (x, y), with each shard's
+    eval-mode DNN prediction ``u_preds[k]``: the loss is the sum of the
+    shards' terms of the mean over all rows, by autograd per shard."""
+    fns = [(x_k.device, _lambda_v_loss_fn(x_k, y_k, u_k, scaler_x, scaler_y, dnn_para,
+                                          shards.n))
+           for (x_k, y_k), u_k in zip(shards.parts, u_preds)]
+    return _lambda_steps(fns, lam_v, opt_state, "lam_v", length, lr, lr_step, lr_gamma,
                          skip_nonfinite)
 
 
@@ -261,8 +349,34 @@ def train_residual_chunk(
 ) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
     """``length`` steps of a thermal/hydrogen/oxygen stage from the carried
     Adam state (None: fresh): (λ, state, losses)."""
-    return _lambda_steps(_residual_loss_fn(x_norm, scaler_x, group), lam, opt_state, group,
-                         length, lr, lr_step, lr_gamma, skip_nonfinite)
+    return _lambda_steps([(lam.device, _residual_loss_fn(x_norm, scaler_x, group))], lam,
+                         opt_state, group, length, lr, lr_step, lr_gamma, skip_nonfinite)
+
+
+def train_residual_chunk_sharded(
+    lam: torch.Tensor, opt_state: Optional[AdamState], shards: RowShards,
+    scaler_x: AffineScaler, group: str, length: int, lr: float, lr_step: int = 1000,
+    lr_gamma: float = 0.8, skip_nonfinite: bool = False,
+) -> Tuple[torch.Tensor, AdamState, torch.Tensor]:
+    """``train_residual_chunk`` over row shards (arrays: x first): the sum of
+    the shards' terms of the mean over all rows, by autograd per shard."""
+    fns = [(p[0].device, _residual_loss_fn(p[0], scaler_x, group, shards.n))
+           for p in shards.parts]
+    return _lambda_steps(fns, lam, opt_state, group, length, lr, lr_step, lr_gamma,
+                         skip_nonfinite)
+
+
+def _sharded_chunk(key, stage, piece, opt_state, shards, u_preds, scaler_x, scaler_y, seed,
+                   start, length, dropout_p, precision, common):
+    """One chunk of run_schedule's stage over row shards: (piece, state, losses)."""
+    if key == "mlp":
+        return train_dnn_chunk_sharded(piece, opt_state, shards, seed, start, length,
+                                       dropout_p=dropout_p, precision=precision, **common)
+    if key == "lam_v":
+        return train_lambda_v_chunk_sharded(piece, opt_state, shards, u_preds, scaler_x,
+                                            scaler_y, length, dnn_para=stage.dnn_para, **common)
+    return train_residual_chunk_sharded(piece, opt_state, shards, scaler_x, key, length,
+                                        **common)
 
 
 @dataclasses.dataclass
@@ -305,6 +419,7 @@ def run_schedule(
     ckpt_every: Optional[int] = None,
     precision: str = "highest",
     skip_nonfinite: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[PinnParams, TrainLog]:
     """Run the staged schedule on the device of ``x_train``, replacing the
     params set's pieces stage by stage; the DNN stage at index k draws its masks
@@ -323,12 +438,30 @@ def run_schedule(
     stage is one chunk of its ``n_iter`` steps, and a stage resumed from a
     mid-stage snapshot runs the rest of it as one chunk.  A mid-stage snapshot of the JAX package
     resumes too: its optax Adam state maps onto ``AdamState``
-    (``adam_tree_from_optax``); any other optimizer tree raises ``ValueError``."""
+    (``adam_tree_from_optax``); any other optimizer tree raises ``ValueError``.
+
+    With ``mesh`` (``parallel/mesh.py``), the rows are edge-padded to a
+    multiple of the mesh's size, as the JAX package pads them (padded rows
+    count in the mean losses, so pass a divisible N for the unsharded run's
+    objective), and split evenly over the devices of its ``"data"`` axis; every
+    step sums the shards' terms in shard order and updates the parameters on
+    the axis' first device, where they come back.  The DNN stages' masks go by
+    global row, so a sharded stage draws the unsharded stage's masks.  Chunks,
+    snapshots and resume work as without a mesh.  A data axis of size 1 runs
+    the unsharded path."""
     schedule = default_schedule() if schedule is None else schedule
     if ckpt_every is not None and ckpt_every < 1:
         raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
     log = TrainLog()
-    dev = x_train.device
+    shards = None
+    if data_size(mesh) > 1:
+        x_pad, n0 = pad_to_multiple(x_train, mesh.size)
+        y_pad, _ = pad_to_multiple(y_train, mesh.size)
+        if x_pad.shape[0] != n0 and verbose:
+            print(f"padded {n0} → {x_pad.shape[0]} rows for {mesh.size}-way sharding")
+        shards = shard_batch(mesh, x_pad, y_pad)
+        params = replicate(mesh, params)[0]
+    dev = x_train.device if shards is None else shards.devices[0]
     start_stage = 0
     mid_resume = None  # (step, opt tree, losses so far) of stage start_stage
     ckpt_path = None
@@ -379,7 +512,11 @@ def run_schedule(
             tree_of = flat_of = None
         if key == "lam_v":
             with torch.no_grad():
-                u_pred, _ = params["mlp"](x_train)
+                if shards is None:
+                    u_pred, _ = params["mlp"](x_train)
+                else:  # the eval forward per shard, on the shard's device
+                    mlps = replicate(mesh, params["mlp"])
+                    u_pred = [m(x_k)[0] for m, (x_k, _) in zip(mlps, shards.parts)]
         start, opt_state, acc = 0, None, []
         if resume is not None:
             start, opt_tree, losses_prev = resume
@@ -391,7 +528,12 @@ def run_schedule(
         s = start
         while s < stage.n_iter:
             m = min(every, stage.n_iter - s)
-            if key == "mlp":
+            if shards is not None:
+                piece, opt_state, losses = _sharded_chunk(
+                    key, stage, piece, opt_state, shards, u_pred if key == "lam_v" else None,
+                    scaler_x, scaler_y, dnn_stage_seed(seed, k), s, m, dropout_p, precision,
+                    common)
+            elif key == "mlp":
                 piece, opt_state, losses = train_dnn_chunk(
                     piece, opt_state, x_train, y_train, dnn_stage_seed(seed, k), s, m,
                     dropout_p=dropout_p, precision=precision, **common)

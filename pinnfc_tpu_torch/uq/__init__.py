@@ -1,5 +1,6 @@
-"""Uncertainty and explainability: MC-dropout statistics, split-conformal
-coverage, input saliency, λ identifiability and counterfactual recovery."""
+"""Uncertainty and explainability: MC-dropout statistics, deep-ensemble
+moments, split-conformal coverage, input saliency, λ identifiability and
+counterfactual recovery."""
 
 from pinnfc_tpu_torch.uq.conformal import (
     ClassCoverage,
@@ -10,6 +11,7 @@ from pinnfc_tpu_torch.uq.conformal import (
     conformal_report,
     normal_calibration_scores,
 )
+from pinnfc_tpu_torch.uq.deep_ensemble import ensemble_moments, ensemble_moments_sharded
 from pinnfc_tpu_torch.uq.counterfactual import (
     ConditionRecovery,
     CounterfactualConfig,
@@ -50,6 +52,8 @@ __all__ = [
     "conformal_quantile",
     "conformal_report",
     "counterfactual_recovery",
+    "ensemble_moments",
+    "ensemble_moments_sharded",
     "gauss_newton_ci",
     "input_saliency",
     "lambda_identifiability",

@@ -1,5 +1,6 @@
-"""Carry weights between the JAX package's params tree and the port's params,
-and a fitted Gaussian mixture or linear SVM from the JAX package's
+"""Carry weights between the JAX package's params tree and the port's params
+(a lone model, or an ensemble whose JAX tree stacks its members on a leading
+axis), and a fitted Gaussian mixture or linear SVM from the JAX package's
 ``GMMParams``/``SVMModel`` to the port's.
 
 The JAX tree is ``{"mlp": {"hidden": [{"w","b"}...], "mean": {"w","b"},
@@ -93,6 +94,46 @@ def params_to_numpy(params: PinnParams) -> Dict[str, Any]:
     tree: Dict[str, Any] = {"mlp": mlp_to_numpy(params["mlp"])}
     for g in LAMBDA_GROUPS:
         tree[g] = params[g].detach().cpu().numpy().copy()
+    return tree
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def ensemble_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A stacked JAX ensemble tree of numpy arrays (``parallel.init_ensemble``:
+    a leading member axis on every leaf) → the port's ensemble on ``device``:
+    ``{"mlp": [MLP] * E, "lam_v": (E, 4), ...}``."""
+    n = np.asarray(tree["mlp"]["mean"]["w"]).shape[0]
+    ens: Dict[str, Any] = {"mlp": [
+        mlp_from_jax(_map_leaves(lambda a, e=e: np.asarray(a)[e], tree["mlp"]), device=device)
+        for e in range(n)]}
+    for g in LAMBDA_GROUPS:
+        ens[g] = torch.as_tensor(np.array(tree[g], np.float32), device=device)
+    return ens
+
+
+def ensemble_to_numpy(ens: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's ensemble → the stacked JAX tree of numpy arrays (inverse of
+    ``ensemble_from_jax``)."""
+    members = [mlp_to_numpy(m) for m in ens["mlp"]]
+
+    def zip_trees(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_trees([t[k] for t in trees]) for k in first}
+        if isinstance(first, list):
+            return [zip_trees([t[i] for t in trees]) for i in range(len(first))]
+        return np.stack(trees)
+
+    tree: Dict[str, Any] = {"mlp": zip_trees(members)}
+    for g in LAMBDA_GROUPS:
+        tree[g] = ens[g].detach().cpu().numpy().copy()
     return tree
 
 

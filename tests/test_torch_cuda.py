@@ -61,7 +61,18 @@ macro F1 within 0.05.  Explainability on the card against the CPU: the input
 saliency at rtol 1e-4, atol 1e-6 with each class's driver equal; λ
 identifiability with the same flags and dropped rows and stderr within rtol
 1e-3 (tests/test_torch_explain.py's tolerances against JAX); ``tsne_embed``'s
-KL within 10 %."""
+KL within 10 %.
+
+Data-parallel and ensembles on one card: the MC kernel on row shards with
+their first mask block (``block0``) and ``mc_dropout_sharded`` on a mesh that
+lists ``cuda:0`` three times, bitwise the whole run; the sharded DNN stage
+(the training kernel's per-step entries) against the whole-stage kernel and
+its per-shard plain version at the training kernel's tolerances; a 2-member
+ensemble bitwise two lone stages.  On a mesh of distinct cards (these skip
+with fewer than two): the sharded MC run bitwise one launch, the sharded DNN
+stage bitwise the same shards on one card, an ensemble split over the cards
+bitwise the ensemble without a mesh, and the residual kernel on the last card
+at its tolerances."""
 
 import numpy as np
 import pytest
@@ -752,3 +763,148 @@ def test_exported_monitor_step_moved_to_the_card(cuda_device):
     for k in got:
         np.testing.assert_array_equal(got[k].rf_smooth, want[k].rf_smooth)
         np.testing.assert_array_equal(got[k].residuals, want[k].residuals)
+
+
+@pytest.mark.cuda
+def test_mc_kernel_block0_shards_equal_the_whole_run(cuda_device):
+    """The MC kernel on two row shards split at a multiple of 256 rows (each
+    with its first mask block, ``block0``) equals one launch over all 1,000
+    rows bit for bit; ``mc_dropout_sharded`` on ``[cuda:0] * 3`` likewise."""
+    from pinnfc_tpu_torch.parallel.ensemble import mc_dropout_sharded
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh
+
+    x = torch.as_tensor(np.random.RandomState(1).uniform(-1.2, 1.2, (1000, 8)).astype(np.float32),
+                        device=cuda_device)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    whole = mc_dropout_sums(mlp, x, 5, mc_times=32)
+    before = build.LAUNCHES["mc_dropout"]
+    parts = [mc_dropout_sums(mlp, x[:512], 5, mc_times=32, block0=0),
+             mc_dropout_sums(mlp, x[512:], 5, mc_times=32, block0=2)]
+    assert build.LAUNCHES["mc_dropout"] == before + 2
+    assert torch.equal(torch.cat(parts), whole)
+    got, passes = mc_dropout_sharded(mlp, x, 5, make_mesh(devices=["cuda:0"] * 3), mc_times=32)
+    assert passes == 32
+    assert all(torch.equal(a, b) for a, b in zip(got, finish_mc_stats(whole, 32)))
+
+
+@pytest.mark.cuda
+def test_sharded_dnn_stage_matches_the_whole_stage_kernel(cuda_device):
+    """The data-parallel DNN stage on ``[cuda:0] * 3`` (1,000 rows in pieces
+    of 334, 334 and 332, straddling the 512-row mask blocks; one grad launch
+    per piece and one Adam launch per step) against the whole-stage kernel at
+    test_train_kernel_matches_plain's tolerances; its per-shard plain version
+    likewise."""
+    from pinnfc_tpu_torch.parallel.mesh import block_sizes, make_mesh, split_rows
+
+    mlp, x, y = _train_inputs(1000, cuda_device)
+    hp = dict(lr_step=4, lr_gamma=0.5, dropout_p=0.2)
+    devices = make_mesh(devices=["cuda:0"] * 3).axis_devices("data")
+    shards = split_rows([x, y], block_sizes(1000, 3, 1), devices)
+    whole = td.train_dnn(mlp, x, y, 3, 10, **hp)
+    before = dict(build.LAUNCHES)
+    got = td.train_dnn_sharded(mlp, shards, 3, 10, **hp)
+    assert build.LAUNCHES["train_dnn_grad"] == before["train_dnn_grad"] + 30
+    assert build.LAUNCHES["train_dnn_adam"] == before["train_dnn_adam"] + 10
+    plain = td.train_dnn_sharded_plain(mlp, shards, 3, 10, **hp)
+    for other in (whole, plain):
+        torch.testing.assert_close(got.losses[0], other.losses[0], rtol=2e-5, atol=0)
+        torch.testing.assert_close(got.losses, other.losses, rtol=5e-3, atol=1e-5)
+        for a, b in zip(td.mlp_weights(got.mlp), td.mlp_weights(other.mlp)):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+    assert int(got.state.count) == 10
+    again = td.train_dnn_sharded(mlp, shards, 3, 10, **hp)
+    assert torch.equal(again.losses, got.losses)
+
+
+@pytest.mark.cuda
+def test_ensemble_members_are_lone_stages_on_the_card(cuda_device):
+    """A 2-member flagship ensemble (one training-kernel launch per member)
+    equals two lone ``train_dnn_stage`` calls with the members' seeds, bit
+    for bit."""
+    from pinnfc_tpu_torch.parallel.ensemble import init_ensemble, member_seed, train_dnn_ensemble
+
+    _, x, y = _train_inputs(1000, cuda_device)
+    ens = init_ensemble(3, 2, device=cuda_device)
+    before = build.LAUNCHES["train_dnn"]
+    trained, losses = train_dnn_ensemble(ens, x, y, 11, 20)
+    assert build.LAUNCHES["train_dnn"] == before + 2
+    for e in range(2):
+        lone = train_dnn_stage(ens["mlp"][e], x, y, member_seed(11, e), 20)
+        assert torch.equal(lone.losses, losses[e])
+        assert torch.equal(td.flat_weights(lone.params), td.flat_weights(trained["mlp"][e]))
+
+
+@pytest.fixture
+def card_mesh(cuda_device):
+    """A ``"data"`` mesh over every visible card, each listed once."""
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards: a mesh of distinct cards")
+    return make_mesh()
+
+
+@pytest.mark.cuda
+def test_mc_dropout_sharded_over_distinct_cards(card_mesh):
+    """``mc_dropout_sharded`` with its row shards on distinct cards (each
+    launch on a card that is not the current one) equals one launch over all
+    rows on the first card, bit for bit."""
+    from pinnfc_tpu_torch.parallel.ensemble import mc_dropout_sharded
+
+    dev0 = card_mesh.axis_devices("data")[0]
+    x = torch.as_tensor(np.random.RandomState(1).uniform(-1.2, 1.2, (1000, 8)).astype(np.float32),
+                        device=dev0)
+    mlp = MLP(generator=torch.Generator().manual_seed(0), device=dev0)
+    whole = mc_dropout_sums(mlp, x, 5, mc_times=32)
+    got, passes = mc_dropout_sharded(mlp, x, 5, card_mesh, mc_times=32)
+    assert passes == 32 and got[0].device == dev0
+    assert all(torch.equal(a, b) for a, b in zip(got, finish_mc_stats(whole, 32)))
+
+
+@pytest.mark.cuda
+def test_sharded_dnn_stage_over_distinct_cards(card_mesh):
+    """The data-parallel DNN stage with its row shards on distinct cards
+    equals the same shards all on the first card bit for bit (the same
+    kernels on the same rows, summed in the same order)."""
+    from pinnfc_tpu_torch.parallel.mesh import shard_batch
+
+    devices = card_mesh.axis_devices("data")
+    mlp, x, y = _train_inputs(250 * len(devices), devices[0])
+    hp = dict(lr_step=4, lr_gamma=0.5, dropout_p=0.2)
+    spread = shard_batch(card_mesh, x, y)
+    assert spread.devices == devices
+    one = spread._replace(parts=tuple((a.to(devices[0]), b.to(devices[0]))
+                                      for a, b in spread.parts))
+    got = td.train_dnn_sharded(mlp, spread, 3, 10, **hp)
+    want = td.train_dnn_sharded(mlp, one, 3, 10, **hp)
+    assert torch.equal(got.losses, want.losses)
+    assert torch.equal(td.flat_weights(got.mlp), td.flat_weights(want.mlp))
+
+
+@pytest.mark.cuda
+def test_ensemble_over_distinct_cards(card_mesh):
+    """``train_dnn_ensemble`` with its members split over distinct cards
+    equals the ensemble without a mesh bit for bit, the trained MLPs back on
+    x's card; the residual kernel on the last card against its plain
+    version."""
+    from pinnfc_tpu_torch.parallel.ensemble import init_ensemble, train_dnn_ensemble
+
+    devices = card_mesh.axis_devices("data")
+    _, x, y = _train_inputs(1000, devices[0])
+    ens = init_ensemble(3, len(devices), device=devices[0])
+    got, got_l = train_dnn_ensemble(ens, x, y, 11, 20, mesh=card_mesh)
+    want, want_l = train_dnn_ensemble(ens, x, y, 11, 20)
+    assert torch.equal(got_l, want_l)
+    for a, b in zip(got["mlp"], want["mlp"]):
+        assert next(a.parameters()).device == devices[0]
+        assert torch.equal(td.flat_weights(a), td.flat_weights(b))
+    last = devices[-1]
+    ds = combine_and_normalize(*synthesize_stack_data(n_normal=300, n_fault=40, seed=0),
+                               device=last)
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=last)
+    with torch.no_grad():
+        u = params["mlp"](ds.x_test)[0]
+    kb = all_residuals_kernel(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
+    pb = all_residuals(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
+    for a, b in zip(kb, pb):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
