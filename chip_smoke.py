@@ -172,6 +172,23 @@ Phases, any failure exits non-zero before the result line:
    ms/step against the whole-stage kernel's, the MC kernel over four shards
    against one launch, per-member training seconds and ``ensemble_moments``
    at E = 8 and N = 15,600;
+20. the downstream half of ``parallel/`` on the card, on
+   ``make_mesh(devices=["cuda:0"] * 4)`` with phase 7's model and artifact,
+   each sharded result against the unsharded run on the card:
+   ``run_gmm_pipeline(mesh=)`` (k-means init) and the sharded EM fit on 9,597
+   fault rows (three pad rows) at ``GMM_SHARDED_RTOL``, which a planted fault
+   (pad rows at weight 1) must fail; ``input_saliency`` and
+   ``lambda_identifiability`` of the 15,600 rows; ``condition_recovery`` at
+   400 steps, held by its recovered fractions; 30 streams × 64 rows through
+   the sharded ``observe_many`` (two dummy streams; four residual-kernel
+   launches per call, the kernel held against its plain version on each
+   shard's rows) at ``FLEET_SHARDED_ATOL``, which a planted fault (a dummy
+   stream's result written back) must fail, and ``fleet_replay``; the
+   sharded and unsharded ``observe_many`` times; then ``gmm``, ``identify``,
+   ``explain``, ``whatif --json`` and ``monitor --fleet`` with and without
+   ``--data-parallel`` in one subprocess over phase 9's files (the same
+   output, the mesh line aside) and ``serve --ckpt --data-parallel`` for one
+   /observe_many against the in-process monitor;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2532,6 +2549,331 @@ def run_parallel_slice(dev, train_ds, campaign_launches: dict, keep_dir: str) ->
     return out
 
 
+# phase 20's bounds on a sharded result against the unsharded one on the card,
+# each between the sound reading and a planted fault's (both printed by the
+# phase): the means of the sharded EM fit (largest |Δ| relative to the
+# unsharded fit's largest |mean|; the weights and covariances are printed
+# beside them: a covariance of the largest feature's scale drifts by float32
+# cancellation), and the fleet's per-sample outputs (largest |Δ| of v_pred in
+# V and rf_smooth, a NaN-set difference counting as infinite)
+GMM_SHARDED_RTOL = 1e-3
+FLEET_SHARDED_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def _pad_rows_weighted():
+    """A planted fault for phase 20: ``parallel/diagnosis.py``'s pad rows get
+    weight 1, as if the row mask were lost."""
+    from pinnfc_tpu_torch.parallel import diagnosis
+
+    real = diagnosis._pad_rows
+
+    def weighted(arr, multiple):
+        padded, mask = real(arr, multiple)
+        return padded, torch.ones_like(mask)
+
+    diagnosis._pad_rows = weighted
+    try:
+        yield
+    finally:
+        diagnosis._pad_rows = real
+
+
+@contextlib.contextmanager
+def _dummy_streams_first():
+    """A planted fault for phase 20: the sharded fleet's dummy streams go
+    before the real ones, so the first S results kept (written back to the
+    bank) begin with a dummy stream's."""
+    from pinnfc_tpu_torch.serving import monitor
+
+    real = monitor._pad_streams
+
+    def first(x_bank, v_bank, states, pad, fresh):
+        if not pad:
+            return real(x_bank, v_bank, states, pad, fresh)
+        s_n, b_n, f_n = x_bank.shape
+        return (np.concatenate([np.zeros((pad, b_n, f_n), x_bank.dtype), x_bank]),
+                np.concatenate([np.zeros((pad, b_n), v_bank.dtype), v_bank]),
+                [fresh] * pad + list(states))
+
+    monitor._pad_streams = first
+    try:
+        yield
+    finally:
+        monitor._pad_streams = real
+
+
+def _mixture_gap(a, b) -> dict:
+    """Largest |Δ| of two mixtures' weights, means and covariances, each
+    relative to ``b``'s largest magnitude of that field."""
+    return {f: float((getattr(a, f) - getattr(b, f)).abs().max() / getattr(b, f).abs().max())
+            for f in ("weights", "means", "covariances")}
+
+
+def _fleet_gap(got: dict, want: dict) -> float:
+    """Largest |Δ| of v_pred and rf_smooth over the streams; inf where the NaN
+    sets differ."""
+    gap = 0.0
+    for s, w in want.items():
+        for f in ("v_pred", "rf_smooth"):
+            a, b = getattr(got[s], f), getattr(w, f)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                return float("inf")
+            fin = np.isfinite(b)
+            gap = max(gap, float(np.max(np.abs(a[fin] - b[fin]), initial=0.0)))
+    return gap
+
+
+def run_downstream_parallel_slice(trained, gmm_result, keep_dir: str) -> dict:
+    """Phase 20: the downstream half of ``parallel/`` on a mesh that lists the
+    card four times, each sharded result against the unsharded run on the
+    card: ``run_gmm_pipeline(mesh=)`` (k-means init) and the sharded EM fit
+    (with a planted fault: pad rows at weight 1), ``input_saliency``,
+    ``lambda_identifiability`` and ``condition_recovery`` (400 steps, held by
+    outcome), a fleet of 30 streams × 64 rows through the sharded
+    ``observe_many`` (four residual-kernel launches per call, the kernel held
+    against its plain version on each shard; a planted fault: a dummy
+    stream's result written back) and ``fleet_replay``; then ``gmm``,
+    ``identify``, ``explain``, ``whatif`` and ``monitor --fleet`` with and
+    without ``--data-parallel`` in one subprocess over phase 9's files, and
+    ``serve --ckpt --data-parallel`` for one /observe_many.  Returns what it
+    measured."""
+    from pinnfc_tpu_torch.config import GmmConfig
+    from pinnfc_tpu_torch.data.contract import INDEX, load_comprehensive_results
+    from pinnfc_tpu_torch.diagnosis import parse_features, run_gmm_pipeline
+    from pinnfc_tpu_torch.diagnosis.gmm import gmm_fit
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
+    from pinnfc_tpu_torch.parallel.diagnosis import gmm_fit_dp
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh
+    from pinnfc_tpu_torch.physics.residuals import all_residuals
+    from pinnfc_tpu_torch.risk import estimate_mu_sigma_normal
+    from pinnfc_tpu_torch.serving import DiagnosisHead, OnlineMonitor, fleet_replay
+    from pinnfc_tpu_torch.uq import (
+        CounterfactualConfig, condition_recovery, input_saliency, lambda_identifiability,
+        normal_calibration_scores)
+
+    arr, ds, params = trained.results.array, trained.dataset, trained.params
+    sx, sy = ds.scaler_x, ds.scaler_y
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    out = {"mesh": str(mesh)}
+
+    # script 03: the pipeline, then the EM fit on rows that pad (9,597 of the
+    # fault rows: three pad rows), with the planted fault
+    cfg = GmmConfig()
+    sh, out["gmm_pipeline_s"] = _synced(lambda: run_gmm_pipeline(arr, cfg, device="cuda",
+                                                                   mesh=mesh))
+    one, out["gmm_pipeline_unsharded_s"] = _synced(lambda: run_gmm_pipeline(arr, cfg,
+                                                                            device="cuda"))
+    out["gmm_accuracy"] = [sh.accuracy, one.accuracy]
+    out["gmm_pipeline_gap"] = _mixture_gap(sh.model, one.model)
+    check(abs(sh.accuracy - one.accuracy) <= 0.005,
+          f"sharded GMM pipeline accuracy {sh.accuracy:.4f}, unsharded {one.accuracy:.4f}")
+    feats = arr[arr[:, INDEX["label"]] > 0][:9597][:, parse_features(cfg.features)]
+    n_comp = cfg.n_components_factor * 4
+
+    def fit(sharded):
+        gen = torch.Generator().manual_seed(cfg.random_state)
+        if sharded:
+            return gmm_fit_dp(feats, gen, n_comp, mesh, max_iter=cfg.max_iter, tol=cfg.tol,
+                              reg_covar=cfg.reg_covar)
+        return gmm_fit(feats, gen, n_comp, max_iter=cfg.max_iter, tol=cfg.tol,
+                       reg_covar=cfg.reg_covar, device="cuda")
+
+    whole = fit(False)
+    gaps = {"sharded": _mixture_gap(fit(True), whole)}
+    with _pad_rows_weighted():
+        gaps["planted fault (pad rows at weight 1)"] = _mixture_gap(fit(True), whole)
+    out["gmm_fit_gaps"] = gaps
+    print(f"[check] sharded GMM EM on {len(feats)} rows over 4 shards (3 pad rows) against the "
+          f"unsharded fit, largest relative |Δ| per field {json.dumps(gaps)}; the pipeline's "
+          f"{json.dumps(out['gmm_pipeline_gap'])}, accuracy {json.dumps(out['gmm_accuracy'])}")
+    check(gaps["sharded"]["means"] <= GMM_SHARDED_RTOL,
+          f"the sharded EM fit's means are {gaps['sharded']['means']:.3e} from the unsharded "
+          f"fit's, over {GMM_SHARDED_RTOL:g}")
+    check(gaps["planted fault (pad rows at weight 1)"]["means"] > GMM_SHARDED_RTOL,
+          "the planted fault passes the GMM bound: the bound tells nothing")
+
+    # saliency and identifiability of the 15,600 rows
+    x_raw = arr[:, :8].astype(np.float32)
+    sal, out["saliency_s"] = _synced(lambda: input_saliency(params, x_raw, sx, sy, mesh=mesh))
+    sal1, out["saliency_unsharded_s"] = _synced(lambda: input_saliency(params, x_raw, sx, sy,
+                                                                        device="cuda"))
+    out["saliency_err"] = {}
+    for f in ("jac_norm", "jac_range", "sigma_jac_range"):
+        a, b = getattr(sal, f), getattr(sal1, f)
+        out["saliency_err"][f] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+        check(a.shape == b.shape and out["saliency_err"][f] <= 1e-6,
+              f"sharded saliency {f}: {out['saliency_err'][f]:.3e} of max|J| from unsharded")
+    x_norm = np.asarray(sx.transform(x_raw), np.float32)
+    idf, out["identifiability_s"] = _synced(
+        lambda: lambda_identifiability(params, x_norm, sx, sy, mesh=mesh))
+    idf1, out["identifiability_unsharded_s"] = _synced(
+        lambda: lambda_identifiability(params, x_norm, sx, sy))
+    out["identifiability_stderr_rel"] = {}
+    for g in idf1:
+        a, b = idf[g], idf1[g]
+        check((a.n_residuals, a.n_dropped, a.dof) == (b.n_residuals, b.n_dropped, b.dof)
+              and np.array_equal(a.identifiable, b.identifiable),
+              f"sharded identifiability {g}: rows {a.n_residuals}/{a.n_dropped} against "
+              f"{b.n_residuals}/{b.n_dropped}")
+        ok = np.isfinite(b.stderr)
+        rel = float(np.max(np.abs(a.stderr[ok] - b.stderr[ok]) / b.stderr[ok], initial=0.0))
+        out["identifiability_stderr_rel"][g] = rel
+        check(rel <= 1e-4 and abs(a.sigma2 - b.sigma2) <= 1e-5 * abs(b.sigma2),
+              f"sharded identifiability {g}: stderr {rel:.3e} relative, σ² {a.sigma2} / "
+              f"{b.sigma2}")
+    print(f"[check] sharded saliency of {len(x_raw)} rows, |Δ|/max|J| "
+          f"{json.dumps(out['saliency_err'])} (≤ 1e-6); identifiability stderr relative "
+          f"{json.dumps(out['identifiability_stderr_rel'])} (≤ 1e-4), rows and flags equal: ok")
+
+    # the counterfactual at 400 steps, held by outcome (phase 16's reason)
+    ccfg = CounterfactualConfig(steps=400)
+    recs, out["recovery_s"] = _synced(lambda: condition_recovery(arr, params, sx, sy,
+                                                                 config=ccfg, mesh=mesh))
+    recs1, out["recovery_unsharded_s"] = _synced(lambda: condition_recovery(
+        arr, params, sx, sy, config=ccfg, device="cuda"))
+    frac_err, d_err, n_rows = 0.0, 0.0, 0
+    for a, b in zip(recs, recs1):
+        check((a.fault_name, a.current_target, a.n_rows) == (b.fault_name, b.current_target,
+                                                             b.n_rows), "recovery conditions")
+        if a.report is None:
+            continue
+        n_rows += a.n_rows
+        check(np.abs(a.report.v_before - b.report.v_before).max() <= 1e-5, "recovery v_before")
+        frac_err = max(frac_err, abs(float(a.report.recovered.mean())
+                                     - float(b.report.recovered.mean())))
+        d_err = max(d_err, float(np.abs(a.report.delta_range - b.report.delta_range).max()))
+    out["recovery"] = {"rows": n_rows, "padded_rows": (-n_rows) % 4,
+                       "recovered_frac_err": frac_err, "delta_err": d_err}
+    check(frac_err <= 0.1, f"sharded recovery's recovered fraction {frac_err} from unsharded")
+    print(f"[check] sharded condition_recovery (400 steps, {n_rows} rows): recovered fraction "
+          f"within {frac_err:.4f} (≤ 0.1) of the unsharded solve, max |Δδ| {d_err:.3e}: ok")
+
+    # the fleet: 30 streams × 64 rows, two rounds, sharded against unsharded
+    mu, sigma = estimate_mu_sigma_normal(arr)
+    calib = np.sort(normal_calibration_scores(arr, score="absolute", calib_frac=1.0)
+                    .astype(np.float32))
+    head = DiagnosisHead.from_gmm_result(gmm_result)
+
+    def make(sharded):
+        return OnlineMonitor(params, sx, sy, mu, sigma, diagnosis=head, conformal_calib=calib,
+                             device="cuda", mesh=mesh if sharded else None)
+
+    keys = [f"f{i}" for i in range(30)]
+
+    def bank(rnd):
+        rows = [np.arange(520 * i + 64 * rnd, 520 * i + 64 * (rnd + 1)) for i in range(30)]
+        return (np.stack([arr[r, :8] for r in rows]).astype(np.float32),
+                np.stack([arr[r, INDEX["y_true"]] for r in rows]).astype(np.float32))
+
+    sharded, plain = make(True), make(False)
+    gap, launches = 0.0, []
+    for rnd in range(2):
+        xb, vb = bank(rnd)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = sharded.observe_many(xb, vb, keys)
+        torch.cuda.synchronize()
+        launches.append(build.LAUNCHES["residuals"])
+        gap = max(gap, _fleet_gap(got, plain.observe_many(xb, vb, keys)))
+    with _dummy_streams_first():
+        planted = make(True).observe_many(*bank(0), keys)
+    fleet_gaps = {"sharded": gap,
+                  "planted fault (a dummy stream's result written back)":
+                      _fleet_gap(planted, make(False).observe_many(*bank(0), keys))}
+    out["fleet_gaps"], out["launches_sharded_fleet"] = fleet_gaps, launches
+    print(f"[check] sharded observe_many, 30 streams x 64 rows over 4 shards (2 dummy "
+          f"streams), largest |Δ| of v_pred and rf_smooth against the unsharded monitor "
+          f"{json.dumps(fleet_gaps)}; residual-kernel launches per call {launches}")
+    check(launches == [4, 4], f"the sharded fleet step launched the residual kernel {launches} "
+                              "times per call, not once per shard")
+    check(gap <= FLEET_SHARDED_ATOL, f"the sharded fleet is {gap:.3e} from the unsharded one, "
+                                     f"over {FLEET_SHARDED_ATOL:g}")
+    check(fleet_gaps["planted fault (a dummy stream's result written back)"]
+          > FLEET_SHARDED_ATOL, "the planted fault passes the fleet bound")
+    # the kernel against its plain version on each shard's rows (8 streams;
+    # the last shard holds the two dummy streams' zero rows)
+    xb, _ = bank(0)
+    xb = np.concatenate([xb, np.zeros((2,) + xb.shape[1:], np.float32)])
+    res_err = 0.0
+    for k in range(4):
+        x_norm_k = sx.transform(torch.as_tensor(xb[8 * k:8 * (k + 1)].reshape(-1, 8),
+                                                device="cuda"))
+        with torch.no_grad():
+            u = params["mlp"](x_norm_k)[0]
+        kb = all_residuals_kernel(params, x_norm_k, u, sx, sy)
+        pb = all_residuals(params, x_norm_k, u, sx, sy)
+        for name, a, b in zip(kb._fields, kb, pb):
+            check(torch.equal(torch.isnan(a), torch.isnan(b)), f"shard {k} {name}: NaN sets")
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
+            res_err = max(res_err, max_abs_err(a, b))
+    out["residual_kernel_shard_err"] = res_err
+    print(f"[check] residual kernel against its plain version on each of the 4 shards' 512 "
+          f"rows: max abs err {res_err:.3e} (rtol=atol=2e-5), NaN sets identical: ok")
+    ts = {True: [], False: []}
+    for _ in range(11):
+        for s_, mon_ in ((True, sharded), (False, plain)):
+            t0 = time.perf_counter()
+            mon_.observe_many(*bank(0), keys)
+            ts[s_].append(time.perf_counter() - t0)
+    out["observe_many_30x64_ms"] = {"sharded_4": statistics.median(ts[True][1:]) * 1e3,
+                                    "unsharded": statistics.median(ts[False][1:]) * 1e3}
+    table, out["fleet_replay_s"] = _synced(lambda: fleet_replay(make(True), arr))
+    table1, out["fleet_replay_unsharded_s"] = _synced(lambda: fleet_replay(make(False), arr))
+    for a, b in zip(table, table1):
+        check(a.stream == b.stream and a.first_v_alarm == b.first_v_alarm, f"fleet {a.stream}")
+        for f in ("first_warn", "first_danger"):
+            ga, gb = getattr(a, f), getattr(b, f)
+            check((ga is None) == (gb is None) and (ga is None or abs(ga - gb) <= 1),
+                  f"sharded fleet_replay {a.stream} {f}: {ga}, unsharded {gb}")
+    print(f"[time] observe_many 30 x 64 (host clock, synchronized, warm, median of 10) "
+          f"{json.dumps(out['observe_many_30x64_ms'])} ms; fleet_replay sharded "
+          f"{out['fleet_replay_s']:.3f} s, unsharded {out['fleet_replay_unsharded_s']:.3f} s "
+          f"(first alarms within one sample)")
+
+    # the commands with and without --data-parallel over phase 9's files
+    ck, mat = os.path.join(keep_dir, "ck"), os.path.join(keep_dir, "F01_scored.mat")
+    argvs = [["gmm", "--mat", mat], ["identify", "--ckpt", ck, "--mat", mat],
+             ["explain", "--ckpt", ck, "--mat", mat],
+             ["whatif", "--ckpt", ck, "--mat", mat, "--json"],
+             ["monitor", "--mat", mat, "--ckpt", ck, "--fleet"]]
+    runs, cli_l, err, out["cli_wall_s"] = run_cli_many(
+        *(a for argv in argvs for a in (argv, argv + ["--data-parallel"])))
+    check([rc for _, rc in runs] == [0] * 10, f"cli exit codes {[rc for _, rc in runs]}:\n"
+                                              f"{err[-3000:]}")
+    banner = {"gmm": "GMM EM data-parallel over 1 devices\n",
+              "identify": "residual Jacobians data-parallel over 1 devices\n",
+              "explain": "saliency data-parallel over 1 devices\n",
+              "whatif": "recovery solve data-parallel over 1 devices\n", "monitor": ""}
+    for k, argv in enumerate(argvs):
+        plain_out, flagged = runs[2 * k][0], runs[2 * k + 1][0]
+        b = banner[argv[0]]
+        check(flagged.startswith(b) and flagged[len(b):] == plain_out and plain_out,
+              f"cli {argv[0]} --data-parallel printed otherwise than without the flag:\n"
+              f"{flagged[:1500]}\n---\n{plain_out[:1500]}")
+    check(cli_l["residuals"] > 0, f"cli monitor --fleet launched no residual kernel: {cli_l}")
+    out["cli_launches"] = cli_l
+    print(f"[slice] cli gmm, identify, explain, whatif --json and monitor --fleet on the card "
+          f"over phase 9's files with --data-parallel (one card: a mesh of one device) print "
+          f"what they print without it, the mesh line aside (wall {out['cli_wall_s']:.1f} s "
+          f"for the ten): ok")
+
+    # serve --data-parallel for one /observe_many, against the in-process monitor
+    xb, vb = bank(0)
+    req = [("/observe_many", {"streams": keys[:6], "x": xb[:6].tolist(),
+                              "v": vb[:6].tolist()})]
+    resp, secs, _ = serve_process(["--mat", mat, "--ckpt", ck, "--data-parallel"], req)
+    mu9, sigma9 = estimate_mu_sigma_normal(load_comprehensive_results(mat).array)
+    want = _replay_requests(OnlineMonitor.from_checkpoint(ck, mu9, sigma9, device="cuda"), req)
+    check(resp[0][0] == 200 and resp[0][1] == want[0],
+          "serve --data-parallel /observe_many differs from the in-process monitor's")
+    out["serve_observe_many_ms"] = secs[0] * 1e3
+    print(f"[slice] cli serve --ckpt --data-parallel on 127.0.0.1: one /observe_many of 6 "
+          f"streams ({secs[0] * 1e3:.1f} ms) equals the in-process monitor's payload: ok")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -2815,9 +3157,16 @@ def main() -> int:
     # ---- 19. ensembles and data-parallel training on the card ----
     t0 = time.perf_counter()
     par = run_parallel_slice(dev, train_ds, campaign_launches, keep.name)
-    keep.cleanup()
     par["phase_s"] = time.perf_counter() - t0
     print(f"[slice] phase 19 (s): {par['phase_s']:.1f}; {json.dumps({'parallel': par})}")
+
+    # ---- 20. the downstream half of parallel/ on the card ----
+    t0 = time.perf_counter()
+    down = run_downstream_parallel_slice(trained, gmm_fit, keep.name)
+    keep.cleanup()
+    down["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 20 (s): {down['phase_s']:.1f}; "
+          f"{json.dumps({'downstream_parallel': down})}")
 
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
@@ -2849,6 +3198,7 @@ def main() -> int:
          "launches_run_all": chain["launches"]["residuals"],
          "launches_per_exported_observe": served["launches_per_exported_observe"],
          "launches_per_fleet_observe_many": served["launches_fleet_observe_many"],
+         "launches_sharded_fleet": down["launches_sharded_fleet"],
          "launches_campaign_slice": {k: campaign_launches[k]["residuals"]
                                      for k in ("train", "score")},
          "library_ms": None},

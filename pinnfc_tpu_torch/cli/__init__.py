@@ -174,6 +174,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tsne", action="store_true",
                    help="with --plot-dir, also write a t-SNE figure of the test rows "
                         "(on --device)")
+    g.add_argument("--data-parallel", action="store_true",
+                   help="row-shard the GMM EM fit over all visible devices (of --device)")
     g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     g.set_defaults(fn=cmd_gmm)
 
@@ -216,6 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
     idf.add_argument("--json", action="store_true")
     idf.add_argument("--plot-dir", default=None,
                      help="save the relative-CI identifiability figure here")
+    idf.add_argument("--data-parallel", action="store_true",
+                     help="shard the residual Jacobian rows over all visible devices")
     idf.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     idf.set_defaults(fn=cmd_identify)
 
@@ -228,6 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
     xp.add_argument("--json", action="store_true")
     xp.add_argument("--plot-dir", default=None,
                     help="save the class × channel saliency heatmaps here")
+    xp.add_argument("--data-parallel", action="store_true",
+                    help="shard the Jacobian rows over all visible devices")
     xp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     xp.set_defaults(fn=cmd_explain)
 
@@ -257,6 +263,8 @@ def build_parser() -> argparse.ArgumentParser:
     wi.add_argument("--json", action="store_true")
     wi.add_argument("--plot-dir", default=None,
                     help="save the condition × channel actuation heatmap here")
+    wi.add_argument("--data-parallel", action="store_true",
+                    help="shard the solve rows over all visible devices")
     wi.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     wi.set_defaults(fn=cmd_whatif)
 
@@ -296,6 +304,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ACI) — the alarm level α_t tracks drift so the long-run alarm rate "
                         "stays at α*; the replayed stream's final α_t is a calibrated drift "
                         "gauge (0 = static level, default)")
+    m.add_argument("--data-parallel", action="store_true",
+                   help="with --fleet: shard the stream axis over all visible devices "
+                        "(collective-free)")
     m.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     m.set_defaults(fn=cmd_monitor)
 
@@ -427,6 +438,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "stream's alarm level α_t tracks drift (/observe gains aci_alpha/"
                          "aci_anomaly; /metrics a per-stream α_t gauge). Recorded in the "
                          "sidecar for artifacts (`export-model --conformal-gamma`)")
+    sv.add_argument("--data-parallel", action="store_true",
+                    help="shard /observe_many's stream axis over all visible devices (fleet "
+                         "scoring is collective-free; capacity scales with cards)")
     sv.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sv.set_defaults(fn=cmd_serve)
     return p

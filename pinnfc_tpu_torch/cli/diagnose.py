@@ -4,9 +4,8 @@
 the 4-class GMM diagnosis of script 03, the six-method comparison of script
 05, the split-conformal coverage table and the consolidated run report over
 a ``comprehensive_results`` artifact, with the JAX commands' printed lines
-and ``--plot-dir`` figures.
-
-``gmm --data-parallel`` waits for ``parallel/`` (ROADMAP.md Queue 1).
+and ``--plot-dir`` figures.  ``gmm --data-parallel`` splits the EM fit's rows
+over every visible device of ``--device``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,8 @@ import json
 import os
 import sys
 
-from pinnfc_tpu_torch.cli._common import _USER_ERRORS, _draw_figures, _finite_or_none
+from pinnfc_tpu_torch.cli._common import (
+    _USER_ERRORS, _data_parallel_mesh, _draw_figures, _finite_or_none)
 
 
 def _print_coefficients(results, cfg, topn: int, device) -> None:
@@ -103,7 +103,10 @@ def cmd_gmm(args) -> int:
         cfg = dataclasses.replace(cfg, init=args.init)
     try:
         results = load_comprehensive_results(args.mat)
-        out = run_gmm_pipeline(results, cfg, device=args.device)
+        mesh = _data_parallel_mesh(args)
+        if mesh is not None:
+            print(f"GMM EM data-parallel over {mesh.size} devices")
+        out = run_gmm_pipeline(results, cfg, device=args.device, mesh=mesh)
     except _USER_ERRORS as e:
         print(f"gmm: {e}", file=sys.stderr)
         return 1

@@ -2,7 +2,9 @@
 (counterpart of ``pinnfc_tpu/cli/explain.py``): λ identifiability, input
 saliency and counterfactual recovery of a checkpoint over an artifact's rows,
 on ``--device``, and a description of a checkpoint that does no device work.
-The JAX commands' tables and ``--json`` documents."""
+The JAX commands' tables and ``--json`` documents; ``--data-parallel`` splits
+the rows of identify, explain and whatif over every visible device of
+``--device``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import os
 import sys
 
 from pinnfc_tpu_torch.cli._common import (
-    _USER_ERRORS, _draw_figures, _finite_or_none, _print_lambda_table)
+    _USER_ERRORS, _data_parallel_mesh, _draw_figures, _finite_or_none, _print_lambda_table)
 
 
 def _load_with_scalers(args, command: str):
@@ -51,8 +53,11 @@ def cmd_identify(args) -> int:
     x_raw = results.array[:, [INDEX[f"x{i}"] for i in range(8)]]
     x_norm = np.asarray(ckpt["scaler_x"].transform(x_raw.astype(np.float32)), np.float32)
     try:
+        mesh = _data_parallel_mesh(args)
+        if mesh is not None:
+            print(f"residual Jacobians data-parallel over {mesh.size} devices")
         report = lambda_identifiability(ckpt["params"], x_norm, ckpt["scaler_x"],
-                                        ckpt["scaler_y"])
+                                        ckpt["scaler_y"], mesh=mesh)
         if args.plot_dir:
             from pinnfc_tpu_torch.viz import plot_identifiability
 
@@ -124,8 +129,11 @@ def cmd_explain(args) -> int:
     ckpt, results = loaded
     x_raw = results.array[:, [INDEX[f"x{i}"] for i in range(8)]]
     try:
+        mesh = _data_parallel_mesh(args)
+        if mesh is not None:
+            print(f"saliency data-parallel over {mesh.size} devices")
         report = input_saliency(ckpt["params"], x_raw, ckpt["scaler_x"], ckpt["scaler_y"],
-                                labels=results.labels, device=args.device)
+                                labels=results.labels, device=args.device, mesh=mesh)
         table = coarse_class_saliency(report, "jac_range")
         sigma_table = coarse_class_saliency(report, "sigma_jac_range")
         if args.plot_dir:
@@ -196,9 +204,12 @@ def cmd_whatif(args) -> int:
     actuate = args.actuate.split(",") if args.actuate else None
     target = "absolute" if args.absolute_target else "gain"
     try:
+        mesh = _data_parallel_mesh(args)
+        if mesh is not None:
+            print(f"recovery solve data-parallel over {mesh.size} devices")
         recs = condition_recovery(results, ckpt["params"], ckpt["scaler_x"], ckpt["scaler_y"],
                                   config=cfg, actuatable=actuate, max_rows=args.max_rows,
-                                  target=target, device=args.device)
+                                  target=target, device=args.device, mesh=mesh)
     except _USER_ERRORS as e:
         print(f"whatif: {e}", file=sys.stderr)
         return 1

@@ -4,7 +4,9 @@
 consumes live measurements, or with ``--fleet`` the 12 risk conditions as
 concurrent streams; ``serve`` puts the monitor (from a checkpoint or an
 exported artifact) behind the HTTP endpoint.  The JAX commands' lines and
-argument errors (exit 2).  ``serve --data-parallel`` waits for ``parallel/``."""
+argument errors (exit 2).  ``--data-parallel`` splits the fleet's streams
+(``monitor --fleet``, ``serve``'s /observe_many) over every visible device of
+``--device``: one card gives a mesh of one device, the unsharded step."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import sys
 
 from pinnfc_tpu_torch.cli._common import (
     _USER_ERRORS,
+    _data_parallel_mesh,
     _glitch_default,
     _print_ckpt_provenance,
     _streaming_conformal_calib,
@@ -78,6 +81,7 @@ def _build_monitor(args, arr, results):
             head = DiagnosisHead.from_gmm_result(gmm_result)
         if args.save_head:
             print(f"diagnosis head → {head.save(args.save_head)}")
+    mesh = _fleet_mesh(args)
     conformal_calib = None
     if args.conformal:
         conformal_calib = _streaming_conformal_calib(arr, args.conformal_alpha)
@@ -87,8 +91,17 @@ def _build_monitor(args, arr, results):
         glitch_alarm_n=(args.glitch_alarm_n if args.glitch_alarm_n is not None
                         else _glitch_default()),
         conformal_calib=conformal_calib, conformal_alpha=args.conformal_alpha,
-        conformal_gamma=args.conformal_gamma or 0.0, device=args.device,
+        conformal_gamma=args.conformal_gamma or 0.0, device=args.device, mesh=mesh,
     )
+
+
+def _fleet_mesh(args):
+    """The mesh of ``--data-parallel`` for the monitor's streams, with the
+    JAX command's line when it spans more than one device."""
+    mesh = _data_parallel_mesh(args)
+    if mesh is not None and mesh.size > 1:
+        print(f"fleet sharding: streams over {mesh.size} devices")
+    return mesh
 
 
 def cmd_monitor(args) -> int:
@@ -335,6 +348,10 @@ def cmd_serve(args) -> int:
         print("--conformal-gamma needs --conformal (there is no p-value "
               "to adapt the level against)", file=sys.stderr)
         return 2
+    if artifact and getattr(args, "data_parallel", False):
+        print("--data-parallel needs the checkpoint path (an exported "
+              "call cannot be vmapped across streams)", file=sys.stderr)
+        return 2
 
     try:
         arr = load_comprehensive_results(args.mat).array
@@ -346,6 +363,7 @@ def cmd_serve(args) -> int:
             monitor, provenance = built
         else:
             head = DiagnosisHead.load(args.head, device=args.device) if args.head else None
+            mesh = _fleet_mesh(args)
             provenance = _print_ckpt_provenance(args.ckpt)
             conformal_alpha = 0.1 if args.conformal_alpha is None else args.conformal_alpha
             conformal_calib = None
@@ -357,7 +375,7 @@ def cmd_serve(args) -> int:
                 glitch_alarm_n=(args.glitch_alarm_n if args.glitch_alarm_n is not None
                                 else _glitch_default()),
                 conformal_calib=conformal_calib, conformal_alpha=conformal_alpha,
-                conformal_gamma=args.conformal_gamma or 0.0, device=args.device,
+                conformal_gamma=args.conformal_gamma or 0.0, device=args.device, mesh=mesh,
             )
     except _USER_ERRORS as e:
         print(f"serve: {e}", file=sys.stderr)

@@ -16,6 +16,17 @@ Shapes: X (N, D), means (C, D), covariances (C, D, D).  The E-step is a
 batched triangular solve on the (C, D, D) factors and batched matmuls over
 the N axis.  ``dtype`` float32 (default) or float64; every product in full
 precision (``resolve_device`` turns TF32 off).
+
+``mask`` (N,) of 1/0 excludes padded rows exactly (their responsibility mass
+and log-likelihood are zeroed), which is how rows of any count shard over a
+device mesh (``parallel/diagnosis.py::gmm_fit_dp``); a mask needs
+``init_resp``, as the k-means init is unmasked.  EM runs on row shards
+(``gmm_fit_shards``): per shard, on its device, the E-step and the sums
+``nk``, ``respᵀX`` and the lower bound's; their sums on the first device in
+order (``parallel/mesh.py::all_sum``) give the means, which go back to the
+shards for the centred scatter ``Σ resp·(x−μ)(x−μ)ᵀ``; the covariances and
+their precision Cholesky factors are formed on the first device and sent to
+the shards.  One shard is ``gmm_fit``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 
 from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.diagnosis.kmeans import kmeans_fit
+from pinnfc_tpu_torch.parallel.mesh import all_sum
 
 
 class GMMParams(NamedTuple):
@@ -49,27 +61,34 @@ def _torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _log_gaussian_prob(x: torch.Tensor, means: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:
-    """log N(x | μ_c, Σ_c) for all samples × components (N, C), in sklearn's
-    formulation: the precision Cholesky ``B = L⁻ᵀ`` per component and the
-    Mahalanobis term ``‖x·B − μ·B‖²``.
-
-    A covariance that is not positive definite has no factor: its
-    component's log-densities are NaN, as ``jnp.linalg.cholesky``'s NaN factor
-    makes them in the JAX package (``cholesky_ex`` reports the failure
-    without a host sync, and the factor is replaced by NaN)."""
-    d = x.shape[1]
+def _precision_cholesky(covs: torch.Tensor) -> torch.Tensor:
+    """The precision Cholesky factors ``B = L⁻ᵀ`` (C, D, D) of the
+    covariances.  A covariance that is not positive definite has no factor:
+    its ``B`` is NaN, as ``jnp.linalg.cholesky``'s NaN factor makes it in the
+    JAX package (``cholesky_ex`` reports the failure without a host sync)."""
     chol, info = torch.linalg.cholesky_ex(covs)  # (C, D, D)
     chol = chol.masked_fill((info != 0)[:, None, None], float("nan"))
-    eye = torch.eye(d, dtype=x.dtype, device=x.device).expand_as(chol)
+    eye = torch.eye(covs.shape[1], dtype=covs.dtype, device=covs.device).expand_as(chol)
     l_inv = torch.linalg.solve_triangular(chol, eye, upper=False)  # L⁻¹
-    prec_chol = l_inv.transpose(1, 2)  # B = L⁻ᵀ
+    return l_inv.transpose(1, 2)
+
+
+def _log_prob_chol(x: torch.Tensor, means: torch.Tensor, prec_chol: torch.Tensor) -> torch.Tensor:
+    """log N(x | μ_c, Σ_c) (N, C) from the precision Cholesky factors: the
+    Mahalanobis term ``‖x·B − μ·B‖²`` and ``log|Σ_c|⁻¹ᐟ² = Σ log diag(B_c)``."""
+    d = x.shape[1]
     xb = x[None] @ prec_chol  # (C, N, D)
     mub = (means[:, None, :] @ prec_chol)[:, 0]  # (C, D)
     maha = ((xb - mub[:, None, :]) ** 2).sum(dim=2)  # (C, N)
-    # log|Σ_c|⁻¹ᐟ² = Σ log diag(B_c)
     log_det = torch.log(torch.diagonal(prec_chol, dim1=1, dim2=2)).sum(dim=1)  # (C,)
     return (-0.5 * (d * math.log(2.0 * math.pi) + maha) + log_det[:, None]).T
+
+
+def _log_gaussian_prob(x: torch.Tensor, means: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:
+    """log N(x | μ_c, Σ_c) for all samples × components (N, C), in sklearn's
+    formulation (``_precision_cholesky``, ``_log_prob_chol``); a component
+    whose covariance has no Cholesky factor gets NaN log-densities."""
+    return _log_prob_chol(x, means, _precision_cholesky(covs))
 
 
 def _e_step(x, weights, means, covs):
@@ -80,15 +99,20 @@ def _e_step(x, weights, means, covs):
     return log_norm.mean(), log_prob - log_norm
 
 
-def _gaussian_parameters(x, resp, reg):
-    """sklearn ``_estimate_gaussian_parameters`` for 'full' covariances:
-    (nk, means, covariances with reg on the diagonal)."""
-    nk = resp.sum(dim=0) + 10.0 * torch.finfo(resp.dtype).eps  # (C,)
-    means = (resp.T @ x) / nk[:, None]  # (C, D)
-    diff = x[None, :, :] - means[:, None, :]  # (C, N, D)
-    wdiff = diff * resp.T[:, :, None]
-    covs = (wdiff.transpose(1, 2) @ diff) / nk[:, None, None]
-    covs = covs + reg * torch.eye(x.shape[1], dtype=x.dtype, device=x.device)[None]
+def _gaussian_parameters(xs, resps, reg):
+    """sklearn ``_estimate_gaussian_parameters`` for 'full' covariances over
+    row shards (lists, one tensor per shard): (nk, means, covariances with reg
+    on the diagonal) on the first shard's device."""
+    nk = all_sum([r.sum(dim=0) for r in resps])
+    nk = nk + 10.0 * torch.finfo(nk.dtype).eps  # (C,)
+    means = all_sum([r.T @ x for r, x in zip(resps, xs)]) / nk[:, None]  # (C, D)
+    scatter = []
+    for x, r in zip(xs, resps):
+        diff = x[None, :, :] - means.to(x.device)[:, None, :]  # (C, N, D)
+        wdiff = diff * r.T[:, :, None]
+        scatter.append(wdiff.transpose(1, 2) @ diff)
+    covs = all_sum(scatter) / nk[:, None, None]
+    covs = covs + reg * torch.eye(means.shape[1], dtype=means.dtype, device=means.device)[None]
     return nk, means, covs
 
 
@@ -100,6 +124,7 @@ def gmm_fit(
     tol: float = 1e-3,
     reg_covar: float = 1e-6,
     kmeans_iters: int = 50,
+    mask=None,
     init_resp=None,
     dtype="float32",
     device="cuda",
@@ -108,11 +133,13 @@ def gmm_fit(
     one-hot initialization when given (``sklearn_kmeans_init_resp`` gives
     sklearn's own; from it, float64 EM follows ``GaussianMixture.fit``);
     otherwise ``kmeans_fit`` (float32, draws from ``generator``, a CPU
-    ``torch.Generator``) with ``kmeans_iters`` Lloyd iterations seeds it."""
+    ``torch.Generator``) with ``kmeans_iters`` Lloyd iterations seeds it.
+    ``mask`` (N,) of 1/0 gives rows zero weight and needs ``init_resp``."""
+    if mask is not None and init_resp is None:
+        raise ValueError("mask requires init_resp (k-means init is unmasked)")
     dev = resolve_device(device)
     dt = _torch_dtype(dtype)
     x = torch.as_tensor(x, dtype=dt, device=dev)
-    n = x.shape[0]
     if init_resp is None:
         if generator is None:
             raise ValueError("gmm_fit needs a generator for its k-means init (or init_resp)")
@@ -120,14 +147,48 @@ def gmm_fit(
         resp0 = torch.nn.functional.one_hot(km.assignments, n_components).to(dt)
     else:
         resp0 = torch.as_tensor(init_resp, dtype=dt, device=dev)
-    nk0, means, covs = _gaussian_parameters(x, resp0, reg_covar)
-    weights = nk0 / n  # sklearn _initialize: nk / n_samples (not nk / Σnk)
+    masks = None if mask is None else [torch.as_tensor(mask, dtype=dt, device=dev)]
+    return gmm_fit_shards([x], [resp0], max_iter=max_iter, tol=tol, reg_covar=reg_covar,
+                          masks=masks)
 
-    prev_lb = torch.tensor(float("-inf"), dtype=dt, device=dev)
+
+def gmm_fit_shards(xs, resp0s, max_iter: int = 100, tol: float = 1e-3,
+                   reg_covar: float = 1e-6, masks=None) -> GMMParams:
+    """EM from the initial responsibilities over row shards: ``xs`` (N_s, D),
+    ``resp0s`` (N_s, C) and ``masks`` (N_s,) of one dtype (None: every row
+    counts; more than one shard needs masks), shard s on its own device.  The
+    mixture's tensors live on the first shard's device; one read of the
+    lower bound per iteration."""
+    if masks is None and len(xs) != 1:
+        raise ValueError("row shards need their masks")
+    if masks is not None:
+        resp0s = [r * m[:, None] for r, m in zip(resp0s, masks)]
+    nk0, means, covs = _gaussian_parameters(xs, resp0s, reg_covar)
+    # sklearn _initialize: nk / n_samples (not nk / Σnk)
+    n_eff = xs[0].shape[0] if masks is None else all_sum([m.sum() for m in masks])
+    weights = nk0 / n_eff
+
+    prev_lb = torch.tensor(float("-inf"), dtype=means.dtype, device=means.device)
     converged, n_iter = False, 0
     while not converged and n_iter < max_iter:
-        lb, log_resp = _e_step(x, weights, means, covs)
-        nk, means, covs = _gaussian_parameters(x, torch.exp(log_resp), reg_covar)
+        # E-step per shard with the first device's factors
+        prec_chol, log_w = _precision_cholesky(covs), torch.log(weights)
+        resps, lb_parts = [], []
+        for k, x in enumerate(xs):
+            d = x.device
+            log_prob = (_log_prob_chol(x, means.to(d), prec_chol.to(d))
+                        + log_w.to(d)[None, :])
+            log_norm = torch.logsumexp(log_prob, dim=1, keepdim=True)
+            resp = torch.exp(log_prob - log_norm)
+            if masks is None:
+                lb = log_norm.mean()
+            else:
+                lb_parts.append((log_norm[:, 0] * masks[k]).sum())
+                resp = resp * masks[k][:, None]
+            resps.append(resp)
+        if masks is not None:
+            lb = all_sum(lb_parts) / n_eff
+        nk, means, covs = _gaussian_parameters(xs, resps, reg_covar)
         weights = nk / nk.sum()  # sklearn _m_step: nk / Σnk
         converged = bool((lb - prev_lb).abs() < tol)
         prev_lb = lb

@@ -38,6 +38,7 @@ from pinnfc_tpu_torch.diagnosis.metrics import (
 )
 from pinnfc_tpu_torch.diagnosis.posterior import calibrate_components, posterior_probabilities
 from pinnfc_tpu_torch.diagnosis.splits import stratified_split
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size
 
 
 @dataclasses.dataclass
@@ -60,10 +61,15 @@ def run_gmm_pipeline(
     config: GmmConfig = GmmConfig(),
     seed: Optional[int] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> GmmDiagnosisResult:
     """Script-03 main (03:513-591) on ``device``.  ``seed`` (default
     ``config.random_state``) seeds the CPU ``torch.Generator`` of the k-means
-    init, or sklearn's init with ``config.init='sklearn'``."""
+    init, or sklearn's init with ``config.init='sklearn'``.  With ``mesh``,
+    the EM fit splits the training rows over the mesh's ``"data"`` axis
+    (padded rows at exactly zero weight, ``parallel/diagnosis.py::
+    gmm_fit_dp``) and the mixture lives on its first device; a data axis of
+    size 1 takes the unsharded path."""
     dev = resolve_device(device)
     arr = results.array if isinstance(results, ComprehensiveResults) else np.asarray(results)
     groups = parse_group_spec(config.group_spec)
@@ -85,17 +91,16 @@ def run_gmm_pipeline(
         init_resp = sklearn_kmeans_init_resp(x_tr, n_components, seed)
     elif config.init != "kmeans":
         raise ValueError(f"GmmConfig.init must be 'kmeans' or 'sklearn', got {config.init!r}")
-    model = gmm_fit(
-        x_tr,
-        torch.Generator().manual_seed(seed),
-        n_components=n_components,
-        max_iter=config.max_iter,
-        tol=config.tol,
-        reg_covar=config.reg_covar,
-        init_resp=None if init_resp is None else np.asarray(init_resp, config.dtype),
-        dtype=config.dtype,
-        device=dev,
-    )
+    fit_kw = dict(n_components=n_components, max_iter=config.max_iter, tol=config.tol,
+                  reg_covar=config.reg_covar,
+                  init_resp=None if init_resp is None else np.asarray(init_resp, config.dtype),
+                  dtype=config.dtype)
+    if data_size(mesh) > 1:
+        from pinnfc_tpu_torch.parallel.diagnosis import gmm_fit_dp
+
+        model = gmm_fit_dp(x_tr, torch.Generator().manual_seed(seed), mesh=mesh, **fit_kw)
+    else:
+        model = gmm_fit(x_tr, torch.Generator().manual_seed(seed), device=dev, **fit_kw)
     resp_tr = gmm_predict_proba(model, x_tr).cpu().numpy()
     comp_fault_prob = calibrate_components(resp_tr, y_tr, n_classes)
     resp_te = gmm_predict_proba(model, x_te).cpu().numpy()

@@ -3,9 +3,7 @@
 
 ``mesh`` is imported at once (it depends on nothing else of the port); the
 other names load their module at first use, so the training stages can use
-the mesh helpers without importing the ensembles.  ``parallel/diagnosis.py``
-(the row-masked logistic regression and GMM fits over a mesh) is not ported
-yet.
+the mesh helpers without importing the ensembles.
 """
 
 from importlib import import_module
@@ -25,6 +23,8 @@ _LAZY = {
     "DPTrainState": "data_parallel",
     "full_train_step": "data_parallel",
     "init_dp_state": "data_parallel",
+    "gmm_fit_dp": "diagnosis",
+    "logreg_fit_dp": "diagnosis",
     "make_dp_optimizers": "data_parallel",
     "ensemble_predict": "ensemble",
     "init_ensemble": "ensemble",

@@ -27,12 +27,17 @@ state to the device in one transfer and reads the whole result back in one.
 Between calls the state bank is host numpy with the JAX package's dtypes, so
 ``save_state_bank`` files cross between the two packages.
 
-The JAX monitor's ``mesh=`` (the stream axis sharded over devices) is not
-ported yet.
+With a mesh (``mesh=``, a ``"data"`` axis), ``observe_many`` splits the stream
+axis over its devices (``_shard_fleet``): the streams never interact, so each
+shard's step runs on its own device with a copy of the monitor's params,
+scalers and constants there (made once per monitor), one copy in, one
+residual-kernel launch and one read per shard.  ``observe`` (one stream) stays
+unsharded.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import sys
 from typing import NamedTuple
@@ -46,6 +51,7 @@ from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.diagnosis.gmm import GMMParams, gmm_predict_proba
 from pinnfc_tpu_torch.ops.recurrences import linear_recurrence_assoc
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size, to_device
 from pinnfc_tpu_torch.risk.rf import _logistic_constants
 from pinnfc_tpu_torch.utils.io import atomic_savez
 
@@ -401,9 +407,23 @@ def _rf_block(s_tot, c0, rf0, first, cfg: RiskConfig, max_len=None):
     return rf_inst, rf_smooth, c_series
 
 
+def _pad_streams(x_bank: np.ndarray, v_bank: np.ndarray, states, pad: int, fresh):
+    """The fleet (S, B, F) / (S, B) and its S states with ``pad`` zero-input,
+    fresh-state dummy streams after the real ones (whose results the caller
+    drops by keeping the first S)."""
+    if not pad:
+        return x_bank, v_bank, list(states)
+    s_n, b_n, f_n = x_bank.shape
+    return (np.concatenate([x_bank, np.zeros((pad, b_n, f_n), x_bank.dtype)]),
+            np.concatenate([v_bank, np.zeros((pad, b_n), v_bank.dtype)]),
+            list(states) + [fresh] * pad)
+
+
 class OnlineMonitor:
     """Streaming scorer over (B, 8) raw measurement blocks + (B,) voltage, on
-    ``device`` (where ``params`` and the scalers live; the card by default)."""
+    ``device`` (where ``params`` and the scalers live; the card by default);
+    with ``mesh``, ``observe_many`` splits its streams over the mesh's
+    ``"data"`` axis."""
 
     def __init__(
         self,
@@ -419,6 +439,7 @@ class OnlineMonitor:
         conformal_alpha: float = 0.1,
         conformal_gamma: float = 0.0,
         device="cuda",
+        mesh: Mesh | None = None,
     ):
         calib = None
         if conformal_calib is not None:
@@ -431,7 +452,7 @@ class OnlineMonitor:
             calib = np.sort(calib)
         self._init_options(mu, sigma, config, diagnosis, glitch_alarm_n, calib is not None,
                            conformal_alpha, conformal_gamma, int(scaler_x.scale.shape[0]),
-                           device)
+                           device, mesh)
         self.params = params
         self.scaler_x = scaler_x
         self.scaler_y = scaler_y
@@ -449,13 +470,16 @@ class OnlineMonitor:
 
     def _init_options(self, mu, sigma, config: RiskConfig, diagnosis, glitch_alarm_n: int,
                       conformal: bool, conformal_alpha: float, conformal_gamma: float,
-                      n_features: int, device) -> None:
+                      n_features: int, device, mesh: Mesh | None = None) -> None:
         """The checks and attributes that do not depend on how the step is
         computed, shared with ``serving/exported.py``'s artifact monitor:
         ``conformal`` says whether the step computes p-values."""
         if glitch_alarm_n < 1:
             raise ValueError(f"glitch_alarm_n must be >= 1 (a run of 0 would alarm on "
                              f"every healthy sample), got {glitch_alarm_n}")
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError(f"monitor mesh needs a 'data' axis to shard streams over, "
+                             f"got axes {mesh.axis_names}")
         if conformal and not 0.0 < conformal_alpha < 1.0:
             raise ValueError(f"conformal_alpha must be in (0, 1), got {conformal_alpha}")
         if not 0.0 <= conformal_gamma < 1.0:
@@ -480,6 +504,9 @@ class OnlineMonitor:
         self._n_seen: dict[str, int] = {"default": 0}
         # per-stream count of samples with conformal p ≤ α (host statistic)
         self._low_p: dict[str, int] = {"default": 0}
+        # observe_many's stream shards and the monitor's copy on each device
+        self.mesh = mesh
+        self._replicas = None
 
     def _fresh_state(self) -> MonitorState:
         return MonitorState(
@@ -565,13 +592,12 @@ class OnlineMonitor:
                           st.glitch_run, *np.asarray(st.layer_c)] for st in states],
                         np.float32).reshape(len(states), self._CARRY + n_l)
 
-    def _step(self, x_bank: np.ndarray, v_bank: np.ndarray, states) -> list:
-        """Advance S streams by one (B,) block each: x_bank (S, B, F), v_bank
-        (S, B), ``states`` S host states → S (state, step outputs) pairs.
-        One host→device copy, one residual-kernel launch on the card, one
-        device→host read."""
+    def _launch(self, x_bank: np.ndarray, v_bank: np.ndarray, carry: np.ndarray):
+        """The device step of S streams on this monitor's device, not read
+        back: one host→device copy of x_bank (S, B, F), v_bank (S, B) and the
+        carry, one residual-kernel launch on the card → (the per-sample and
+        per-stream columns packed flat, the per-sample width)."""
         s_n, b_n, f_n = x_bank.shape
-        carry = self._carry(states)
         buf = torch.from_numpy(np.concatenate([x_bank.ravel(), v_bank.ravel(), carry.ravel()]))
         buf = buf.to(self.device)
         n_x = s_n * b_n * f_n
@@ -579,10 +605,23 @@ class OnlineMonitor:
         v_meas = buf[n_x:n_x + s_n * b_n].view(s_n, b_n).T  # (B, S)
         carry = buf[n_x + s_n * b_n:].view(s_n, -1)
         per_sample, per_stream = self._device_step(x_raw, v_meas, carry, self.mu, self.sigma)
-        n_sample = per_sample.shape[-1]
-        host = torch.cat([per_sample.reshape(-1), per_stream.reshape(-1)]).cpu().numpy()
-        cols = host[:b_n * s_n * n_sample].reshape(b_n, s_n, n_sample)
-        last = host[b_n * s_n * n_sample:].reshape(s_n, -1)
+        return torch.cat([per_sample.reshape(-1), per_stream.reshape(-1)]), per_sample.shape[-1]
+
+    @staticmethod
+    def _columns(host: np.ndarray, s_n: int, b_n: int, n_sample: int):
+        """``_launch``'s packed result read to the host → (cols (B, S, n),
+        last (S, 4 + F))."""
+        return (host[:b_n * s_n * n_sample].reshape(b_n, s_n, n_sample),
+                host[b_n * s_n * n_sample:].reshape(s_n, -1))
+
+    def _step(self, x_bank: np.ndarray, v_bank: np.ndarray, states) -> list:
+        """Advance S streams by one (B,) block each: x_bank (S, B, F), v_bank
+        (S, B), ``states`` S host states → S (state, step outputs) pairs.
+        One host→device copy, one residual-kernel launch on the card, one
+        device→host read."""
+        s_n, b_n, _ = x_bank.shape
+        packed, n_sample = self._launch(x_bank, v_bank, self._carry(states))
+        cols, last = self._columns(packed.cpu().numpy(), s_n, b_n, n_sample)
         return self._unpack(cols, last, states)
 
     def _unpack(self, cols: np.ndarray, last: np.ndarray, states) -> list:
@@ -622,6 +661,56 @@ class OnlineMonitor:
                                         f["layer_c"], f["oob"], f["conformal_p"], aci_a,
                                         aci_e)))
         return results
+
+    def _replica(self, device: torch.device) -> "OnlineMonitor":
+        """A shallow copy of this monitor with everything ``_device_step``
+        reads on ``device`` (the same tensors where they lie there already):
+        the same step, the same code."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.params = to_device(self.params, device)
+        rep.scaler_x, rep.scaler_y = self.scaler_x.to(device), self.scaler_y.to(device)
+        for name in ("mu", "sigma", "_w_feat", "_box_lo", "_box_hi", "_calib", "_head_columns"):
+            setattr(rep, name, to_device(getattr(self, name), device))
+        rep._layer_columns = [(w, idx.to(device)) for w, idx in self._layer_columns]
+        if self.diagnosis is not None:
+            rep.diagnosis = self.diagnosis._replace(
+                gmm=self.diagnosis.gmm._replace(**{
+                    f: getattr(self.diagnosis.gmm, f).to(device)
+                    for f in ("weights", "means", "covariances")}),
+                comp_fault_prob=self.diagnosis.comp_fault_prob.to(device))
+        return rep
+
+    def _shard_fleet(self, x_bank: np.ndarray, v_bank: np.ndarray, states) -> list:
+        """``_step`` with the S streams split over the mesh's ``"data"`` axis.
+
+        The stream axis is padded to a multiple of the data size with
+        fresh-state, zero-input dummy streams, whose results are dropped; shard
+        k's streams go to the k-th device in one copy and through the step of
+        the monitor's copy there (``_replica``, made once per monitor: params,
+        scalers, μ and σ replicated), every shard launched before the first
+        read; the per-shard outputs are read to the host one device at a
+        time and put back in stream order."""
+        devices = self.mesh.axis_devices("data")
+        if self._replicas is None:
+            self._replicas = {}
+            for d in devices:
+                if d not in self._replicas:
+                    self._replicas[d] = self._replica(resolve_device(d))
+        s_n, b_n, _ = x_bank.shape
+        pad = (-s_n) % len(devices)
+        x_bank, v_bank, padded = _pad_streams(x_bank, v_bank, states, pad, self._fresh_state())
+        carry = self._carry(padded)
+        per = (s_n + pad) // len(devices)
+        launched = [self._replicas[d]._launch(x_bank[k * per:(k + 1) * per],
+                                              v_bank[k * per:(k + 1) * per],
+                                              carry[k * per:(k + 1) * per])
+                    for k, d in enumerate(devices)]
+        parts = [self._columns(packed.cpu().numpy(), per, b_n, n_sample)  # one read per shard
+                 for packed, n_sample in launched]
+        cols = np.concatenate([c for c, _ in parts], axis=1)[:, :s_n]
+        last = np.concatenate([p for _, p in parts])[:s_n]
+        return self._unpack(cols, last, states)
 
     # ---- single-stream surface ----------------------------------------
     @property
@@ -696,10 +785,10 @@ class OnlineMonitor:
             self._low_p[stream] = self._low_p.get(stream, 0) + int(
                 np.sum(out.conformal_p <= self.conformal_alpha))
 
-    def _advance(self, streams, x_bank, v_bank) -> dict:
+    def _advance(self, streams, x_bank, v_bank, step=None) -> dict:
         states = [self._streams.get(s) or self._fresh_state() for s in streams]
         results = {}
-        for s, (new_state, out) in zip(streams, self._step(x_bank, v_bank, states)):
+        for s, (new_state, out) in zip(streams, (step or self._step)(x_bank, v_bank, states)):
             self._streams[s] = new_state
             self._n_seen[s] = self._n_seen.get(s, 0) + int(x_bank.shape[1])
             results[s] = self._pack(out)
@@ -718,9 +807,13 @@ class OnlineMonitor:
         S stream keys (created fresh on first use) → {stream: MonitorOutput}.
         Equal to S ``observe`` calls; the streams' rows go through the
         forward and the residual kernel as one (S·B, 8) batch and the
-        recurrences run on (B, S) with the per-stream carry as start."""
+        recurrences run on (B, S) with the per-stream carry as start.  With a
+        mesh whose data axis spans more than one device, the streams split
+        over it (``_shard_fleet``: one batch and one kernel launch per
+        shard)."""
         streams, x_bank, v_bank = check_fleet_bank(x_bank, v_bank, streams)
-        return self._advance(streams, x_bank, v_bank)
+        sharded = data_size(self.mesh) > 1
+        return self._advance(streams, x_bank, v_bank, self._shard_fleet if sharded else None)
 
     def reset(self, stream: str | None = None) -> None:
         """Reset one stream's state, or (default) the whole bank."""
@@ -818,13 +911,14 @@ class OnlineMonitor:
         conformal_alpha: float = 0.1,
         conformal_gamma: float = 0.0,
         device="cuda",
+        mesh: Mesh | None = None,
     ) -> "OnlineMonitor":
         """Restore params and scalers of a checkpoint (either package's) onto
-        ``device``."""
+        ``device``; ``mesh`` shards ``observe_many``'s streams."""
         from pinnfc_tpu_torch.utils.checkpoint import load_checkpoint
 
         ckpt = load_checkpoint(path, device=device)
         return cls(ckpt["params"], ckpt["scaler_x"], ckpt["scaler_y"], mu, sigma, config,
                    diagnosis, glitch_alarm_n=glitch_alarm_n, conformal_calib=conformal_calib,
                    conformal_alpha=conformal_alpha, conformal_gamma=conformal_gamma,
-                   device=device)
+                   device=device, mesh=mesh)

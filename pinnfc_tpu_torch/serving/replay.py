@@ -5,7 +5,8 @@ Script 04 evaluates 12 (current, fault) conditions offline, one at a time
 (04:145-161, pipeline 04:479-528).  A deployed scorer faces them live and
 concurrently: this module replays every condition as an independent stream of
 one ``OnlineMonitor``, advancing the fleet in lockstep blocks through
-``observe_many`` (one step, one residual-kernel launch on the card, per poll).
+``observe_many`` (one step, one residual-kernel launch on the card, per poll;
+one per shard on a sharded monitor).
 
 Each stream starts at its condition's first row, so the dynamic voltage
 baseline V(0) − voltage_drop and the C[0] = 0 gating match the offline
@@ -70,7 +71,10 @@ def fleet_replay(
     final partial block (and a lone full-block stream) goes through
     ``observe`` — at most one partial call per stream over the replay.
     Stream keys are ``"<fault>@<current>A"`` and land in the monitor's state
-    bank like any other stream."""
+    bank like any other stream.  A monitor built with a mesh
+    (``OnlineMonitor(mesh=)``) splits each ``observe_many`` round's streams
+    over the mesh's data axis; the table is the unsharded one's up to float32
+    rounding of the forward."""
     arr = results.array if isinstance(results, ComprehensiveResults) else np.asarray(results)
     cfg = monitor.config
 

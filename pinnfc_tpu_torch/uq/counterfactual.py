@@ -31,7 +31,12 @@ own gradient.  δ enters the forward only as ``δ·mask``, so masked channels
 never move, and rows that already meet their target keep δ = 0 exactly (zero
 hinge gradient, zero penalty gradient at 0).
 
-The JAX function's ``mesh=`` (rows sharded over devices) is not ported yet.
+With a mesh, the rows split over its ``"data"`` axis (edge rows appended to a
+multiple of its size, trimmed on the host after one read per device) and each
+shard runs the Adam loop on its device with a copy of the MLP there, the
+shards stepped in lockstep.  As in the JAX function, the loss's means divide
+by the padded row count and the gradient is multiplied by it back, so each
+row's step is its own whatever shard it lies in; no sum crosses shards.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from pinnfc_tpu_torch.data.contract import INPUT_CHANNELS
 from pinnfc_tpu_torch.data.scaling import AffineScaler
 from pinnfc_tpu_torch.device import resolve_device
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size, pad_to_multiple, replicate, shard_batch
 
 # Channels an operator can command on the test bench; stack current is the
 # imposed load and coolant_t_out a measured consequence of the thermal state
@@ -112,54 +118,74 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _recover(mlp, x0_norm, v_target, y_scale, y_min, mask, box_lo, box_hi,
-             config: CounterfactualConfig, gain_mode: bool):
-    """Adam on δ (N, 8); returns ``(x_cf_norm, v_after, v_before)`` with
-    voltages in volts, all on the device.
+class _Solve:
+    """One shard's box-constrained Adam solve over δ (N, 8), on the device of
+    its tensors: ``x0_norm`` (N, 8), ``v_target`` (N,), and the constants
+    ``y_scale``, ``y_min``, ``mask`` (8,), ``box_lo``, ``box_hi`` (8,)."""
 
-    In gain mode ``v_target`` carries the required gain per row and the
-    hinge targets ``v̂(x₀) + gain``.  The objective is a batch mean, so the
-    gradient is multiplied by N (each row's own gradient).  The hinge lives
-    in physical volts, the α-penalty in normalized-δ units.  Scalars are
-    float32 as in the JAX function: ``1 − b1``, the bias corrections
-    ``1 − b1**t`` and the update ``lr·m̂/(√v̂ + eps)``."""
-    n = x0_norm.shape[0]
-    # widen the box per row so δ = 0 is always feasible
-    lo_eff = torch.minimum(box_lo, x0_norm)
-    hi_eff = torch.maximum(box_hi, x0_norm)
+    def __init__(self, mlp, x0_norm, v_target, y_scale, y_min, mask, box_lo, box_hi,
+                 gain_mode: bool):
+        self.mlp, self.x0_norm, self.mask = mlp, x0_norm, mask
+        self.y_scale, self.y_min = y_scale, y_min
+        # widen the box per row so δ = 0 is always feasible
+        self.lo_eff = torch.minimum(box_lo, x0_norm)
+        self.hi_eff = torch.maximum(box_hi, x0_norm)
+        zeros = torch.zeros_like(x0_norm)
+        with torch.no_grad():
+            self.v0 = self.v_hat(zeros)
+        self.tgt = self.v0 + v_target if gain_mode else v_target.expand_as(self.v0)
+        self.delta = self.m = self.v = zeros
 
-    def v_hat(delta):
+    def x(self, delta):
         # jnp.clip's maximum-then-minimum: at a tie each splits its gradient
         # in half, as torch.maximum/minimum do
-        x = torch.minimum(torch.maximum(x0_norm + delta * mask, lo_eff), hi_eff)
-        return (_mean_head(mlp, x) - y_min) / y_scale
+        return torch.minimum(torch.maximum(self.x0_norm + delta * self.mask, self.lo_eff),
+                             self.hi_eff)
 
-    zeros = torch.zeros_like(x0_norm)
-    with torch.no_grad():
-        v0 = v_hat(zeros)
-    tgt = v0 + v_target if gain_mode else v_target.expand_as(v0)
+    def v_hat(self, delta):
+        return (_mean_head(self.mlp, self.x(delta)) - self.y_min) / self.y_scale
 
+    def gradient(self, alpha: float, n_rows=None):
+        """Each row's own gradient of the objective: the batch means over
+        ``n_rows`` rows (default: this shard's), times ``n_rows``."""
+        d = self.delta.detach().requires_grad_(True)
+        short = torch.relu(self.tgt - self.v_hat(d))
+        if n_rows is None:
+            loss = torch.mean(short ** 2) + alpha * torch.mean((d * self.mask) ** 2)
+            n_rows = d.shape[0]
+        else:  # the means of the whole padded batch
+            loss = (torch.sum(short ** 2) / n_rows
+                    + alpha * (torch.sum((d * self.mask) ** 2) / (n_rows * d.shape[1])))
+        g, = torch.autograd.grad(loss, d)
+        return g * n_rows
+
+
+def _recover(solves, config: CounterfactualConfig, n_rows=None):
+    """Adam on every shard's δ, the shards stepped in lockstep (each step
+    issued on every device before the next); returns per shard ``(x_cf_norm,
+    v_after, v_before)`` with voltages in volts, on the shard's device.
+
+    The objective is a batch mean over ``n_rows`` rows (default: each shard's
+    own), so the gradient is multiplied by ``n_rows`` (each row's own
+    gradient).  The hinge lives in physical volts, the α-penalty in
+    normalized-δ units.  Scalars are float32 as in the JAX function:
+    ``1 − b1``, the bias corrections ``1 − b1**t`` and the update
+    ``lr·m̂/(√v̂ + eps)``."""
     b1, b2 = np.float32(config.adam_b1), np.float32(config.adam_b2)
     one = np.float32(1.0)
     omb1, omb2 = _f32(one - b1), _f32(one - b2)
     lr, alpha, eps = _f32(config.lr), _f32(config.alpha), _f32(config.adam_eps)
-    delta, m, v = zeros, zeros, zeros
     with torch.enable_grad():
         for t in range(1, config.steps + 1):
-            d = delta.detach().requires_grad_(True)
-            short = torch.relu(tgt - v_hat(d))
-            loss = torch.mean(short ** 2) + alpha * torch.mean((d * mask) ** 2)
-            g, = torch.autograd.grad(loss, d)
-            g = g * n
-            m = float(b1) * m + omb1 * g
-            v = float(b2) * v + omb2 * g ** 2
-            mh = m / _f32(one - b1 ** np.float32(t))
-            vh = v / _f32(one - b2 ** np.float32(t))
-            delta = delta - lr * mh / (torch.sqrt(vh) + eps)
+            for sv in solves:
+                g = sv.gradient(alpha, n_rows)
+                sv.m = float(b1) * sv.m + omb1 * g
+                sv.v = float(b2) * sv.v + omb2 * g ** 2
+                mh = sv.m / _f32(one - b1 ** np.float32(t))
+                vh = sv.v / _f32(one - b2 ** np.float32(t))
+                sv.delta = sv.delta - lr * mh / (torch.sqrt(vh) + eps)
     with torch.no_grad():
-        x_cf = torch.minimum(torch.maximum(x0_norm + delta * mask, lo_eff), hi_eff)
-        v_after = v_hat(delta)
-    return x_cf, v_after, v0
+        return [(sv.x(sv.delta), sv.v_hat(sv.delta), sv.v0) for sv in solves]
 
 
 def counterfactual_recovery(
@@ -172,6 +198,7 @@ def counterfactual_recovery(
     config: CounterfactualConfig = CounterfactualConfig(),
     v_meas: Optional[np.ndarray] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> CounterfactualReport:
     """Solve the recovery problem for every row of ``x_phys`` (N, 8), on
     ``device`` (where ``params`` and the scalers live).
@@ -182,8 +209,9 @@ def counterfactual_recovery(
     ``recovered`` means the expected measured voltage ``v_meas + (v̂_after −
     v̂_before)`` clears ``v_target``.  Without it the target is absolute:
     ``v̂_after ≥ v_target + margin``, recovered when ``v̂_after ≥ v_target``.
+    With ``mesh``, the rows split over its ``"data"`` axis; a data axis of
+    size 1 takes the unsharded path.
     """
-    dev = resolve_device(device)
     x_phys = np.asarray(x_phys, np.float32)
     if x_phys.ndim != 2 or x_phys.shape[1] != len(INPUT_CHANNELS):
         raise ValueError(f"x_phys must be (N, {len(INPUT_CHANNELS)}); got {x_phys.shape}")
@@ -214,14 +242,28 @@ def counterfactual_recovery(
     else:
         solve_target = v_target + config.margin
 
-    def dev_f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    def solve(mlp_, x0, tgt):  # one shard's solve on the device of x0
+        consts = [torch.as_tensor(np.asarray(a, np.float32), device=x0.device)
+                  for a in (y_scale, y_min, mask, box_lo, box_hi)]
+        return _Solve(mlp_, x0, tgt, *consts, gain_mode)
 
-    x_cf_norm, v_after, v_before = _recover(
-        mlp, dev_f32(x0_norm), dev_f32(solve_target), dev_f32(y_scale), dev_f32(y_min),
-        dev_f32(mask), dev_f32(box_lo), dev_f32(box_hi), config, gain_mode)
-    # one device→host read
-    packed = torch.cat([x_cf_norm, v_after[:, None], v_before[:, None]], dim=1).cpu().numpy()
+    if data_size(mesh) > 1:
+        x_pad, _ = pad_to_multiple(np.asarray(x0_norm, np.float32), mesh.shape["data"])
+        t_pad, _ = pad_to_multiple(np.asarray(solve_target, np.float32), mesh.shape["data"])
+        rows = shard_batch(mesh, torch.from_numpy(x_pad), torch.from_numpy(t_pad))
+        for d in rows.devices:
+            resolve_device(d)
+        solved = _recover([solve(m, x, t) for m, (x, t) in zip(replicate(mesh, mlp), rows.parts)],
+                          config, n_rows=x_pad.shape[0])
+    else:
+        dev = resolve_device(device)
+        solved = _recover([solve(mlp, torch.as_tensor(np.asarray(x0_norm, np.float32), device=dev),
+                                 torch.as_tensor(np.asarray(solve_target, np.float32), device=dev))],
+                          config)
+    # one device→host read per shard, the pad rows trimmed on the host
+    packed = [torch.cat([x_cf, v_after[:, None], v_before[:, None]], dim=1)
+              for x_cf, v_after, v_before in solved]
+    packed = np.concatenate([p.cpu().numpy() for p in packed])[:n]
     x_cf_norm, v_after, v_before = packed[:, :8], packed[:, 8].copy(), packed[:, 9].copy()
 
     x_cf_phys = np.asarray(scaler_x.inverse(x_cf_norm), np.float32)
@@ -278,6 +320,7 @@ def condition_recovery(
     max_rows: int = 64,
     target: str = "gain",
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ):
     """Per-risk-condition counterfactual recovery over an exported artifact.
 
@@ -286,8 +329,9 @@ def condition_recovery(
     at/after the first measured-voltage crossing of V(0) − voltage_drop — is
     solved for the minimal actuation that recovers the alarm line
     (``target='gain'``, the default) or that lifts the model's own prediction
-    over it (``target='absolute'``).  All conditions share one batched solve;
-    tails longer than ``max_rows`` are subsampled evenly."""
+    over it (``target='absolute'``).  All conditions share one batched solve
+    (its rows split over ``mesh``'s ``"data"`` axis when given); tails longer
+    than ``max_rows`` are subsampled evenly."""
     from pinnfc_tpu_torch.config import DEFAULT_RF_CONDITIONS, FAULT_NAMES_EN, RiskConfig
     from pinnfc_tpu_torch.data.contract import INDEX, ComprehensiveResults
     from pinnfc_tpu_torch.risk.rf import condition_row_indices, find_first_alarm_index
@@ -327,7 +371,7 @@ def condition_recovery(
         v_m = arr[all_rows, INDEX["y_true"]].astype(np.float32) if target == "gain" else None
         full = counterfactual_recovery(params, x, v_t, scaler_x, scaler_y,
                                        actuatable=actuatable, config=config, v_meas=v_m,
-                                       device=device)
+                                       device=device, mesh=mesh)
 
     out = []
     off = 0

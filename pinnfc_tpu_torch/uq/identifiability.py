@@ -19,18 +19,24 @@ The residual vector per group is the one its training stage minimizes:
 ``thermal_residual_simple``/``hydrogen_residual``/``oxygen_residual(...).f``.
 Residual and Jacobian run on the device in float32: forward mode over the
 group's 4-5 λ's (``torch.func.jacfwd``), one read per group; the k×k algebra
-runs in float64 on the host.
+runs in float64 on the host.  With a mesh, the rows split over its ``"data"``
+axis (edge rows appended to a multiple of its size) and each shard's
+residuals and Jacobian are taken on its device with a copy of the params and
+scalers there, one read per shard and group; the pad rows are trimmed before
+the interval math, so σ̂² and the degrees of freedom never see them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pinnfc_tpu_torch.data.scaling import AffineScaler
+from pinnfc_tpu_torch.device import resolve_device
 from pinnfc_tpu_torch.models.pinn import LAMBDA_BOUNDS, LAMBDA_NAMES
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size, pad_to_multiple, replicate, shard_batch
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
 from pinnfc_tpu_torch.physics.oxygen import oxygen_residual
 from pinnfc_tpu_torch.physics.thermal import thermal_residual_simple
@@ -141,21 +147,34 @@ def lambda_identifiability(
     groups: Sequence[str] = ("lam_v", "lam_t", "lam_h", "lam_o"),
     z: float = 1.959964,
     bound_rtol: float = 1e-4,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, GroupIdentifiability]:
     """Identifiability report for every λ group at the trained optimum.
 
     ``x_norm`` are normalized input rows (the domain the stages trained on),
     numpy or a tensor; they go to the device of ``params``.  One residual and
     Jacobian evaluation per group on that device; interval math on the
-    host."""
+    host.  With ``mesh``, the rows split over its ``"data"`` axis; a data
+    axis of size 1 takes the unsharded path."""
     dev = params[groups[0]].device
     if isinstance(x_norm, np.ndarray):
         x_norm = torch.from_numpy(np.array(x_norm, np.float32))
-    x_norm = x_norm.to(device=dev, dtype=torch.float32)
+    n = int(x_norm.shape[0])
+    if data_size(mesh) > 1:
+        for d in mesh.axis_devices("data"):
+            resolve_device(d)
+        x_pad, _ = pad_to_multiple(x_norm.to(dtype=torch.float32), mesh.shape["data"])
+        pieces = [((p, scaler_x.to(x.device), scaler_y.to(x.device)), x)
+                  for p, x in zip(replicate(mesh, params), shard_batch(mesh, x_pad).array(0))]
+    else:
+        pieces = [((params, scaler_x, scaler_y), x_norm.to(device=dev, dtype=torch.float32))]
     out: Dict[str, GroupIdentifiability] = {}
     for group in groups:
-        r, jac = residual_and_jacobian(group, params, x_norm, scaler_x, scaler_y)
-        rj = torch.cat([r[:, None], jac], dim=1).cpu().numpy()  # one read
+        rjs = []
+        for (p, sx, sy), x in pieces:  # every shard launched before the first read
+            r, jac = residual_and_jacobian(group, p, x, sx, sy)
+            rjs.append(torch.cat([r[:, None], jac], dim=1))
+        rj = np.concatenate([a.cpu().numpy() for a in rjs])[:n]  # one read per shard
         r, jac = rj[:, 0], rj[:, 1:]
         stderr, sens, identifiable, dof, sigma2, n_used, corr = gauss_newton_ci(r, jac, z)
         lam = params[group].detach().cpu().numpy().astype(np.float64).ravel()

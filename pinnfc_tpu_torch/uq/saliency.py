@@ -17,6 +17,11 @@ carries three calibrations, computed in float64 on the host:
 * ``jac_range`` — ∂v_phys/∂x_phys × the channel's training range: volts of
   predicted swing per full-range swing of the channel, comparable across
   channels.
+
+With a mesh, the rows split over its ``"data"`` axis (edge rows appended to a
+multiple of its size, trimmed on the host after one read per device) and
+each shard's Jacobians are taken on its device with a copy of the MLP there:
+a Jacobian row depends on its own input row only, so the shards never meet.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from pinnfc_tpu_torch.data.contract import INPUT_CHANNELS
 from pinnfc_tpu_torch.data.scaling import AffineScaler
 from pinnfc_tpu_torch.device import resolve_device
+from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size, pad_to_multiple, replicate, shard_batch
 
 
 class SaliencyReport(NamedTuple):
@@ -54,6 +60,20 @@ def _head_jacobians(mlp, x_norm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     return jac_v, jac_s
 
 
+def _sharded_jacobians(mlp, x_norm: np.ndarray, mesh: Mesh):
+    """``_head_jacobians`` of the rows of ``x_norm`` (N, 8) split over the
+    mesh's ``"data"`` axis: every shard launched before the first read, one
+    read per shard, the pad rows trimmed on the host."""
+    for d in mesh.axis_devices("data"):
+        resolve_device(d)
+    x_pad, n = pad_to_multiple(np.asarray(x_norm, np.float32), mesh.shape["data"])
+    shards = shard_batch(mesh, torch.from_numpy(x_pad))
+    jacs = [torch.stack(_head_jacobians(m, x)) for m, x in zip(replicate(mesh, mlp),
+                                                                 shards.array(0))]
+    jac = np.concatenate([j.cpu().numpy() for j in jacs], axis=1)[:, :n]
+    return jac[0], jac[1]
+
+
 def input_saliency(
     params,
     x_phys: np.ndarray,
@@ -61,6 +81,7 @@ def input_saliency(
     scaler_y: AffineScaler,
     labels: Optional[np.ndarray] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> SaliencyReport:
     """Saliency report over physical-domain rows ``x_phys`` (N, 8), on
     ``device`` (where ``params`` must live).
@@ -69,15 +90,18 @@ def input_saliency(
     and ``v_phys = (v_norm − m_y)/s_y`` give ``∂v_phys/∂x_phys =
     (s_x/s_y)·∂v_norm/∂x_norm``; the range calibration multiplies by the
     training span ``data_max − data_min`` (0 for a channel that was constant
-    in training)."""
-    dev = resolve_device(device)
+    in training).  With ``mesh``, the rows split over its ``"data"`` axis; a
+    data axis of size 1 takes the unsharded path."""
     x_phys = np.asarray(x_phys, np.float32)
     if x_phys.ndim != 2 or x_phys.shape[1] != len(INPUT_CHANNELS):
         raise ValueError(f"x_phys must be (N, {len(INPUT_CHANNELS)}); got {x_phys.shape}")
     mlp = params["mlp"] if isinstance(params, dict) and "mlp" in params else params
-    x_norm = torch.as_tensor(scaler_x.transform(x_phys), device=dev)
-    jac_v, jac_s = _head_jacobians(mlp, x_norm)
-    jac_v, jac_s = torch.stack([jac_v, jac_s]).cpu().numpy()  # one read
+    if data_size(mesh) > 1:
+        jac_v, jac_s = _sharded_jacobians(mlp, scaler_x.transform(x_phys), mesh)
+    else:
+        x_norm = torch.as_tensor(scaler_x.transform(x_phys), device=resolve_device(device))
+        jac_v, jac_s = _head_jacobians(mlp, x_norm)
+        jac_v, jac_s = torch.stack([jac_v, jac_s]).cpu().numpy()  # one read
 
     s_x = scaler_x.scale.cpu().numpy().astype(np.float64)
     s_y = float(scaler_y.scale.cpu().numpy().astype(np.float64).ravel()[0])

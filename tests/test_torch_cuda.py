@@ -68,11 +68,13 @@ their first mask block (``block0``) and ``mc_dropout_sharded`` on a mesh that
 lists ``cuda:0`` three times, bitwise the whole run; the sharded DNN stage
 (the training kernel's per-step entries) against the whole-stage kernel and
 its per-shard plain version at the training kernel's tolerances; a 2-member
-ensemble bitwise two lone stages.  On a mesh of distinct cards (these skip
-with fewer than two): the sharded MC run bitwise one launch, the sharded DNN
-stage bitwise the same shards on one card, an ensemble split over the cards
-bitwise the ensemble without a mesh, and the residual kernel on the last card
-at its tolerances."""
+ensemble bitwise two lone stages; the monitor's sharded fleet step on
+``[cuda:0] * 3`` against the unsharded step at the monitor's card-against-CPU
+tolerances, one residual-kernel launch per shard.  On a mesh of distinct cards
+(these skip with fewer than two): the sharded MC run bitwise one launch, the
+sharded DNN stage bitwise the same shards on one card, an ensemble split over
+the cards bitwise the ensemble without a mesh, the residual kernel on the last
+card at its tolerances, and the sharded fleet step against the unsharded one."""
 
 import numpy as np
 import pytest
@@ -908,3 +910,42 @@ def test_ensemble_over_distinct_cards(card_mesh):
     pb = all_residuals(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
     for a, b in zip(kb, pb):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, equal_nan=True)
+
+
+def _sharded_fleet_against_one_card(mesh, cuda_device):
+    """Five streams of 64 rows through ``observe_many`` of a monitor sharded
+    over ``mesh`` and of the same monitor unsharded, two rounds: one
+    residual-kernel launch per shard and call, the outputs at
+    ``_same_monitor_out``'s tolerances, the carried states' flags equal."""
+    x, v, make = _monitor_inputs()
+    sharded, plain = make(cuda_device), make(cuda_device)
+    sharded.mesh = mesh
+    xb = np.stack([x[64 * i:64 * (i + 1)] for i in range(5)])
+    vb = np.stack([v[64 * i:64 * (i + 1)] for i in range(5)])
+    keys = [f"s{i}" for i in range(5)]
+    for rnd in range(2):
+        before = build.LAUNCHES["residuals"]
+        got = sharded.observe_many(xb + np.float32(0.01 * rnd), vb, keys)
+        assert build.LAUNCHES["residuals"] == before + mesh.shape["data"]
+        want = plain.observe_many(xb + np.float32(0.01 * rnd), vb, keys)
+        for k in keys:
+            _same_monitor_out(got[k], want[k])
+            assert sharded._streams[k].v_first_set == plain._streams[k].v_first_set
+    assert set(sharded.streams) == {"default", *keys}
+
+
+@pytest.mark.cuda
+def test_sharded_fleet_step_on_one_card(cuda_device):
+    """The sharded fleet step on a mesh that lists the card three times (one
+    dummy stream) against the unsharded step."""
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh
+
+    _sharded_fleet_against_one_card(make_mesh(devices=["cuda:0"] * 3), cuda_device)
+
+
+@pytest.mark.cuda
+def test_sharded_fleet_step_over_distinct_cards(card_mesh, cuda_device):
+    """The sharded fleet step with its stream shards on distinct cards (the
+    monitor's copy on each, made once) against the unsharded step on the
+    first card."""
+    _sharded_fleet_against_one_card(card_mesh, cuda_device)

@@ -264,9 +264,13 @@ def test_logreg_matches_jax(balanced, d, k):
 
 
 def test_logreg_refuses_what_is_not_ported(blobs):
+    """Only an unknown solver is refused: ``mask=`` is ported (with
+    parallel/diagnosis.py), and a mask of ones fits as JAX's masked fit does
+    (coef at tests/test_parallel.py's atol 5e-5)."""
     x, y = blobs
-    with pytest.raises(NotImplementedError, match="parallel"):
-        logreg.logreg_fit(x, y, n_classes=4, mask=np.ones(len(y)), device="cpu")
+    got = logreg.logreg_fit(x, y, n_classes=4, mask=np.ones(len(y)), device="cpu")
+    want = jax_logreg.logreg_fit(x, y, n_classes=4, mask=jnp.ones(len(y), jnp.float32))
+    np.testing.assert_allclose(got.coef.numpy(), np.asarray(want.coef), rtol=0, atol=5e-5)
     with pytest.raises(ValueError, match="unknown solver"):
         logreg.logreg_fit(x, y, n_classes=4, solver="sgd", device="cpu")
 
