@@ -7,7 +7,8 @@ Phases, any failure exits non-zero before the result line:
 2. build: compile every kernel in pinnfc_tpu_torch/csrc with nvcc (sm_90a);
    count the tensor-core instructions (HMMA) of each training-kernel function
    and of the MC-dropout sample kernel in the library's SASS (cuobjdump):
-   fwd_bwd_kernel and wgrad_kernel must have them, mc_sample_kernel bf16 ones;
+   fwd_bwd_kernel and wgrad_kernel must have bf16 ones (their bf16 form) and
+   others (their 3xTF32 form), mc_sample_kernel bf16 ones;
 3. kernel vs plain on the card: the MC-dropout kernel at flagship width on
    1,000 rows (ragged against its 128-row CTAs and 256-row mask blocks),
    64 samples, against its plain version with bf16 sample passes and against
@@ -189,6 +190,26 @@ Phases, any failure exits non-zero before the result line:
    ``--data-parallel`` in one subprocess over phase 9's files (the same
    output, the mesh line aside) and ``serve --ckpt --data-parallel`` for one
    /observe_many against the in-process monitor;
+21. the training kernel's bf16 form (precision "default") on the card: the
+   one-step gradient of ``pinnfc_train_dnn_grad`` in both forms on 6,000 and
+   37 rows against the plain version with bf16 products within
+   ``BF16_GRAD_BAND`` of max|g| (the float32 plain gradient, a planted fault,
+   must fail it; the 3xTF32 form's gaps to the float32 and float64 plain
+   gradients printed); a 20-step stage against its bf16 plain version (loss[0],
+   the losses within ``BF16_LOSS_BAND`` of the largest |loss|, at most
+   ``BF16_WEIGHT_SHARE`` of the weights further than 1e-3), two runs bitwise
+   equal, a chunk from step 200 bitwise the whole stage, a NaN row with
+   skip_nonfinite; the sharded stage on ``[cuda:0] * 4`` (4 grad launches a
+   step) against the whole-stage bf16 kernel; ``cli train --precision
+   default --steps-scale 0.1`` plain, with ``--ckpt-every 100`` and with
+   ``--data-parallel``, three subprocesses at once, the first DNN stage's
+   loss falling (the median after its first tenth below that of its first
+   tenth) and the later one staying below that first tenth's median, their
+   launches counted, their artifacts equal on one card; the
+   non-flagship model's bf16-operand autograd gradient against the
+   hand-derived bf16 one (the float32 autograd must fail the band) and its
+   200-step stage at "default"; both forms' ms/step of a 200-step stage in
+   turns, the bf16 plain version's, and a profiler split of the bf16 form;
 then one JSON line ``{"kernels": [...]}``, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -202,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import os
 import shutil
@@ -440,8 +462,9 @@ def run_training_slice():
             tenth = max(1, len(losses) // 10)
             first = float(np.median(losses[:tenth]))
             last = float(np.median(losses[-tenth:]))
+            tenths = [round(float(np.median(c)), 4) for c in np.array_split(losses, 10)]
             print(f"[slice] train stage {name}: loss median {first:.4f} over its first "
-                  f"tenth, {last:.4f} over its last")
+                  f"tenth, {last:.4f} over its last; by tenths {tenths}")
             check(last < first, f"stage {name} loss did not fall: median {first} over its "
                                 f"first tenth, {last} over its last")
     for g, (lo, hi) in LAMBDA_BOUNDS.items():
@@ -544,11 +567,12 @@ def sass_hmma(lib) -> dict:
     return counts
 
 
-def kernel_breakdown(fn, steps: int):
+def kernel_breakdown(fn, steps: int, required=STEP_KERNELS + STAGE_KERNELS):
     """From a torch.profiler trace of ``fn``, one ``steps``-step stage: device
     ms per step of each kernel of csrc/train_dnn.cu, the launches of each (and
     the trace's device memsets, the wrapper's and torch's), and the device
-    launches per step of the step kernels."""
+    launches per step of the step kernels.  Fails if a kernel of ``required``
+    shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -565,7 +589,7 @@ def kernel_breakdown(fn, steps: int):
         if name and dev_us:
             ms[name] = ms.get(name, 0.0) + dev_us / steps / 1e3
             launches[name] = launches.get(name, 0) + ev.count
-    missing = [k for k in STEP_KERNELS + STAGE_KERNELS if k not in ms]
+    missing = [k for k in required if k not in ms]
     check(not missing, f"the profiler trace shows no device time for {missing}")
     per_step = sum(launches[k] for k in STEP_KERNELS) / steps
     return ms, launches, per_step
@@ -2874,6 +2898,319 @@ def run_downstream_parallel_slice(trained, gmm_result, keep_dir: str) -> dict:
     return out
 
 
+# Phase 21's bands for the training kernel's bf16 form against its bf16 plain
+# version.  One-step gradient, as the worst tensor's max|Δg| / max|g|: on the
+# CPU (tests/_torch_precision_probe.py) a float32 against a float64
+# accumulation of the same bf16 operands reads 9.5e-6 at N = 6,000 (5.5e-5 at
+# N = 512), and the float32 form against the bf16 one 4.0e-3 (the planted
+# fault, which must fail the band).
+BF16_GRAD_BAND = 1e-3
+# 20 steps at lr 0.01: the share of weights more than 1e-3 from the bf16
+# plain version's (Adam turns a flipped sign of a near-zero gradient element
+# into a step of 2 lr, so the largest gap says nothing); the losses within
+# BF16_LOSS_BAND of the trace's largest |loss|.  On the CPU, 20 steps of a
+# float32 against a float64 accumulation of bf16 operands leave 0.0034 % of
+# the weights further than 1e-3 at N = 6,000 (0 % at N = 37); the float32
+# form against the bf16 one 42.8 % (3.4 %), its losses 3.2e-2 (7.6e-3) of the
+# largest |loss| apart.
+BF16_WEIGHT_SHARE = 0.01
+BF16_LOSS_BAND = 1e-2
+
+
+def rel_gap(got, want) -> float:
+    """The worst tensor's max|Δ| / max|want| over two lists of tensors."""
+    return max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
+               for a, b in zip(got, want))
+
+
+def weight_share(a_mlp, b_mlp, tol: float = 1e-3) -> float:
+    """The share of weights (all tensors) further apart than ``tol``."""
+    from pinnfc_tpu_torch.ops.train_dnn import flat_weights
+
+    return float(((flat_weights(a_mlp) - flat_weights(b_mlp)).abs() > tol).double().mean())
+
+
+def falls(losses) -> tuple:
+    """(median of the first tenth, median of the rest, whether it fell).  At
+    lr 0.01 a DNN stage's loss wanders between about -1.7 and +0.3 after its
+    first hundred steps in every form (3xTF32 and bf16, kernel and plain),
+    with spikes of a tenth's median, so the rest of the stage is read as one
+    median rather than by its last tenth as phase 7 reads it."""
+    losses = np.asarray(losses)
+    tenth = max(1, len(losses) // 10)
+    first, rest = float(np.median(losses[:tenth])), float(np.median(losses[tenth:]))
+    return first, rest, bool(np.isfinite(losses).all()) and rest < first
+
+
+def run_cli_together(*argvs, timeout: int = 600):
+    """Each argv through ``python -m pinnfc_tpu_torch.cli`` in its own
+    subprocess, all started together: [(standard output, launch counts)] in
+    order, and the wall seconds of all."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", CLI_RUNNER, *argv], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for argv, proc in zip(argvs, procs):
+            out, _ = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0, f"cli {' '.join(argv)} exited {proc.returncode}:\n"
+                                        f"{out[-4000:]}")
+            counts = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")]
+            check(len(counts) == 1, f"cli {argv[0]} printed no launch counts")
+            outs.append((out, json.loads(counts[0][len("LAUNCHES "):])))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs, time.perf_counter() - t0
+
+
+def check_bf16_grads(mlp, x, y, seed: int) -> dict:
+    """The kernel's one-step gradient in both forms (``step_grads``) against
+    the plain version on the card; returns the gaps."""
+    from pinnfc_tpu_torch.ops import train_dnn as td
+    from pinnfc_tpu_torch.ops.mc_dropout import dropout_constants
+
+    thresh, inv_keep = dropout_constants(0.2)
+    n = x.shape[0]
+    keep = td.keep_masks(n, mlp.dropout_widths(), seed, 0, thresh, x.device)
+    ws = td.mlp_weights(mlp)
+    k_loss, k_g = td.step_grads(mlp, x, y, seed, 0, precision="default")
+    kh_loss, kh_g = td.step_grads(mlp, x, y, seed, 0, precision="highest")
+    p_loss, p_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n), torch.bfloat16)
+    f_loss, f_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n))
+    _, d_g = td.loss_and_grads([w.double() for w in ws], x.double(), y.double(), keep,
+                               inv_keep, td._inv_n(n))
+    torch.cuda.synchronize()
+    gaps = {"bf16_kernel_vs_bf16_plain": rel_gap(k_g, p_g),
+            "fp32_plain_vs_bf16_plain (planted fault)": rel_gap(f_g, p_g),
+            "bf16_kernel_vs_fp32_plain": rel_gap(k_g, f_g),
+            "3xtf32_kernel_vs_fp32_plain": rel_gap(kh_g, f_g),
+            "3xtf32_kernel_vs_fp64_plain": rel_gap(kh_g, d_g),
+            "fp32_plain_vs_fp64_plain": rel_gap(f_g, d_g),
+            "3xtf32_kernel_vs_fp64_plain_per_tensor": [rel_gap([a], [b]) for a, b in
+                                                        zip(kh_g, d_g)],
+            "loss_rel_bf16": float((k_loss - p_loss).abs() / p_loss.abs()),
+            "loss_rel_3xtf32": float((kh_loss - f_loss).abs() / f_loss.abs())}
+    check(gaps["bf16_kernel_vs_bf16_plain"] <= BF16_GRAD_BAND,
+          f"N={n}: the bf16 kernel's one-step gradient is outside its band: {gaps}")
+    check(gaps["fp32_plain_vs_bf16_plain (planted fault)"] > BF16_GRAD_BAND,
+          f"N={n}: the float32 gradient (a planted fault) passes the bf16 band: {gaps}")
+    print(f"[check] train_dnn bf16 form, N={n}: one-step gradient (pinnfc_train_dnn_grad) "
+          f"within {BF16_GRAD_BAND:g} of max|g| of the bf16 plain version, the float32 "
+          f"plain gradient (planted fault) outside it; worst tensor's max|Δg|/max|g| "
+          f"{json.dumps(gaps)}: ok")
+    return gaps
+
+
+def run_bf16_slice(dev, train_ds, mlp) -> dict:
+    """Phase 21: the training kernel's bf16 form (precision "default") against
+    its bf16 plain version, ``cli train --precision default`` three ways, the
+    non-flagship stage at "default", and both forms' times."""
+    from pinnfc_tpu_torch.data.contract import load_comprehensive_results
+    from pinnfc_tpu_torch.models.mlp import MLP, aleatoric_loss
+    from pinnfc_tpu_torch.ops import build
+    from pinnfc_tpu_torch.ops import train_dnn as td
+    from pinnfc_tpu_torch.ops.mc_dropout import dropout_constants
+    from pinnfc_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from pinnfc_tpu_torch.training import stages
+
+    x, y = train_ds.x_train, train_ds.y_train
+    seed, hp, bf = 20240601, dict(lr=0.01, lr_step=5, lr_gamma=0.5), torch.bfloat16
+    out = {"grad_gaps": {n: check_bf16_grads(mlp, x[:n], y[:n], seed) for n in (6000, 37)}}
+
+    traces = {}
+    for n in (6000, 37):
+        k = td.train_dnn(mlp, x[:n], y[:n], seed, 20, precision="default", **hp)
+        k2 = td.train_dnn(mlp, x[:n], y[:n], seed, 20, precision="default", **hp)
+        p = td.train_dnn_stage_plain(mlp, x[:n], y[:n], seed, 20, product_dtype=bf, **hp)
+        f = td.train_dnn_stage_plain(mlp, x[:n], y[:n], seed, 20, **hp)
+        torch.cuda.synchronize()
+        same = torch.equal(k.losses, k2.losses) and torch.equal(
+            td.flat_weights(k.mlp), td.flat_weights(k2.mlp))
+        check(same, f"two bf16 training-kernel runs with one seed differ at N={n}")
+        scale = float(p.losses.abs().max())
+        loss_gap = float((k.losses - p.losses).abs().max()) / scale
+        t = {"loss0_rel": float((k.losses[0] - p.losses[0]).abs() / p.losses[0].abs()),
+             "loss_gap_of_max": loss_gap,
+             "fp32_loss_gap_of_max": float((f.losses - p.losses).abs().max()) / scale,
+             "weight_share_1e-3": weight_share(k.mlp, p.mlp),
+             "fp32_weight_share_1e-3": weight_share(f.mlp, p.mlp),
+             "max_abs_dweight": max_abs_err(td.flat_weights(k.mlp), td.flat_weights(p.mlp))}
+        check(t["loss0_rel"] <= 1e-3, f"N={n}: bf16 kernel loss[0] against the plain: {t}")
+        check(loss_gap <= BF16_LOSS_BAND and t["weight_share_1e-3"] <= BF16_WEIGHT_SHARE,
+              f"N={n}: the bf16 kernel's 20-step stage against its plain version: {t}")
+        traces[n] = t
+        print(f"[check] train_dnn bf16 form vs its bf16 plain version, N={n}, 20 steps at lr "
+              f"0.01: two runs bitwise equal; loss[0] within 1e-3, the losses within "
+              f"{BF16_LOSS_BAND:g} of the largest |loss|, at most {BF16_WEIGHT_SHARE:.0%} of "
+              f"the weights further than 1e-3 (the float32 plain version beside them): "
+              f"{json.dumps(t)}: ok")
+    out["stage_20"] = traces
+
+    whole = td.train_dnn(mlp, x, y, seed, 210, precision="default", **hp)
+    first = td.train_dnn(mlp, x, y, seed, 200, precision="default", **hp)
+    rest = td.train_dnn(first.mlp, x, y, seed, 10, t0=200, state=first.state,
+                        precision="default", **hp)
+    same = torch.equal(rest.losses, whole.losses[200:]) and torch.equal(
+        td.flat_weights(rest.mlp), td.flat_weights(whole.mlp)) and int(rest.state.count) == 210
+    check(same, "the bf16 kernel as a chunk from step 200 differs from the whole stage")
+    x_nan = x.clone()
+    x_nan[17, 3] = float("nan")
+    s = td.train_dnn(mlp, x_nan, y, seed, 5, skip_nonfinite=True, precision="default", **hp)
+    check(torch.equal(td.flat_weights(s.mlp), td.flat_weights(mlp))
+          and bool(torch.isnan(s.losses).all()),
+          "bf16 form: skip_nonfinite with a NaN row changed the weights")
+    print("[check] train_dnn bf16 form: a chunk from step 200 with the carried Adam state "
+          "bitwise the whole 210-step stage; a NaN row with skip_nonfinite leaves the "
+          "weights as they were: ok")
+
+    # the sharded stage: per-step grad launches on [cuda:0] * 4
+    shards = shard_batch(make_mesh(devices=["cuda:0"] * 4), x, y)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    sh_mlp, _, sh_loss = stages.train_dnn_chunk_sharded(mlp, None, shards, seed, 0, 20,
+                                                        precision="default", **hp)
+    torch.cuda.synchronize()
+    sh_launches = dict(build.LAUNCHES)
+    check(sh_launches["train_dnn_grad"] == 80 and sh_launches["train_dnn_adam"] == 20
+          and sh_launches["train_dnn"] == 0, f"sharded bf16 stage launches {sh_launches}")
+    wk = td.train_dnn(mlp, x, y, seed, 20, precision="default", **hp)
+    scale = float(wk.losses.abs().max())
+    sh = {"loss_gap_of_max": float((sh_loss - wk.losses).abs().max()) / scale,
+          "weight_share_1e-3": weight_share(sh_mlp, wk.mlp), "launches": sh_launches}
+    check(sh["loss_gap_of_max"] <= BF16_LOSS_BAND
+          and sh["weight_share_1e-3"] <= BF16_WEIGHT_SHARE,
+          f"the sharded bf16 stage against the whole-stage bf16 kernel: {sh}")
+    out["sharded_4"] = sh
+    print(f"[check] train_dnn_chunk_sharded(precision='default') on [cuda:0] * 4, 20 steps, "
+          f"against the whole-stage bf16 kernel: {json.dumps(sh)}: ok")
+
+    # cli train --precision default three ways, all three processes at once
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["train", "--precision", "default", "--steps-scale", "0.1"]
+        ways = {"plain": [], "ckpt_every_100": ["--ckpt-every", "100", "--resume-dir",
+                                                os.path.join(tmp, "rd")],
+                "data_parallel": ["--data-parallel"]}
+        argvs = [common + extra + ["--ckpt", os.path.join(tmp, w), "--mat-out",
+                                   os.path.join(tmp, f"{w}.mat"), "--metrics-jsonl",
+                                   os.path.join(tmp, f"{w}.jsonl")]
+                 for w, extra in ways.items()]
+        runs, cli_wall = run_cli_together(*argvs)
+        cli = {}
+        for (w, _), (stdout, counts) in zip(ways.items(), runs):
+            rows = [json.loads(ln) for ln in open(os.path.join(tmp, f"{w}.jsonl"))]
+            traces = {r["stage"]: r["loss_trace"] for r in rows
+                      if r["event"] == "stage" and r["stage"].endswith(":dnn")}
+            dnn = {k: falls(v) for k, v in traces.items()}
+            # the first DNN stage trains from the initial weights and must fall;
+            # a later one starts trained (a fresh Adam at lr 0.01 need not lower
+            # it further at 0.1 of its steps, in either precision) and must stay
+            # below the untrained level, the first stage's first-tenth median
+            first, *later = sorted(dnn, key=lambda k: int(k.split(":")[0]))
+            trained = dnn[first][2] and all(
+                np.isfinite(traces[k]).all() and dnn[k][1] < dnn[first][0] for k in later)
+            check(len(dnn) == 2 and trained,
+                  f"cli train --precision default ({w}): the first DNN stage's loss did not "
+                  f"fall, or a later one rose to the untrained level: {dnn}")
+            with open(os.path.join(tmp, f"{w}.meta.json")) as fh:
+                check(json.load(fh)["config"]["model"]["precision"] == "default",
+                      f"{w}: the sidecar does not record precision 'default'")
+            cli[w] = {"launches": counts, "dnn_loss_medians_first_tenth_rest": dnn,
+                      "dnn_loss_medians_by_tenth": {
+                          k: [round(float(np.median(c)), 4) for c in np.array_split(v, 10)]
+                          for k, v in traces.items()}}
+        want = {"plain": 2, "ckpt_every_100": 12}
+        for w, k in want.items():
+            check(cli[w]["launches"]["train_dnn"] == k and cli[w]["launches"]["mc_dropout"] == 1,
+                  f"cli train --precision default ({w}) launches {cli[w]['launches']}")
+        dp = cli["data_parallel"]["launches"]
+        if torch.cuda.device_count() == 1:  # a data axis of size 1: the unsharded path
+            check(dp["train_dnn"] == 2, f"--data-parallel on one card launches {dp}")
+        else:
+            check(dp["train_dnn_grad"] > 0, f"--data-parallel launches {dp}")
+        arrays = {w: load_comprehensive_results(os.path.join(tmp, f"{w}.mat")).array
+                  for w in ways}
+        if torch.cuda.device_count() == 1:
+            check(all(np.array_equal(arrays["plain"], a, equal_nan=True)
+                      for a in arrays.values()),
+                  "the chunked or --data-parallel cli train's artifact differs from the "
+                  "plain run's")
+    out["cli"], out["cli_wall_s"] = cli, cli_wall
+    print(f"[slice] cli train --precision default --steps-scale 0.1, three processes at once "
+          f"(wall {cli_wall:.1f} s): the first DNN stage's loss fell (the median after its "
+          f"first tenth below that of its first tenth), the later one stayed below that "
+          f"first tenth's; launches and loss medians "
+          f"{json.dumps(cli)}; the three artifacts equal on one card: ok")
+
+    # the non-flagship stage at "default": bf16-operand autograd, no kernel
+    deep = MLP(NON_FLAGSHIP, generator=torch.Generator().manual_seed(3), device=dev)
+    thresh, inv_keep = dropout_constants(0.2)
+    keep = td.keep_masks(x.shape[0], deep.dropout_widths(), seed, 0, thresh, dev)
+    ws = [w.detach().requires_grad_(True) for w in td.mlp_weights(deep)]
+    grads = {}
+    for name, dtype in (("bf16", bf), ("fp32", None)):
+        with torch.enable_grad():
+            pred, lv = torch.func.functional_call(
+                deep, stages._named_params(ws, deep), (x,),
+                {"keep": keep, "dropout_p": 0.2, "product_dtype": dtype})
+            grads[name] = torch.autograd.grad(aleatoric_loss(y, pred, lv), ws)
+    _, hand = td.loss_and_grads(td.mlp_weights(deep), x, y, keep, inv_keep,
+                                td._inv_n(x.shape[0]), bf)
+    ng = {"autograd_bf16_vs_hand_bf16": rel_gap(grads["bf16"], hand),
+          "autograd_fp32_vs_hand_bf16 (planted fault)": rel_gap(grads["fp32"], hand)}
+    check(ng["autograd_bf16_vs_hand_bf16"] <= BF16_GRAD_BAND
+          < ng["autograd_fp32_vs_hand_bf16 (planted fault)"],
+          f"the non-flagship bf16 gradient against the hand-derived one: {ng}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = stages.train_dnn_stage(deep, x, y, 17, 200, precision="default")
+    torch.cuda.synchronize()
+    deep_ms = (time.perf_counter() - t0) / 200 * 1e3
+    check(sum(build.LAUNCHES.values()) == 0, f"the autograd stage launched {build.LAUNCHES}")
+    hi = stages.train_dnn_stage(deep, x, y, 17, 200, precision="highest")
+    d_first, d_rest, d_fell = falls(res.losses.cpu().numpy())
+    check(d_fell, f"the non-flagship stage at 'default' did not fall: {d_first} → {d_rest}")
+    ng.update(ms_per_step=deep_ms, loss_median_first=d_first, loss_median_rest=d_rest,
+              final_loss=float(res.losses[-1]), final_loss_highest=float(hi.losses[-1]),
+              weight_share_vs_highest=weight_share(res.params, hi.params))
+    out["non_flagship"] = ng
+    print(f"[check] non-flagship {NON_FLAGSHIP} at 'default' on the card: one-step gradient "
+          f"of the bf16-operand autograd within {BF16_GRAD_BAND:g} of the hand-derived bf16 "
+          f"one, the float32 autograd (planted fault) outside; 200 steps, no kernel launch, "
+          f"the loss fell: {json.dumps(ng)}: ok")
+
+    # both forms' times in this call: highest, default, default, highest
+    steps = 200
+    ms = {"highest": [], "default": []}
+    for form in ("highest", "default", "default", "highest"):
+        ms[form].append(cuda_ms(lambda: td.train_dnn(mlp, x, y, 7, steps, precision=form),
+                                repeats=3) / steps)
+    plain_ms = cuda_ms(lambda: td.train_dnn_stage_plain(mlp, x, y, 7, 20, product_dtype=bf),
+                       repeats=2) / 20
+    # the step kernels only: a later profiler session of the process has
+    # shown no device time for the once-per-stage transpose (1 µs)
+    breakdown, traced, per_step = kernel_breakdown(
+        lambda: td.train_dnn(mlp, x, y, 7, 50, precision="default"), 50, STEP_KERNELS)
+    flop = TRAIN_FLOP_PER_ROW_STEP * x.shape[0]
+    n_param = sum(p.numel() for p in mlp.parameters())
+    t_bytes = 4 * (x.shape[0] * 9 + 2 * n_param) / steps + 4
+    bound = max(flop / BF16_PEAK, t_bytes / HBM_RATE) * 1e3
+    out.update(ms_bf16=ms["default"], ms_3xtf32=ms["highest"], plain_bf16_ms=plain_ms,
+               bound_bf16_ms=bound, kernel_ms_per_step_bf16=breakdown,
+               traced_launches_50_steps_bf16=traced, device_launches_per_step_bf16=per_step)
+    print(f"[time] train_dnn per step of a {steps}-step stage at N={x.shape[0]} (median of 3, "
+          f"in turns): 3xTF32 {ms['highest']} ms, bf16 {ms['default']} ms; bf16 bound "
+          f"{bound:.5f} ms (operations, 989 TFLOP/s), bf16 at {bound / min(ms['default']):.1%} "
+          f"of it; bf16 plain {plain_ms:.4f} ms/step; profiler, 50-step bf16 stage: "
+          f"{per_step} device launches per step, per-kernel device ms/step "
+          f"{json.dumps(breakdown)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -2908,8 +3245,11 @@ def main() -> int:
     build.load()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     hmma = sass_hmma(lib)
-    check(hmma.get("fwd_bwd_kernel", 0) > 0 and hmma.get("wgrad_kernel", 0) > 0,
-          f"the training kernel's products are not on the tensor cores: HMMA counts {hmma}")
+    for fn in ("fwd_bwd_kernel", "wgrad_kernel"):
+        # the 3xTF32 form's HMMA are the ones that are not bf16
+        check(hmma.get(fn, 0) > hmma.get(f"{fn}.bf16", 0) > 0,
+              f"{fn}: the products of the training kernel's 3xTF32 or bf16 form are not on "
+              f"the tensor cores: HMMA counts {hmma}")
     check(hmma.get("mc_sample_kernel.bf16", 0) > 0,
           f"the MC sample kernel's products are not on the tensor cores in bf16: {hmma}")
     print(f"[build] HMMA instructions in the SASS of csrc/train_dnn.cu and csrc/mc_dropout.cu "
@@ -3168,6 +3508,12 @@ def main() -> int:
     print(f"[slice] phase 20 (s): {down['phase_s']:.1f}; "
           f"{json.dumps({'downstream_parallel': down})}")
 
+    # ---- 21. the training kernel's bf16 form on the card ----
+    t0 = time.perf_counter()
+    bf16 = run_bf16_slice(dev, train_ds, mlp)
+    bf16["phase_s"] = time.perf_counter() - t0
+    print(f"[slice] phase 21 (s): {bf16['phase_s']:.1f}; {json.dumps({'bf16': bf16})}")
+
     kernels = [
         {"name": "mc_dropout", "route": "cuda", "source": "pinnfc_tpu_torch/csrc/mc_dropout.cu",
          "replaces": "pinnfc_tpu/ops/pallas_mc_dropout.py:140",
@@ -3218,7 +3564,23 @@ def main() -> int:
          "launches_data_parallel_grad": par["launches_data_parallel"]["train_dnn_grad"],
          "launches_data_parallel_adam": par["launches_data_parallel"]["train_dnn_adam"],
          "ms_sharded_4": par["dp_step_ms"], "ms_whole_same_call": par["whole_step_ms"],
-         "library_ms": None},
+         "library_ms": None,
+         "bf16": {"precision": "default", "ms": min(bf16["ms_bf16"]),
+                  "ms_runs": bf16["ms_bf16"], "ms_3xtf32_same_call": bf16["ms_3xtf32"],
+                  "plain_ms": bf16["plain_bf16_ms"], "bound_ms": bf16["bound_bf16_ms"],
+                  "bound_by": "operations", "bound_is": "bf16 on the tensor cores",
+                  "grad_gap": bf16["grad_gaps"][6000]["bf16_kernel_vs_bf16_plain"],
+                  "grad_gap_37_rows": bf16["grad_gaps"][37]["bf16_kernel_vs_bf16_plain"],
+                  "grad_gap_planted_fault":
+                      bf16["grad_gaps"][6000]["fp32_plain_vs_bf16_plain (planted fault)"],
+                  "launches": bf16["cli"]["plain"]["launches"]["train_dnn"],
+                  "launches_ckpt_every_100":
+                      bf16["cli"]["ckpt_every_100"]["launches"]["train_dnn"],
+                  "launches_sharded_grad": bf16["sharded_4"]["launches"]["train_dnn_grad"],
+                  "kernel_ms_per_step": bf16["kernel_ms_per_step_bf16"],
+                  "sass_hmma_bf16": {k: v for k, v in hmma.items()
+                                     if k.endswith(".bf16") and not k.startswith("mc_")},
+                  "library_ms": None}},
     ]
     print(f"[time] λ-stage ms/step {json.dumps(lam_ms)}")
     print(json.dumps({"kernels": kernels}))
@@ -3233,9 +3595,11 @@ def kernel_times() -> int:
     200-step stage on the default campaign's 6,000 training rows (median of 5)
     and the MC kernel's 2,000 passes over its 15,600 rows (median of 3),
     flagship weights from ``torch.Generator().manual_seed(0)``, as one line.
-    It calls only what both kernels had when they were ported, so a copy of
-    this file beside another checkout of the port times that tree: parent,
-    change, change, parent in one call compare two trees on one card."""
+    It calls only what both kernels had when they were ported (and the
+    training kernel's bf16 form where ``train_dnn`` takes a precision), so a
+    copy of this file beside another checkout of the port times that tree:
+    parent, change, change, parent in one call compare two trees on one
+    card."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     from pinnfc_tpu_torch.data.combine import combine_and_normalize
@@ -3253,7 +3617,12 @@ def kernel_times() -> int:
     mlp = MLP(generator=torch.Generator().manual_seed(0), device=dev)
     t = cuda_ms(lambda: train_dnn(mlp, ds.x_train, ds.y_train, 7, 200), repeats=5) / 200
     m = cuda_ms(lambda: mc_dropout_sums(mlp, ds.x_test, 12345, 2000), repeats=3)
-    print(f"TIMES train_dnn {t:.5f} ms/step, mc_dropout {m:.3f} ms")
+    line = f"TIMES train_dnn {t:.5f} ms/step, mc_dropout {m:.3f} ms"
+    if "precision" in inspect.signature(train_dnn).parameters:  # a tree with the bf16 form
+        b = cuda_ms(lambda: train_dnn(mlp, ds.x_train, ds.y_train, 7, 200, precision="default"),
+                    repeats=5) / 200
+        line += f", train_dnn bf16 {b:.5f} ms/step"
+    print(line)
     return 0
 
 

@@ -51,8 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip (don't apply) training steps with a non-finite loss or "
                         "gradient instead of letting NaN poison the run")
     t.add_argument("--precision", choices=("highest", "default"), default=None,
-                   help="'highest' = full float32 (the default and the only one the "
-                        "CUDA training kernel has); 'default' runs only with --device cpu")
+                   help="'highest' = float32 accuracy (the default; the training "
+                        "kernel's 3xTF32 form on the card); 'default' = the throughput "
+                        "mode: bf16 product operands with float32 accumulation on the "
+                        "card, float32 on the CPU")
     t.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace of the pipeline (a Chrome trace "
                         "in this directory)")

@@ -30,6 +30,25 @@
 // split once, where it is written to shared memory, and kept as a hi and a lo
 // plane; the weights, which one warp each reads, are split as they are loaded.
 //
+// bf16 ("default", the TPU kernel's mxu_prec = None: one bf16 MXU pass).  The
+// kernels fwd_bwd_kernel and wgrad_kernel take the form as a template
+// argument; the entries take it as `bf16`.  In the bf16 form every product of
+// a step takes operands rounded to bf16 (nearest even, cvt.rn.bf16x2.f32, as
+// torch's .to(torch.bfloat16)) and accumulates in float32: the forward
+// products, the data-gradient products d W^T and the weight-gradient products
+// A^T D run through warp_mma_bf16 (mma.sync.m16n8k16, bf16 in, float32
+// accumulate; layer 0's depth of 8 is one k16 step whose upper half is zero);
+// the width-1 heads (Wm, V3: row_dot, the dq3 V3^T and dpred Wm^T outer
+// products, their weight gradients) round both operands of each float32 FMA.
+// Bias adds, bias-gradient sums, tanh, softplus, the loss, the masks, Adam and
+// the master weights stay float32.  Activations and deltas stay in shared
+// memory as one float32 plane (the lo plane is unused) and are rounded as
+// they are packed into a fragment, as are the weights: a masked activation is
+// rounded as the value h (1/(1-p)) that the next product reads, as
+// pallas_train.py feeds it.  The bf16 work is 6.25 GFLOP per step at
+// N = 6,000: 0.0063 ms against 989 TFLOP/s.  The plain version with
+// product_dtype=torch.bfloat16 rounds the same operands.
+//
 // Design.  The TPU kernel is one program that loops over steps and 512-row
 // blocks with all state in VMEM; on the H100 that shape would use one SM.  Here
 // every step is four launches on the caller's stream, queued from C with no
@@ -197,6 +216,29 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a b on one m16n8k16 tile: bf16 operands, float32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half; NaN stays NaN
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t p;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(p) : "f"(hi), "f"(lo));
+  return p;
+}
+
+// A product operand in the form BF16: x rounded to bf16 (nearest even), as
+// float32; x itself in the 3xTF32 form (whose products are float32-accurate).
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  return BF16 ? __uint_as_float(pack_bf16x2(x, 0.0f) << 16) : x;
+}
+
 // 16 bytes from global to shared memory without passing through registers;
 // with valid false the destination is filled with zeros and src is not read.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -267,6 +309,45 @@ __device__ __forceinline__ void warp_mma_3xtf32(const float* a, const float* a_l
   }
 }
 
+// One warp's C(16 TM x 8 TN) += A(16 TM x K) B(K x 8 TN) in bf16, both
+// operands float32 in shared memory in the layout of warp_mma_3xtf32 (one
+// plane each), rounded to bf16 as they are packed into the fragments of
+// mma.sync.m16n8k16.  With g = lane / 4 and q = lane % 4, a fragment register
+// holds two neighbours along k, the lower k in the low half: A at (g, 2q),
+// (g + 8, 2q), (g, 2q + 8), (g + 8, 2q + 8); B at (2q, g), (2q + 8, g); C as in
+// warp_mma_3xtf32.  K = 8 (layer 0) is one k16 step whose upper half is zero
+// in both operands, read from nowhere.
+template <int TM, int TN, int K, int AM, int AK, int BK, int BN>
+__device__ __forceinline__ void warp_mma_bf16(const float* a, const float* b,
+                                              float (&c)[TM][TN][4]) {
+  static_assert(K == 8 || K % 16 == 0, "the mma's depth is 16 (K = 8: a zero upper half)");
+  constexpr bool HALF = K == 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t af[TM][4], bf[TN][2];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float* p = a + (16 * i + g) * AM + (k0 + 2 * q) * AK;
+      af[i][0] = pack_bf16x2(p[0], p[AK]);
+      af[i][1] = pack_bf16x2(p[8 * AM], p[8 * AM + AK]);
+      af[i][2] = HALF ? 0u : pack_bf16x2(p[8 * AK], p[9 * AK]);
+      af[i][3] = HALF ? 0u : pack_bf16x2(p[8 * AM + 8 * AK], p[8 * AM + 9 * AK]);
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float* p = b + (k0 + 2 * q) * BK + (8 * j + g) * BN;
+      bf[j][0] = pack_bf16x2(p[0], p[BK]);
+      bf[j][1] = HALF ? 0u : pack_bf16x2(p[8 * BK], p[9 * BK]);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) mma_bf16(c[i][j], af[i], bf[j]);
+  }
+}
+
 // Stage rows [k0, k0 + KS) of W (row-major (K, N) in device memory) into buf
 // (leading dimension ldb(N)) with cp.async, as one committed group.
 template <int N, int KS>
@@ -297,14 +378,15 @@ __device__ __forceinline__ void prefetch_weights(const float* __restrict__ W, fl
   }
 }
 
-// The CTA's C(ROWS x N) = in(ROWS x K, leading dimension lda(K)) @ W: in split
-// already, hi parts at in and lo parts at in + PLANE; W row-major (K, N) in
-// device memory, streamed KS rows at a time through the NSTAGE-tile ring
+// The CTA's C(ROWS x N) = in(ROWS x K, leading dimension lda(K)) @ W in the
+// form BF16: in the 3xTF32 form in is split already, hi parts at in and lo
+// parts at in + PLANE; in the bf16 form in is one float32 plane.  W row-major
+// (K, N) in device memory, streamed KS rows at a time through the NSTAGE-tile ring
 // wtile, whose first NSTAGE - 1 tiles prefetch_weights<K, N, KS> has put in
 // flight: while the tensor cores work on tile c, tiles c + 1 .. c + NSTAGE - 1
 // are on their way.  Warp w owns columns [w N/8, (w + 1) N/8) of all ROWS
 // rows.  Ends with a barrier.
-template <int K, int N, int KS, int PLANE>
+template <bool BF16, int K, int N, int KS, int PLANE>
 __device__ __forceinline__ void cta_gemm(const float* in, const float* __restrict__ W,
                                          float* wtile, float (&acc)[MT][N / 64][4]) {
   static_assert(K % KS == 0, "bad staging");
@@ -325,8 +407,12 @@ __device__ __forceinline__ void cta_gemm(const float* in, const float* __restric
       cp_async_commit();
     }
     const float* b = wtile + (c % NSTAGE) * WBUF + (t >> 5) * (N / 8);
-    warp_mma_3xtf32<MT, N / 64, KS, lda(K), 1, ldb(N), 1, false>(
-        in + c * KS, in + PLANE + c * KS, b, nullptr, acc);
+    if constexpr (BF16) {
+      warp_mma_bf16<MT, N / 64, KS, lda(K), 1, ldb(N), 1>(in + c * KS, b, acc);
+    } else {
+      warp_mma_3xtf32<MT, N / 64, KS, lda(K), 1, ldb(N), 1, false>(
+          in + c * KS, in + PLANE + c * KS, b, nullptr, acc);
+    }
   }
   __syncthreads();
 }
@@ -361,6 +447,18 @@ __device__ __forceinline__ void store_split4(float* hi, int plane, const float (
       __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
 }
 
+// Store four values as an mma A operand of the form BF16: split into the hi
+// and lo planes (3xTF32), or as they are into the one plane (bf16: the
+// fragment loads round them).
+template <bool BF16>
+__device__ __forceinline__ void store_operand4(float* at, int plane, const float (&v)[4]) {
+  if (BF16) {
+    *reinterpret_cast<float4*>(at) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    store_split4(at, plane, v);
+  }
+}
+
 // The hashed salts of one layer's mask in the (at most two) mask blocks that
 // a CTA's rows touch (global rows: local row + row_off): global rows below
 // `split` lie in the first.
@@ -377,17 +475,18 @@ __device__ __forceinline__ bool keep(uint32_t hs, uint32_t local_row, uint32_t w
 
 // Forward layer: h = tanh(in @ W + b), masked = dropout(h) when DROP (else h).
 // The product's C tile goes to act's hi plane (in is dead by then), then four
-// columns of a row at a time: masked goes to the global scratch `g` and, split,
-// back into act as the next layer's input, or, with SPLIT_OUT false, nowhere
-// else.  next() runs between the product and the epilogue.
-template <int K, int N, int KS, int IN_PLANE, bool SPLIT_OUT, bool DROP, class Next>
+// columns of a row at a time: masked goes to the global scratch `g` and, as
+// an operand (store_operand4), back into act as the next layer's input, or,
+// with SPLIT_OUT false, nowhere else.  next() runs between the product and the
+// epilogue.
+template <bool BF16, int K, int N, int KS, int IN_PLANE, bool SPLIT_OUT, bool DROP, class Next>
 __device__ __forceinline__ void fwd_layer(const Step& st, const float* in,
                                           const float* __restrict__ W,
                                           const float* __restrict__ bias, float* act, float* g,
                                           float* wtile, const LayerSalt& hs, int row0,
                                           Next next) {
   float acc[MT][N / 64][4];
-  cta_gemm<K, N, KS, IN_PLANE>(in, W, wtile, acc);
+  cta_gemm<BF16, K, N, KS, IN_PLANE>(in, W, wtile, acc);
   next();
   store_c_tile<N>(acc, act);
   __syncthreads();
@@ -406,7 +505,7 @@ __device__ __forceinline__ void fwd_layer(const Step& st, const float* in,
         hd[q] = keep(s, lr, N, c + q, st.thresh) ? hd[q] * st.inv_keep : 0.0f;
       }
     }
-    if (SPLIT_OUT) store_split4(act + r * lda(N) + c, ACT_PLANE, hd);
+    if (SPLIT_OUT) store_operand4<BF16>(act + r * lda(N) + c, ACT_PLANE, hd);
     if (row < st.n) {
       *reinterpret_cast<float4*>(g + (size_t)row * N + c) = make_float4(hd[0], hd[1], hd[2], hd[3]);
     }
@@ -416,20 +515,20 @@ __device__ __forceinline__ void fwd_layer(const Step& st, const float* in,
 
 // Backward layer: d = in @ WT (WT row-major (K, N) = W^T), plus
 // rowadd[row] * wadd[col] when given; then the dropout mask (kept values times
-// 1/(1-p)), then times (1 - h^2); to the global scratch `g` and, split, back
-// into act.  h is the forward's tanh output, read back from its masked copy
-// hd in the global scratch (this CTA's rows, written by this CTA): where kept,
+// 1/(1-p)), then times (1 - h^2); to the global scratch `g` and, as an
+// operand, back into act.  h is the forward's tanh output, read back from its
+// masked copy hd in the global scratch (this CTA's rows, written by this CTA): where kept,
 // h = hd (1 - p) within two ulps of the forward's value (exactly, without
 // dropout); where dropped d is 0.  The C tile goes through act's hi plane as
 // in fwd_layer.  next() runs between the product and the epilogue.
-template <int K, int N, class Next>
+template <bool BF16, int K, int N, class Next>
 __device__ __forceinline__ void bwd_layer(const Step& st, const float* __restrict__ WT,
                                           const float* hd, const float* rowadd,
                                           const float* __restrict__ wadd, float* act, float* g,
                                           float* wtile, const LayerSalt& hs, int row0,
                                           Next next) {
   float acc[MT][N / 64][4];
-  cta_gemm<K, N, KT, ACT_PLANE>(act, WT, wtile, acc);
+  cta_gemm<BF16, K, N, KT, ACT_PLANE>(act, WT, wtile, acc);
   next();
   store_c_tile<N>(acc, act);
   __syncthreads();
@@ -442,11 +541,11 @@ __device__ __forceinline__ void bwd_layer(const Step& st, const float* __restric
     float d[4] = {a.x, a.y, a.z, a.w};
     if (rowadd != nullptr) {
       const float4 w = __ldg(reinterpret_cast<const float4*>(wadd + c));
-      const float ra = rowadd[r];
-      d[0] = ra * w.x + d[0];
-      d[1] = ra * w.y + d[1];
-      d[2] = ra * w.z + d[2];
-      d[3] = ra * w.w + d[3];
+      const float ra = operand<BF16>(rowadd[r]);
+      d[0] = ra * operand<BF16>(w.x) + d[0];
+      d[1] = ra * operand<BF16>(w.y) + d[1];
+      d[2] = ra * operand<BF16>(w.z) + d[2];
+      d[3] = ra * operand<BF16>(w.w) + d[3];
     }
     const float4 hv = row < st.n ? __ldcg(reinterpret_cast<const float4*>(hd + (size_t)row * N + c))
                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -459,7 +558,7 @@ __device__ __forceinline__ void bwd_layer(const Step& st, const float* __restric
       d[q] = keep(s, lr, N, c + q, st.thresh) ? d[q] * st.inv_keep : 0.0f;
       d[q] = d[q] * (1.0f - h[q] * h[q]);
     }
-    store_split4(act + r * lda(N) + c, ACT_PLANE, d);
+    store_operand4<BF16>(act + r * lda(N) + c, ACT_PLANE, d);
     if (row < st.n) {
       *reinterpret_cast<float4*>(g + (size_t)row * N + c) = make_float4(d[0], d[1], d[2], d[3]);
     }
@@ -470,8 +569,8 @@ __device__ __forceinline__ void bwd_layer(const Step& st, const float* __restric
 // sum[r] = in[r] . w for this CTA's first `rows` rows of in (K floats each, in
 // the global scratch, read through L2), 0 for the others: warp w takes rows w,
 // w + 8, ...; its lanes take every 32nd k, summed by a fixed shuffle tree.
-// Ends with a barrier.
-template <int K>
+// The operands are those of the form BF16.  Ends with a barrier.
+template <bool BF16, int K>
 __device__ __forceinline__ void row_dot(const float* in, int rows, const float* __restrict__ w,
                                         float* sum) {
   const int lane = threadIdx.x & 31;
@@ -480,7 +579,9 @@ __device__ __forceinline__ void row_dot(const float* in, int rows, const float* 
     float v = 0.0f;
     if (r < rows) {
 #pragma unroll
-      for (int k = lane; k < K; k += 32) v = fmaf(__ldcg(in + (size_t)r * K + k), __ldg(w + k), v);
+      for (int k = lane; k < K; k += 32) {
+        v = fmaf(operand<BF16>(__ldcg(in + (size_t)r * K + k)), operand<BF16>(__ldg(w + k)), v);
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -489,10 +590,11 @@ __device__ __forceinline__ void row_dot(const float* in, int rows, const float* 
   __syncthreads();
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                     // 2 planes of [ROWS][lda(D_IN)]
-  float* act = xs + 2 * X_PLANE;        // 2 planes of [ROWS][lda(width)]
+  float* xs = smem;                     // 2 planes of [ROWS][lda(D_IN)] (bf16: 1 used)
+  float* act = xs + 2 * X_PLANE;        // 2 planes of [ROWS][lda(width)] (bf16: 1 used)
   float* wtile = act + 2 * ACT_PLANE;   // NSTAGE x [KT][ldb(width)]
   float* head = wtile + NSTAGE * WBUF;  // [0, ROWS): h3 . Wm, [ROWS, 2 ROWS): t2 . V3
   float* rowv = head + 2 * ROWS;        // [0, ROWS): dpred, [ROWS, 2 ROWS): dq3
@@ -506,10 +608,15 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   prefetch_weights<D_IN, H, D_IN>(p + OFF_W1, wtile);
   for (int q = t; q < ROWS * D_IN; q += THREADS) {
     const int r = q / D_IN, d = q % D_IN;
-    uint32_t hi, lo;
-    split_tf32(r < rows ? st.x[(size_t)(row0 + r) * D_IN + d] : 0.0f, hi, lo);
-    xs[r * lda(D_IN) + d] = __uint_as_float(hi);
-    xs[X_PLANE + r * lda(D_IN) + d] = __uint_as_float(lo);
+    const float xv = r < rows ? st.x[(size_t)(row0 + r) * D_IN + d] : 0.0f;
+    if (BF16) {
+      xs[r * lda(D_IN) + d] = xv;
+    } else {
+      uint32_t hi, lo;
+      split_tf32(xv, hi, lo);
+      xs[r * lda(D_IN) + d] = __uint_as_float(hi);
+      xs[X_PLANE + r * lda(D_IN) + d] = __uint_as_float(lo);
+    }
   }
 
   // mask salts of the layers (0..2 the trunk, 3 the first variance layer) in
@@ -525,23 +632,23 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   }
 
   // ---- forward ----
-  fwd_layer<D_IN, H, D_IN, X_PLANE, true, true>(
+  fwd_layer<BF16, D_IN, H, D_IN, X_PLANE, true, true>(
       st, xs, p + OFF_W1, p + OFF_W1 + D_IN * H, act, s.h1d, wtile, hs[0], row0,
       [&] { prefetch_weights<H, H, KT>(p + OFF_W2, wtile); });
-  fwd_layer<H, H, KT, ACT_PLANE, true, true>(
+  fwd_layer<BF16, H, H, KT, ACT_PLANE, true, true>(
       st, act, p + OFF_W2, p + OFF_W2 + H * H, act, s.h2d, wtile, hs[1], row0,
       [&] { prefetch_weights<H, H, KT>(p + OFF_W3, wtile); });
-  fwd_layer<H, H, KT, ACT_PLANE, true, true>(
+  fwd_layer<BF16, H, H, KT, ACT_PLANE, true, true>(
       st, act, p + OFF_W3, p + OFF_W3 + H * H, act, s.h3d, wtile, hs[2], row0,
       [&] { prefetch_weights<H, V0, KT>(p + OFF_V1, wtile); });
-  row_dot<H>(s.h3d + (size_t)row0 * H, rows, p + OFF_WM, head);
-  fwd_layer<H, V0, KT, ACT_PLANE, true, true>(
+  row_dot<BF16, H>(s.h3d + (size_t)row0 * H, rows, p + OFF_WM, head);
+  fwd_layer<BF16, H, V0, KT, ACT_PLANE, true, true>(
       st, act, p + OFF_V1, p + OFF_V1 + H * V0, act, s.t1d, wtile, hs[3], row0,
       [&] { prefetch_weights<V0, V1, KT>(p + OFF_V2, wtile); });
-  fwd_layer<V0, V1, KT, ACT_PLANE, false, false>(
+  fwd_layer<BF16, V0, V1, KT, ACT_PLANE, false, false>(
       st, act, p + OFF_V2, p + OFF_V2 + V0 * V1, act, s.t2, wtile, hs[0], row0,
       [&] { prefetch_weights<V1, V0, KT>(st.v2t, wtile); });
-  row_dot<V1>(s.t2 + (size_t)row0 * V1, rows, p + OFF_V3, head + ROWS);
+  row_dot<BF16, V1>(s.t2 + (size_t)row0 * V1, rows, p + OFF_V3, head + ROWS);
 
   // ---- loss and the head's deltas, one thread per row ----
   if (t < ROWS) {
@@ -571,7 +678,7 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   __syncthreads();
 
   // ---- backward ----
-  // dq2 = (dq3 V3^T) * (1 - t2^2), split into act; the t2 loads first
+  // dq2 = (dq3 V3^T) * (1 - t2^2), an operand in act; the t2 loads first
   constexpr int DQ2 = ROWS * V1 / THREADS;
   static_assert(DQ2 * THREADS == ROWS * V1, "dq2 elements per thread");
   float t2v[DQ2];
@@ -584,26 +691,31 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_bwd_kernel(Step st) {
   for (int e = 0; e < DQ2; ++e) {
     const int r = (t + e * THREADS) / V1, j = (t + e * THREADS) % V1;
     const float t2 = t2v[e];
-    const float d = (rowv[ROWS + r] * __ldg(p + OFF_V3 + j)) * (1.0f - t2 * t2);
-    uint32_t hi, lo;
-    split_tf32(d, hi, lo);
-    act[r * lda(V1) + j] = __uint_as_float(hi);
-    act[ACT_PLANE + r * lda(V1) + j] = __uint_as_float(lo);
+    const float d = (operand<BF16>(rowv[ROWS + r]) * operand<BF16>(__ldg(p + OFF_V3 + j))) *
+                    (1.0f - t2 * t2);
+    if (BF16) {
+      act[r * lda(V1) + j] = d;
+    } else {
+      uint32_t hi, lo;
+      split_tf32(d, hi, lo);
+      act[r * lda(V1) + j] = __uint_as_float(hi);
+      act[ACT_PLANE + r * lda(V1) + j] = __uint_as_float(lo);
+    }
     if (r < rows) s.dq2[(size_t)(row0 + r) * V1 + j] = d;
   }
   // (cta_gemm's first barrier orders these stores before the product reads them)
   // dq1 = mask3(dq2 V2^T) * (1 - t1^2)
-  bwd_layer<V1, V0>(st, st.v2t, s.t1d, nullptr, nullptr, act, s.dq1, wtile, hs[3], row0,
-                    [&] { prefetch_weights<V0, H, KT>(st.v1t, wtile); });
+  bwd_layer<BF16, V1, V0>(st, st.v2t, s.t1d, nullptr, nullptr, act, s.dq1, wtile, hs[3], row0,
+                          [&] { prefetch_weights<V0, H, KT>(st.v1t, wtile); });
   // da3 = mask2(dpred Wm^T + dq1 V1^T) * (1 - h3^2)
-  bwd_layer<V0, H>(st, st.v1t, s.h3d, rowv, p + OFF_WM, act, s.da3, wtile, hs[2], row0,
-                   [&] { prefetch_weights<H, H, KT>(st.w3t, wtile); });
+  bwd_layer<BF16, V0, H>(st, st.v1t, s.h3d, rowv, p + OFF_WM, act, s.da3, wtile, hs[2], row0,
+                         [&] { prefetch_weights<H, H, KT>(st.w3t, wtile); });
   // da2 = mask1(da3 W3^T) * (1 - h2^2)
-  bwd_layer<H, H>(st, st.w3t, s.h2d, nullptr, nullptr, act, s.da2, wtile, hs[1], row0,
-                  [&] { prefetch_weights<H, H, KT>(st.w2t, wtile); });
+  bwd_layer<BF16, H, H>(st, st.w3t, s.h2d, nullptr, nullptr, act, s.da2, wtile, hs[1], row0,
+                        [&] { prefetch_weights<H, H, KT>(st.w2t, wtile); });
   // da1 = mask0(da2 W2^T) * (1 - h1^2)
-  bwd_layer<H, H>(st, st.w2t, s.h1d, nullptr, nullptr, act, s.da1, wtile, hs[0], row0,
-                  [] {});
+  bwd_layer<BF16, H, H>(st, st.w2t, s.h1d, nullptr, nullptr, act, s.da1, wtile, hs[0], row0,
+                        [] {});
 }
 
 // One gradient tensor of wgrad_kernel: G (K + 1, J) = [A | 1]^T D over the rows.
@@ -626,12 +738,15 @@ struct GradPass {
 // in shared memory (cp.async; GSTAGE - 1 chunks in flight while the tensor
 // cores work on one).  Once a chunk has landed, each thread splits its slots
 // (rows sr and sr + GR/2, columns sc..sc+3 of A and of D) once: hi in place,
-// lo into a plane of its own; from the same float32 values it sums, over its
+// lo into a plane of its own (the bf16 form leaves them as staged and rounds
+// as it packs the fragments); from the same float32 values it sums, over its
 // rows in order, its columns of D (the bias row K, in the tile with k0 = 0)
-// and, for a width-1 head, its columns of A times D.  Tensors of width
-// J >= 64 (k % 4 == 0, j % 8 == 0) then go through the tensor cores: warp w
-// owns rows k0 + 16 (w / 2) and columns j0 + 32 (w % 2) of the tile.  The
-// sixteen threads of a column's sums are added in a fixed order at the end.
+// and, for a width-1 head, its columns of A times D (bf16 operands in the
+// bf16 form).  Tensors of width J >= 64 (k % 4 == 0, j % 8 == 0) then go
+// through the tensor cores: warp w owns rows k0 + 16 (w / 2) and columns
+// j0 + 32 (w % 2) of the tile.  The sixteen threads of a column's sums are
+// added in a fixed order at the end.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 3) wgrad_kernel(GradPass gp) {
   extern __shared__ __align__(16) float gsm[];  // GSTAGE x (A, D), then A lo, D lo
   float* alo = gsm + GSTAGE * 2 * GPLANE;
@@ -706,10 +821,10 @@ __global__ void __launch_bounds__(THREADS, 3) wgrad_kernel(GradPass gp) {
       const float a4[4] = {a.x, a.y, a.z, a.w};
       const float d4[4] = {d.x, d.y, d.z, d.w};
       if (head) {  // no product: sums only, D left as staged
-        const float dh = ds[(sr + v * (GR / 2)) * GLD];
+        const float dh = operand<BF16>(ds[(sr + v * (GR / 2)) * GLD]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hsum[e] = fmaf(a4[e], dh, hsum[e]);
-      } else {
+        for (int e = 0; e < 4; ++e) hsum[e] = fmaf(operand<BF16>(a4[e]), dh, hsum[e]);
+      } else if (!BF16) {  // the bf16 form rounds as it packs the fragments
         uint32_t ah[4], al[4], dhi[4], dlw[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -728,7 +843,12 @@ __global__ void __launch_bounds__(THREADS, 3) wgrad_kernel(GradPass gp) {
     }
     __syncthreads();  // the chunk is split
     if (mma) {
-      warp_mma_3xtf32<1, 4, GR, 1, GLD, GLD, 1, true>(as + wk, alo + wk, ds + wj, dlo + wj, acc);
+      if constexpr (BF16) {
+        warp_mma_bf16<1, 4, GR, 1, GLD, GLD, 1>(as + wk, ds + wj, acc);
+      } else {
+        warp_mma_3xtf32<1, 4, GR, 1, GLD, GLD, 1, true>(as + wk, alo + wk, ds + wj, dlo + wj,
+                                                         acc);
+      }
     }
   }
 
@@ -899,17 +1019,21 @@ size_t carve(float* work, int n, Workspace* w) {
 
 // The kernels' arguments for n rows of x and y: the workspace carved, the
 // weight-gradient pass and the step (row_off 0, t 0); returns the first error
-// of raising the kernels' shared-memory limits.
+// of raising the kernels' shared-memory limits (both forms).
 int prepare(const float* x, const float* y, int n, const float* params, float* work,
             uint32_t seed, uint32_t thresh, float inv_keep, float inv_n, Workspace* w,
             GradPass* gp, Step* st) {
-  cudaError_t err = cudaFuncSetAttribute(fwd_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GSMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  const void* fwd[2] = {(const void*)fwd_bwd_kernel<false>, (const void*)fwd_bwd_kernel<true>};
+  const void* wg[2] = {(const void*)wgrad_kernel<false>, (const void*)wgrad_kernel<true>};
+  for (int f = 0; f < 2; ++f) {
+    cudaError_t err = cudaFuncSetAttribute(fwd[f], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SMEM_BYTES);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(wg[f], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)GSMEM_BYTES);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
   carve(work, n, w);
   const float* a_src[NT] = {x, w->s.h1d, w->s.h2d, w->s.h3d, w->s.h3d, w->s.t1d, w->s.t2};
   const float* d_src[NT] = {w->s.da1, w->s.da2, w->s.da3, w->s.dpred, w->s.dq1, w->s.dq2,
@@ -945,6 +1069,19 @@ int prepare(const float* x, const float* y, int n, const float* params, float* w
   return 0;
 }
 
+// Kernels 1 and 2 of a step, in the bf16 form when bf16 is set (else 3xTF32).
+void launch_grad_pass(bool bf16, const Step& st, const GradPass& gp, cudaStream_t stream) {
+  const int row_blocks = (st.n + ROWS - 1) / ROWS;
+  const dim3 wgrid(gp.unit0[NT], SPLIT);
+  if (bf16) {
+    fwd_bwd_kernel<true><<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
+    wgrad_kernel<true><<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
+  } else {
+    fwd_bwd_kernel<false><<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
+    wgrad_kernel<false><<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
+  }
+}
+
 }  // namespace
 
 // Layout of the flat parameter buffer: out[i] (i < 7) is the offset of tensor
@@ -971,11 +1108,12 @@ extern "C" long long pinnfc_train_dnn_workspace_floats(int n) {
 // (zeroed), then the Adam count before each step, ints[n_iter] holding the
 // count carried into the call (0 at the start of a stage) and ints[2 n_iter]
 // receiving the count after the last step.  losses: (n_iter,), by local step.
+// bf16: 1 runs the bf16 form (precision "default"), 0 the 3xTF32 form.
 extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* params, float* m,
                                 float* v, float* work, int* ints, float* losses, uint32_t seed,
                                 int t0, int n_iter, float lr, int lr_step, float lr_gamma,
                                 uint32_t thresh, float inv_keep, float inv_n, int skip,
-                                void* stream_ptr) {
+                                int bf16, void* stream_ptr) {
   if (n <= 0 || n_iter <= 0) return 0;
   // wgrad_kernel reads x's rows as float4
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
@@ -993,12 +1131,9 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   if (err != cudaSuccess) return (int)err;
   const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
   transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
-  const int row_blocks = (n + ROWS - 1) / ROWS;
-  const dim3 wgrid(gp.unit0[NT], SPLIT);
   for (int t = 0; t < n_iter; ++t) {
     st.t = t0 + t;  // the step inside the stage: the mask salt
-    fwd_bwd_kernel<<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
-    wgrad_kernel<<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
+    launch_grad_pass(bf16 != 0, st, gp, stream);
     finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, w.grad, w.s.lossrow, n, inv_n,
                                                           losses, flags, t);
     adam_kernel<<<pblocks, THREADS, 0, stream>>>(params, m, v, w.grad, w.tr, flags, counts, t,
@@ -1017,11 +1152,12 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
 // grad (the layout above) receives the shard's gradient of the whole mean
 // loss, loss[0] the shard's rows' loss sum times inv_n (1 / the rows of all
 // shards), flag[0] 1 if either is not finite (else 0).  work:
-// workspace_floats(n) floats.  Returns the first CUDA error (0 on success).
+// workspace_floats(n) floats.  bf16 as in pinnfc_train_dnn.  Returns the
+// first CUDA error (0 on success).
 extern "C" int pinnfc_train_dnn_grad(const float* x, const float* y, int n, int row_off,
                                      const float* params, float* work, float* grad,
                                      float* loss, int* flag, uint32_t seed, int t,
-                                     uint32_t thresh, float inv_keep, float inv_n,
+                                     uint32_t thresh, float inv_keep, float inv_n, int bf16,
                                      void* stream_ptr) {
   if (n <= 0 || row_off < 0) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
@@ -1038,8 +1174,7 @@ extern "C" int pinnfc_train_dnn_grad(const float* x, const float* y, int n, int 
   if (err != cudaSuccess) return (int)err;
   const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
   transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
-  fwd_bwd_kernel<<<(n + ROWS - 1) / ROWS, THREADS, SMEM_BYTES, stream>>>(st);
-  wgrad_kernel<<<dim3(gp.unit0[NT], SPLIT), THREADS, GSMEM_BYTES, stream>>>(gp);
+  launch_grad_pass(bf16 != 0, st, gp, stream);
   finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, grad, w.s.lossrow, n, inv_n,
                                                         loss, flag, 0);
   return (int)cudaGetLastError();

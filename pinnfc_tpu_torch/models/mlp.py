@@ -13,6 +13,13 @@ stream: the ``torch.Generator`` stream of ``draw_keep_masks`` (the MC sampler
 ``uq/mc_dropout.py``) or the counter hash of the training kernel (the autograd
 DNN stage).  The flagship's MC passes and DNN stages run in the kernels
 (``ops/mc_dropout.py``, ``ops/train_dnn.py``).
+
+``product_dtype=torch.bfloat16`` is the JAX package's ``precision='default'``
+on a TPU (``jnp.matmul(a, w, precision=None)``, one bf16 MXU pass): every
+product of the forward, and both products of its backward, takes operands
+rounded to bf16 and gives a float32 result (``RoundedMatmul``).  bf16 GEMM
+with a bf16 output would round the result as well, which is another
+contract.
 """
 
 from __future__ import annotations
@@ -31,6 +38,46 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
     torch's ``F.softplus`` switches to the identity above ``threshold=20``,
     which differs."""
     return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-torch.abs(v)))
+
+
+def rounded_matmul(a: torch.Tensor, b: torch.Tensor,
+                   product_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to ``product_dtype`` (None: as
+    they are) and the product computed in their own dtype: bf16 operands
+    with float32 (or, for float64 inputs, float64) accumulation."""
+    if product_dtype is None:
+        return a @ b
+    return a.to(product_dtype).to(a.dtype) @ b.to(product_dtype).to(b.dtype)
+
+
+class RoundedMatmul(torch.autograd.Function):
+    """``a @ w`` (a (..., K), w (K, J)) with operands rounded to ``dtype``,
+    in the forward and in both products of the backward, each with a result
+    in a's dtype: the transposed products keep the forward's precision, as
+    JAX's transposed ``dot_general`` does on a TPU."""
+
+    @staticmethod
+    def forward(ctx, a, w, dtype):
+        ctx.save_for_backward(a, w)
+        ctx.dtype = dtype
+        return rounded_matmul(a, w, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        ga = rounded_matmul(g, w.t(), ctx.dtype)
+        gw = rounded_matmul(a.reshape(-1, a.shape[-1]).t(), g.reshape(-1, g.shape[-1]),
+                            ctx.dtype)
+        return ga, gw, None
+
+
+def linear(lin: nn.Linear, h: torch.Tensor,
+           product_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``lin(h)``, or with ``product_dtype`` the product of ``RoundedMatmul``
+    plus the float32 bias."""
+    if product_dtype is None:
+        return lin(h)
+    return RoundedMatmul.apply(h, lin.weight.t(), product_dtype) + lin.bias
 
 
 def logvar_from_raw(v: torch.Tensor) -> torch.Tensor:
@@ -90,23 +137,25 @@ class MLP(nn.Module):
         return [lin.out_features for lin in self.hidden] + [self.var[0].out_features]
 
     def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
-                dropout_p: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout_p: float = 0.2, product_dtype: Optional[torch.dtype] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, logvar), both (..., 1).  ``keep=None`` is the eval pass;
         otherwise the train pass: inverted dropout ``where(keep, h / (1 − p),
         0)`` after every hidden tanh and after the first tanh of the variance
         head, with the bool masks ``keep`` (``dropout_widths`` order), each
-        broadcast against its activation (..., width)."""
+        broadcast against its activation (..., width).  ``product_dtype``
+        rounds every product's operands (``linear``)."""
         h = x
         for i, lin in enumerate(self.hidden):
-            h = torch.tanh(lin(h))
+            h = torch.tanh(linear(lin, h, product_dtype))
             if keep is not None:
                 h = dropout(h, keep[i], dropout_p)
-        mean = self.mean(h)
-        v = torch.tanh(self.var[0](h))
+        mean = linear(self.mean, h, product_dtype)
+        v = torch.tanh(linear(self.var[0], h, product_dtype))
         if keep is not None:
             v = dropout(v, keep[len(self.hidden)], dropout_p)
-        v = torch.tanh(self.var[1](v))
-        v = self.var[2](v)
+        v = torch.tanh(linear(self.var[1], v, product_dtype))
+        v = linear(self.var[2], v, product_dtype)
         return mean, logvar_from_raw(v)
 
 

@@ -125,31 +125,39 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first use) with its C signatures."""
     if _Library.handle is not None:
         return _Library.handle
-    handle = ctypes.CDLL(str(build()))
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    handle.pinnfc_residuals.argtypes = [p, p, ctypes.c_longlong, ResidualScalars, p, i, p]
-    handle.pinnfc_residuals.restype = i
-    handle.pinnfc_residuals_floor.argtypes = [i, p]
-    handle.pinnfc_residuals_floor.restype = i
-    handle.pinnfc_mc_dropout.argtypes = MC_DROPOUT_ARGTYPES
-    handle.pinnfc_mc_dropout.restype = i
-    handle.pinnfc_train_dnn_layout.argtypes = [ctypes.POINTER(i)]
-    handle.pinnfc_train_dnn_layout.restype = None
-    handle.pinnfc_train_dnn_workspace_floats.argtypes = [i]
-    handle.pinnfc_train_dnn_workspace_floats.restype = ctypes.c_longlong
+    _Library.handle = bind(ctypes.CDLL(str(build())))
+    return _Library.handle
+
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# C signature of each entry: (argtypes, restype)
+SIGNATURES = {
+    "pinnfc_residuals": ([_P, _P, ctypes.c_longlong, ResidualScalars, _P, _I, _P], _I),
+    "pinnfc_residuals_floor": ([_I, _P], _I),
+    "pinnfc_mc_dropout": (MC_DROPOUT_ARGTYPES, _I),
+    "pinnfc_train_dnn_layout": ([ctypes.POINTER(_I)], None),
+    "pinnfc_train_dnn_workspace_floats": ([_I], ctypes.c_longlong),
     # x, y, n, params, m, v, work, ints, losses, seed, t0, n_iter, lr, lr_step,
-    # lr_gamma, thresh, inv_keep, inv_n, skip, stream
-    handle.pinnfc_train_dnn.argtypes = [p, p, i, p, p, p, p, p, p, u, i, i, f, i, f, u, f, f,
-                                        i, p]
-    handle.pinnfc_train_dnn.restype = i
+    # lr_gamma, thresh, inv_keep, inv_n, skip, bf16, stream
+    "pinnfc_train_dnn": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _U, _I, _I, _F, _I, _F, _U, _F, _F,
+                          _I, _I, _P], _I),
     # x, y, n, row_off, params, work, grad, loss, flag, seed, t, thresh, inv_keep,
-    # inv_n, stream
-    handle.pinnfc_train_dnn_grad.argtypes = [p, p, i, i, p, p, p, p, p, u, i, u, f, f, p]
-    handle.pinnfc_train_dnn_grad.restype = i
+    # inv_n, bf16, stream
+    "pinnfc_train_dnn_grad": ([_P, _P, _I, _I, _P, _P, _P, _P, _P, _U, _I, _U, _F, _F, _I, _P],
+                              _I),
     # params, m, v, grad, work, ints, lr, lr_step, lr_gamma, skip, stream
-    handle.pinnfc_train_dnn_adam.argtypes = [p, p, p, p, p, p, f, i, f, i, p]
-    handle.pinnfc_train_dnn_adam.restype = i
-    _Library.handle = handle
+    "pinnfc_train_dnn_adam": ([_P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _P], _I),
+}
+# the entries of csrc/train_dnn.cu
+TRAIN_ENTRIES = tuple(name for name in SIGNATURES if name.startswith("pinnfc_train_dnn"))
+
+
+def bind(handle: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Set the C signatures of the entries ``names`` (all when None) on
+    ``handle``."""
+    for name in SIGNATURES if names is None else names:
+        entry = getattr(handle, name)
+        entry.argtypes, entry.restype = SIGNATURES[name]
     return handle
 
 

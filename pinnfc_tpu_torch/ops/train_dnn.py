@@ -32,6 +32,20 @@ order (``parallel/mesh.py::all_sum``), then one Adam step.  On CUDA tensors
 that is one ``pinnfc_train_dnn_grad`` launch per shard and one
 ``pinnfc_train_dnn_adam``; on CPU tensors ``loss_and_grads`` per shard.
 
+Precision.  ``precision='highest'`` is the TPU kernel's ``Precision.HIGHEST``
+(the kernel's 3xTF32 form, float32-accurate products); ``'default'`` its
+``mxu_prec = None``, one bf16 MXU pass per product on a TPU and float32 on a
+CPU.  The port does the same: on a CUDA tensor ``'default'`` launches the
+kernel's bf16 form, and on a CPU tensor either precision runs the plain
+version in float32, so that the port on the CPU equals the JAX kernel on the
+CPU.  The bf16 rounding contract, which the kernel's bf16 form and the plain
+version with ``product_dtype=torch.bfloat16`` share: every product of a step
+(the forward's, the width-1 heads' included; the data gradients ``d Wᵀ``;
+the weight gradients ``Aᵀ D``) takes operands rounded to bf16 (nearest even)
+and accumulates in float32; a masked activation is rounded as the value
+``h·(1/(1−p))`` that the next product reads; bias adds, bias-gradient sums,
+tanh, softplus, the loss, the masks, Adam and the weights stay float32.
+
 ``train_dnn`` launches the kernel for CUDA tensors (flagship topology only)
 and runs the plain version only for CPU tensors.
 """
@@ -46,7 +60,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pinnfc_tpu_torch.models.mlp import MLP, softplus
+from pinnfc_tpu_torch.models.mlp import MLP, rounded_matmul, softplus
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops.mc_dropout import _GOLDEN, _U32, dropout_constants, wang_hash
 from pinnfc_tpu_torch.training.adam import (
@@ -54,6 +68,22 @@ from pinnfc_tpu_torch.training.adam import (
 
 MASK_BLOCK = 512  # rows per mask block: part of the random stream's contract
 REG_WEIGHT = 0.01  # |logvar| regularizer of the loss (01:916-927)
+PRECISIONS = ("highest", "default")
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def precision_dtype(precision: str, device) -> Optional[torch.dtype]:
+    """The dtype a DNN stage rounds its products' operands to: bf16 for
+    ``'default'`` on a CUDA device (a TPU's one bf16 MXU pass), None (float32)
+    for ``'highest'`` and for any precision on the CPU (as JAX computes
+    ``precision=None`` there)."""
+    check_precision(precision)
+    return torch.bfloat16 if precision == "default" and torch.device(device).type == "cuda" \
+        else None
 
 
 def step_salts(n: int, seed: int, t: int, device, row0: int = 0) -> torch.Tensor:
@@ -114,11 +144,18 @@ def mlp_with_weights(mlp: MLP, ws: Sequence[torch.Tensor]) -> MLP:
 
 def loss_and_grads(ws: Sequence[torch.Tensor], x: torch.Tensor, y: torch.Tensor,
                    keep: Optional[Sequence[torch.Tensor]], inv_keep: float,
-                   inv_n: float) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                   inv_n: float, product_dtype: Optional[torch.dtype] = None,
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One step's mean loss and the gradient of every tensor of ``ws``, with the
     hand-derived backward of the TPU kernel (``pallas_train.py:111-172``), for
     any number of hidden layers.  ``keep`` is the list of keep masks (hidden
-    layers, then the first variance layer); None means no dropout."""
+    layers, then the first variance layer); None means no dropout.  With
+    ``product_dtype`` every product rounds its operands to it (the module's
+    bf16 contract) and accumulates in the inputs' dtype."""
+
+    def mm(a, b):
+        return rounded_matmul(a, b, product_dtype)
+
     n_hidden = len(ws) // 2 - 4
     hidden = [(ws[2 * i], ws[2 * i + 1]) for i in range(n_hidden)]
     h0 = 2 * n_hidden
@@ -129,16 +166,16 @@ def loss_and_grads(ws: Sequence[torch.Tensor], x: torch.Tensor, y: torch.Tensor,
 
     hs, hds, inp = [], [], x
     for i, (w, b) in enumerate(hidden):
-        h = torch.tanh(inp @ w + b)
+        h = torch.tanh(mm(inp, w) + b)
         hs.append(h)
         inp = drop(h, i)
         hds.append(inp)
-    pred = inp @ wm + bm
-    q1 = inp @ v1 + c1
+    pred = mm(inp, wm) + bm
+    q1 = mm(inp, v1) + c1
     t1 = torch.tanh(q1)
     t1d = drop(t1, n_hidden)
-    t2 = torch.tanh(t1d @ v2 + c2)
-    q3 = t2 @ v3 + c3
+    t2 = torch.tanh(mm(t1d, v2) + c2)
+    q3 = mm(t2, v3) + c3
     sp = softplus(q3)
     lv = torch.log(sp + 1e-6)
     r = y - pred
@@ -149,19 +186,19 @@ def loss_and_grads(ws: Sequence[torch.Tensor], x: torch.Tensor, y: torch.Tensor,
     dpred = (-e * r) * inv_n
     dlv = (0.5 * (1.0 - e * r * r) + REG_WEIGHT * torch.sign(lv)) * inv_n
     dq3 = dlv * torch.sigmoid(q3) / (sp + 1e-6)
-    g[h0 + 6], g[h0 + 7] = t2.T @ dq3, dq3.sum(0)
-    dq2 = (dq3 @ v3.T) * (1.0 - t2 * t2)
-    g[h0 + 4], g[h0 + 5] = t1d.T @ dq2, dq2.sum(0)
-    dq1 = drop(dq2 @ v2.T, n_hidden) * (1.0 - t1 * t1)
-    g[h0 + 2], g[h0 + 3] = inp.T @ dq1, dq1.sum(0)
-    g[h0], g[h0 + 1] = inp.T @ dpred, dpred.sum(0)
-    dh = dpred @ wm.T + dq1 @ v1.T
+    g[h0 + 6], g[h0 + 7] = mm(t2.T, dq3), dq3.sum(0)
+    dq2 = mm(dq3, v3.T) * (1.0 - t2 * t2)
+    g[h0 + 4], g[h0 + 5] = mm(t1d.T, dq2), dq2.sum(0)
+    dq1 = drop(mm(dq2, v2.T), n_hidden) * (1.0 - t1 * t1)
+    g[h0 + 2], g[h0 + 3] = mm(inp.T, dq1), dq1.sum(0)
+    g[h0], g[h0 + 1] = mm(inp.T, dpred), dpred.sum(0)
+    dh = mm(dpred, wm.T) + mm(dq1, v1.T)
     for i in reversed(range(n_hidden)):
         da = drop(dh, i) * (1.0 - hs[i] * hs[i])
         a_in = hds[i - 1] if i > 0 else x
-        g[2 * i], g[2 * i + 1] = a_in.T @ da, da.sum(0)
+        g[2 * i], g[2 * i + 1] = mm(a_in.T, da), da.sum(0)
         if i > 0:
-            dh = da @ hidden[i][0].T
+            dh = mm(da, hidden[i][0].T)
     return loss, g
 
 
@@ -287,16 +324,18 @@ def train_dnn_stage_plain(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
     skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+    product_dtype: Optional[torch.dtype] = None,
 ) -> DnnStageOut:
     """Plain PyTorch version, step by step, any topology: steps t0 .. t0 +
     n_iter − 1 of a stage (the masks of step t0 + t), from the carried Adam
     ``state`` (fresh when None), with the kernel's hand-derived gradients
-    (``loss_and_grads``)."""
+    (``loss_and_grads``); ``product_dtype=torch.bfloat16`` is the kernel's
+    bf16 form, None its float32-accurate one."""
     _, inv_keep = dropout_constants(dropout_p)
     inv_n = _inv_n(x.shape[0])
 
     def grad_fn(ws, keep):
-        return loss_and_grads(ws, x, y, keep, inv_keep, inv_n)
+        return loss_and_grads(ws, x, y, keep, inv_keep, inv_n, product_dtype)
 
     return stage_steps(mlp, x, y, seed, n_iter, grad_fn, lr, lr_step, lr_gamma, dropout_p,
                        skip_nonfinite, t0, state)
@@ -367,11 +406,15 @@ def train_dnn(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
     skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+    precision: str = "highest",
 ) -> DnnStageOut:
     """Steps t0 .. t0 + n_iter − 1 of a DNN stage from the carried Adam
-    ``state`` (fresh when None): the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  ``seed`` is a uint32.  Returns the trained copy
-    of ``mlp``, the per-step losses and the Adam state after the last step."""
+    ``state`` (fresh when None): the CUDA kernel for a CUDA tensor (its 3xTF32
+    form for ``precision='highest'``, its bf16 form for ``'default'``), the
+    float32 plain version for a CPU tensor at either precision.  ``seed`` is a
+    uint32.  Returns the trained copy of ``mlp``, the per-step losses and the
+    Adam state after the last step."""
+    check_precision(precision)
     check_stage_inputs(mlp, x, y, n_iter, t0, state)
     if x.device.type == "cpu":
         return train_dnn_stage_plain(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma,
@@ -401,10 +444,61 @@ def train_dnn(
         x.data_ptr(), y.data_ptr(), n, ks.params.data_ptr(), ks.m.data_ptr(), ks.v.data_ptr(),
         work.data_ptr(), ints.data_ptr(), losses.data_ptr(), int(seed) & _U32, int(t0),
         int(n_iter), float(lr), int(lr_step), float(lr_gamma), thresh, inv_keep, _inv_n(n),
-        int(bool(skip_nonfinite)),
+        int(bool(skip_nonfinite)), int(precision == "default"),
     )
     build.LAUNCHES["train_dnn"] += 1
     return _stage_out(mlp, ks, ints[2 * n_iter], losses)
+
+
+def step_grads(
+    mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, t: int, dropout_p: float = 0.2,
+    precision: str = "highest",
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The loss and the gradients (``mlp_weights``' order and layout) of step
+    ``t`` of a stage from ``mlp``'s weights, with no Adam step: one
+    ``pinnfc_train_dnn_grad`` launch in the form ``precision`` picks for a
+    CUDA tensor (flagship only), ``loss_and_grads`` in float32 for a CPU
+    tensor.  The kernel's one-step gradient, to hold against the plain
+    version."""
+    check_precision(precision)
+    check_stage_inputs(mlp, x, y, 1, t, None)
+    thresh, inv_keep = dropout_constants(dropout_p)
+    n, dev = x.shape[0], x.device
+    if dev.type == "cpu":
+        keep = keep_masks(n, mlp.dropout_widths(), seed, t, thresh, dev) if thresh > 0 else None
+        return loss_and_grads(mlp_weights(mlp), x, y, keep, inv_keep, _inv_n(n))
+    if not mlp.is_flagship():
+        raise ValueError(f"the training kernel covers the flagship topology only; this MLP "
+                         f"is {mlp.layers}")
+    lib = build.load()
+    ks = _to_kernel(lib, mlp, None)
+    work, grad, loss, flag = _grad_buffers(lib, x, ks.params.numel())
+    _launch_grad(lib, x.contiguous(), y.contiguous(), 0, ks.params, work, grad, loss, flag,
+                 seed, t, thresh, inv_keep, _inv_n(n), precision)
+    return loss[0], unflat_weights(_flat_layout(grad, ks.ws, ks.offsets), mlp)
+
+
+def _grad_buffers(lib, x: torch.Tensor, total: int):
+    """The workspace, gradient, loss and flag of a ``pinnfc_train_dnn_grad``
+    launch over the rows of x, on x's device."""
+    d = x.device
+    return (torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(x.shape[0])),
+                        dtype=torch.float32, device=d),
+            torch.empty(total, dtype=torch.float32, device=d),
+            torch.empty(1, dtype=torch.float32, device=d),
+            torch.empty(1, dtype=torch.int32, device=d))
+
+
+def _launch_grad(lib, x, y, row_off, params, work, grad, loss, flag, seed, t, thresh,
+                 inv_keep, inv_n, precision) -> None:
+    """One ``pinnfc_train_dnn_grad`` launch (kernels 1-3 of step t over the
+    row shard x, y at global row ``row_off``) on x's device, counted."""
+    build.launch(
+        lib.pinnfc_train_dnn_grad, "train_dnn_grad", x.device, x.data_ptr(), y.data_ptr(),
+        x.shape[0], int(row_off), params.to(x.device).data_ptr(), work.data_ptr(),
+        grad.data_ptr(), loss.data_ptr(), flag.data_ptr(), int(seed) & _U32, int(t), thresh,
+        inv_keep, inv_n, int(precision == "default"))
+    build.LAUNCHES["train_dnn_grad"] += 1
 
 
 # (weights on the shard's device, x, y, keep masks or None) -> (the shard's
@@ -459,16 +553,17 @@ def sharded_steps(
 def train_dnn_sharded_plain(
     mlp: MLP, shards, seed: int, n_iter: int, lr: float = 0.01, lr_step: int = 1000,
     lr_gamma: float = 0.8, dropout_p: float = 0.2, skip_nonfinite: bool = False, t0: int = 0,
-    state: Optional[AdamState] = None,
+    state: Optional[AdamState] = None, product_dtype: Optional[torch.dtype] = None,
 ) -> DnnStageOut:
     """Plain version of ``train_dnn_sharded``, any topology: ``loss_and_grads``
     on every shard with its global rows' masks and 1 / (the rows of all
-    shards) as the mean's factor, the terms summed in shard order."""
+    shards) as the mean's factor, the terms summed in shard order;
+    ``product_dtype`` as in ``train_dnn_stage_plain``."""
     _, inv_keep = dropout_constants(dropout_p)
     inv_n = _inv_n(shards.n)
 
     def shard_grad(ws, x_k, y_k, keep):
-        return loss_and_grads(ws, x_k, y_k, keep, inv_keep, inv_n)
+        return loss_and_grads(ws, x_k, y_k, keep, inv_keep, inv_n, product_dtype)
 
     return sharded_steps(mlp, shards, seed, n_iter, shard_grad, lr, lr_step, lr_gamma,
                          dropout_p, skip_nonfinite, t0, state)
@@ -477,7 +572,7 @@ def train_dnn_sharded_plain(
 def train_dnn_sharded(
     mlp: MLP, shards, seed: int, n_iter: int, lr: float = 0.01, lr_step: int = 1000,
     lr_gamma: float = 0.8, dropout_p: float = 0.2, skip_nonfinite: bool = False, t0: int = 0,
-    state: Optional[AdamState] = None,
+    state: Optional[AdamState] = None, precision: str = "highest",
 ) -> DnnStageOut:
     """Steps t0 .. t0 + n_iter − 1 of a DNN stage over row shards (``RowShards``
     of (x, y), the MLP on the first shard's device): per step one
@@ -486,10 +581,12 @@ def train_dnn_sharded(
     one ``pinnfc_train_dnn_adam`` launch there; the plain version for CPU
     shards.  The objective is the mean over all rows, each row under the
     masks of its global row: one shard gives the whole-stage kernel's
-    trajectory up to summation order.  Returns the trained copy of ``mlp``,
-    the per-step losses and the Adam state (``flat_weights``' layout)."""
+    trajectory up to summation order.  ``precision`` picks the kernel's form
+    as in ``train_dnn``.  Returns the trained copy of ``mlp``, the per-step
+    losses and the Adam state (``flat_weights``' layout)."""
     from pinnfc_tpu_torch.parallel.mesh import all_sum
 
+    check_precision(precision)
     check_shards(mlp, shards, n_iter, t0, state)
     dev_type = shards.devices[0].type
     if dev_type == "cpu":
@@ -513,25 +610,13 @@ def train_dnn_sharded(
     if state is not None:
         ints[0, 1:2].copy_(state.count.reshape(1))
     losses = torch.empty(n_iter, dtype=torch.float32, device=dev0)
-    bufs = []  # per shard: x, y, workspace, gradient, loss, flag
-    for x_k, y_k in shards.parts:
-        d = x_k.device
-        bufs.append((
-            x_k.contiguous(), y_k.contiguous(),
-            torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(x_k.shape[0])),
-                        dtype=torch.float32, device=d),
-            torch.empty(total, dtype=torch.float32, device=d),
-            torch.empty(1, dtype=torch.float32, device=d),
-            torch.empty(1, dtype=torch.int32, device=d)))
+    # per shard: x, y, workspace, gradient, loss, flag
+    bufs = [(x_k.contiguous(), y_k.contiguous(), *_grad_buffers(lib, x_k, total))
+            for x_k, y_k in shards.parts]
     for t in range(n_iter):
-        for (x_k, y_k, work, grad, loss, flag), off in zip(bufs, shards.offsets):
-            build.launch(
-                lib.pinnfc_train_dnn_grad, "train_dnn_grad", x_k.device,
-                x_k.data_ptr(), y_k.data_ptr(), x_k.shape[0], int(off),
-                ks.params.to(x_k.device).data_ptr(), work.data_ptr(), grad.data_ptr(),
-                loss.data_ptr(), flag.data_ptr(), int(seed) & _U32, int(t0 + t), thresh,
-                inv_keep, inv_n)
-            build.LAUNCHES["train_dnn_grad"] += 1
+        for buf, off in zip(bufs, shards.offsets):
+            _launch_grad(lib, *buf[:2], off, ks.params, *buf[2:], seed, t0 + t, thresh,
+                         inv_keep, inv_n, precision)
         losses[t:t + 1].copy_(all_sum([b[4] for b in bufs]))
         ints[t, 0:1].copy_(all_sum([b[5] for b in bufs]))
         if t > 0:

@@ -13,6 +13,11 @@
   choice is made by topology alone, as the JAX exporter picks its sampler.
   Both draw the kernel's hash masks (``ops/train_dnn.py::keep_masks``).
   λ stay frozen; dropout is active.
+- ``precision``: 'highest' (float32 accuracy: the kernel's 3xTF32 form, float32
+  autograd) or 'default' (the TPU's bf16 throughput mode: on a CUDA tensor the
+  kernel's bf16 form for the flagship and bf16-operand products
+  (``models/mlp.py::RoundedMatmul``) for any other topology; on a CPU tensor
+  float32, as JAX computes ``precision=None`` on a CPU).
 - The λ stages are plain PyTorch on the data's device (the JAX package runs
   them as XLA scans, with no Pallas kernel): per step the loss, its gradient
   by ``torch.autograd.grad`` through ``physics/``, Adam + StepLR
@@ -57,7 +62,8 @@ from pinnfc_tpu_torch.data.scaling import AffineScaler
 from pinnfc_tpu_torch.models.mlp import MLP, aleatoric_loss
 from pinnfc_tpu_torch.models.pinn import LAMBDA_BOUNDS, PinnParams
 from pinnfc_tpu_torch.ops.train_dnn import (
-    DnnStageOut, sharded_steps, stage_steps, train_dnn, train_dnn_sharded)
+    DnnStageOut, check_precision, precision_dtype, sharded_steps, stage_steps, train_dnn,
+    train_dnn_sharded)
 from pinnfc_tpu_torch.parallel.mesh import (
     Mesh, RowShards, all_sum, data_size, pad_to_multiple, replicate, shard_batch)
 from pinnfc_tpu_torch.physics.hydrogen import hydrogen_residual
@@ -71,7 +77,6 @@ from pinnfc_tpu_torch.utils import checkpoint
 from pinnfc_tpu_torch.utils.jax_params import (
     mlp_tree_from_flat, mlp_tree_to_flat, params_from_jax, params_to_numpy)
 
-PRECISIONS = ("highest", "default")
 _GROUP_OF = {"thermal": "lam_t", "hydrogen": "lam_h", "oxygen": "lam_o"}
 _RESIDUAL = {"lam_t": thermal_residual_simple, "lam_h": hydrogen_residual,
              "lam_o": oxygen_residual}
@@ -91,14 +96,6 @@ def dnn_stage_seed(seed: int, k: int) -> int:
     return int(np.random.RandomState([int(seed), int(k)]).randint(0, 2**31 - 1))
 
 
-def _check_precision(precision: str, x: torch.Tensor) -> None:
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if precision == "default" and x.device.type == "cuda":
-        raise ValueError("precision='default' needs a single-TF32 or bf16 form of the "
-                         "training kernel, which is not ported yet; use 'highest'")
-
-
 def _named_params(ws, mlp: MLP) -> Dict[str, torch.Tensor]:
     """``mlp``'s parameters by name, taken from the tensors ``ws`` of
     ``mlp_weights``' order and (in, out) layout."""
@@ -110,19 +107,23 @@ def train_dnn_autograd(
     mlp: MLP, x: torch.Tensor, y: torch.Tensor, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
     skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+    precision: str = "highest",
 ) -> DnnStageOut:
     """Steps t0 .. t0 + n_iter − 1 of a DNN stage for any topology, on x's
     device: the step loop of ``ops/train_dnn.py::stage_steps`` (the hash masks
     of step t, as the training kernel draws them; Adam + StepLR from the
     carried ``state``) with the gradient of ``aleatoric_loss`` of the dropout
-    forward of ``mlp`` by ``torch.autograd.grad``.  The counterpart of the JAX
-    ``_dnn_step`` scan."""
+    forward of ``mlp`` by ``torch.autograd.grad``, its products' operands
+    rounded to ``precision_dtype(precision, x.device)``.  The counterpart of the
+    JAX ``_dnn_step`` scan."""
+    dtype = precision_dtype(precision, x.device)
 
     def grad_fn(ws, keep):
         ws = [w.detach().requires_grad_(True) for w in ws]
         with torch.enable_grad():
             pred, log_var = torch.func.functional_call(
-                mlp, _named_params(ws, mlp), (x,), {"keep": keep, "dropout_p": dropout_p})
+                mlp, _named_params(ws, mlp), (x,),
+                {"keep": keep, "dropout_p": dropout_p, "product_dtype": dtype})
             loss = aleatoric_loss(y, pred, log_var)
             grads = torch.autograd.grad(loss, ws)
         return loss.detach(), grads
@@ -135,16 +136,19 @@ def train_dnn_autograd_sharded(
     mlp: MLP, shards: RowShards, seed: int, n_iter: int, lr: float = 0.01,
     lr_step: int = 1000, lr_gamma: float = 0.8, dropout_p: float = 0.2,
     skip_nonfinite: bool = False, t0: int = 0, state: Optional[AdamState] = None,
+    precision: str = "highest",
 ) -> DnnStageOut:
     """``train_dnn_autograd`` over row shards, any topology: per step, on every
     shard, ``torch.autograd.grad`` of its term of the whole mean loss (its
     global rows' hash masks), the terms summed in shard order, then Adam."""
+    dtype = precision_dtype(precision, shards.devices[0])
 
     def shard_grad(ws, x_k, y_k, keep):
         ws = [w.detach().requires_grad_(True) for w in ws]
         with torch.enable_grad():
             pred, log_var = torch.func.functional_call(
-                mlp, _named_params(ws, mlp), (x_k,), {"keep": keep, "dropout_p": dropout_p})
+                mlp, _named_params(ws, mlp), (x_k,),
+                {"keep": keep, "dropout_p": dropout_p, "product_dtype": dtype})
             loss = aleatoric_loss(y_k, pred, log_var, n_total=shards.n)
             grads = torch.autograd.grad(loss, ws)
         return loss.detach(), grads
@@ -160,11 +164,11 @@ def train_dnn_chunk_sharded(
 ) -> Tuple[MLP, AdamState, torch.Tensor]:
     """``train_dnn_chunk`` over row shards: the training kernel's per-step
     entries for the flagship (their plain version on CPU shards), the
-    autograd stage for any other topology."""
-    _check_precision(precision, shards.parts[0][0])
+    autograd stage for any other topology, at ``precision``."""
+    check_precision(precision)
     steps = train_dnn_sharded if mlp.is_flagship() else train_dnn_autograd_sharded
     out = steps(mlp, shards, seed, length, lr, lr_step, lr_gamma, dropout_p, skip_nonfinite,
-                t0=start, state=opt_state)
+                t0=start, state=opt_state, precision=precision)
     return out.mlp, out.state, out.losses
 
 
@@ -185,15 +189,15 @@ def train_dnn_stage(
     The JAX function takes a ``jax.random`` key, which torch cannot reproduce;
     this one takes a uint32 ``seed`` and draws its dropout masks from the hash
     stream of ``train_dnn_pallas`` (see ``ops/train_dnn.py``).  The flagship
-    runs the training kernel on a CUDA tensor at float32 accuracy ('highest',
-    3xTF32 on the tensor cores) and its plain version on a CPU tensor; any
-    other topology runs ``train_dnn_autograd``.  ``precision='default'`` (the
-    TPU's bf16 throughput mode) needs a single-TF32 or bf16 form of the
-    kernel, which does not exist yet, and raises on CUDA for every topology;
-    on a CPU tensor every path runs in float32 for either precision."""
-    _check_precision(precision, x)
+    runs the training kernel on a CUDA tensor and its plain version on a CPU
+    tensor; any other topology runs ``train_dnn_autograd``.  On a CUDA tensor
+    ``precision='highest'`` is float32 accuracy (the kernel's 3xTF32 form) and
+    ``'default'`` the TPU's bf16 throughput mode (the kernel's bf16 form, or
+    bf16-operand products for another topology); on a CPU tensor every path
+    runs in float32 for either precision, as JAX does on a CPU."""
+    check_precision(precision)
     out = _dnn_steps(mlp)(mlp, x, y, seed, n_iter, lr, lr_step, lr_gamma, dropout_p,
-                          skip_nonfinite)
+                          skip_nonfinite, precision=precision)
     return StageResult(out.mlp, out.losses)
 
 
@@ -206,10 +210,11 @@ def train_dnn_chunk(
     state (None: fresh) across chunks: (mlp, state, losses).  Step s draws the
     masks of step s of the whole stage (the salt takes the step index inside
     the stage), so the chunks of a stage take its steps; for the flagship on a
-    CUDA tensor one training-kernel launch per chunk."""
-    _check_precision(precision, x)
+    CUDA tensor one training-kernel launch per chunk, in the form
+    ``precision`` picks."""
+    check_precision(precision)
     out = _dnn_steps(mlp)(mlp, x, y, seed, length, lr, lr_step, lr_gamma, dropout_p,
-                          skip_nonfinite, t0=start, state=opt_state)
+                          skip_nonfinite, t0=start, state=opt_state, precision=precision)
     return out.mlp, out.state, out.losses
 
 

@@ -63,6 +63,12 @@ identifiability with the same flags and dropped rows and stderr within rtol
 1e-3 (tests/test_torch_explain.py's tolerances against JAX); ``tsne_embed``'s
 KL within 10 %.
 
+The training kernel's bf16 form (precision 'default'): its one-step
+gradient within 1e-3 of max|g| of the plain version with bf16 products (the
+worst tensor; the float32 plain gradient must be outside), loss[0] of a stage
+at rtol 1e-3, two runs bitwise equal; another topology at 'default' runs the
+bf16-operand autograd stage and launches no kernel.
+
 Data-parallel and ensembles on one card: the MC kernel on row shards with
 their first mask block (``block0``) and ``mc_dropout_sharded`` on a mesh that
 lists ``cuda:0`` three times, bitwise the whole run; the sharded DNN stage
@@ -93,7 +99,8 @@ from pinnfc_tpu_torch.models.mlp import MLP
 from pinnfc_tpu_torch.models.pinn import init_pinn
 from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops import train_dnn as td
-from pinnfc_tpu_torch.ops.mc_dropout import mc_dropout, mc_dropout_sums, mc_dropout_sums_plain
+from pinnfc_tpu_torch.ops.mc_dropout import (
+    dropout_constants, mc_dropout, mc_dropout_sums, mc_dropout_sums_plain)
 from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.physics.residuals import all_residuals
 from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results
@@ -189,8 +196,76 @@ def test_train_kernel_refuses_what_it_does_not_cover(cuda_device):
     y = torch.zeros(64, 1, device=cuda_device)
     with pytest.raises(ValueError, match="flagship"):
         td.train_dnn(MLP((8, 32, 32, 1), device=cuda_device), x, y, 0, 2)
-    with pytest.raises(ValueError, match="TF32"):
-        train_dnn_stage(MLP(device=cuda_device), x, y, 0, 2, precision="default")
+    with pytest.raises(ValueError, match="flagship"):
+        td.train_dnn(MLP((8, 32, 32, 1), device=cuda_device), x, y, 0, 2, precision="default")
+    with pytest.raises(ValueError, match="precision must be one of"):
+        train_dnn_stage(MLP(device=cuda_device), x, y, 0, 2, precision="bf16")
+
+
+def _rel_gap(got, want) -> float:
+    return max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
+               for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
+def test_train_kernel_bf16_form_matches_its_bf16_plain_version(cuda_device, n):
+    """precision='default' runs: the bf16 form's one-step gradient within 1e-3
+    of max|g| of the plain version with bf16 products (the worst tensor), the
+    float32 plain gradient outside that band; a 10-step stage launches the
+    kernel once, repeats bitwise, and keeps loss[0] within rtol 1e-3."""
+    mlp, x, y = _train_inputs(n, cuda_device)
+    before = dict(build.LAUNCHES)
+    _, k_g = td.step_grads(mlp, x, y, 3, 0, precision="default")
+    assert build.LAUNCHES["train_dnn_grad"] == before["train_dnn_grad"] + 1
+    thresh, inv_keep = dropout_constants(0.2)
+    keep = td.keep_masks(n, mlp.dropout_widths(), 3, 0, thresh, cuda_device)
+    ws = td.mlp_weights(mlp)
+    _, p_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n), torch.bfloat16)
+    _, f_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n))
+    assert _rel_gap(k_g, p_g) <= 1e-3 < _rel_gap(f_g, p_g)
+    res = train_dnn_stage(mlp, x, y, 3, 10, precision="default")
+    assert build.LAUNCHES["train_dnn"] == before["train_dnn"] + 1
+    again = td.train_dnn(mlp, x, y, 3, 10, precision="default")
+    assert torch.equal(again.losses, res.losses)
+    plain = td.train_dnn_stage_plain(mlp, x, y, 3, 10, product_dtype=torch.bfloat16)
+    torch.testing.assert_close(res.losses[0], plain.losses[0], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
+def test_train_kernel_3xtf32_gradient_is_float32_accurate(cuda_device, n):
+    """An open fault (ROADMAP Queue 3): the 3xTF32 form's one-step gradient
+    is to be as close to a float64 gradient as the float32 plain version's
+    (the worst tensor's max|Δg|/max|g| within 4x of the float32 plain
+    version's, or 1e-6).  On the H100 it read 1.1e-5 to 1.5e-5 against the
+    float32 plain version's 3.3e-7 to 6.1e-7 (PR 16): the products accumulate
+    in one mma.sync accumulator across all k steps.  A trial with a fresh
+    accumulator per k8 step, added to the sum in float32, read 2.8e-7 to
+    6.3e-7."""
+    mlp, x, y = _train_inputs(n, cuda_device)
+    thresh, inv_keep = dropout_constants(0.2)
+    keep = td.keep_masks(n, mlp.dropout_widths(), 3, 0, thresh, cuda_device)
+    ws = td.mlp_weights(mlp)
+    _, k_g = td.step_grads(mlp, x, y, 3, 0)
+    _, f_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n))
+    _, d_g = td.loss_and_grads([w.double() for w in ws], x.double(), y.double(), keep,
+                               inv_keep, td._inv_n(n))
+    assert _rel_gap(k_g, d_g) <= max(4 * _rel_gap(f_g, d_g), 1e-6)
+
+
+@pytest.mark.cuda
+def test_non_flagship_default_runs_bf16_operand_autograd(cuda_device):
+    """precision='default' on another topology: no kernel launch, the stage
+    runs, and it differs from the float32 stage (its products are bf16)."""
+    x = torch.rand(256, 8, device=cuda_device) * 2 - 1
+    y = torch.rand(256, 1, device=cuda_device)
+    mlp = MLP((8, 64, 64, 1), generator=torch.Generator().manual_seed(1), device=cuda_device)
+    before = dict(build.LAUNCHES)
+    a = train_dnn_stage(mlp, x, y, 2, 5, precision="default")
+    b = train_dnn_stage(mlp, x, y, 2, 5, precision="highest")
+    assert build.LAUNCHES == before
+    assert bool(torch.isfinite(a.losses).all()) and not torch.equal(a.losses, b.losses)
 
 
 @pytest.mark.cuda
