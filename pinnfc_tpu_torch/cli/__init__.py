@@ -1,12 +1,14 @@
 """Command line of the port: ``python -m pinnfc_tpu_torch.cli
 {train,score,synth,ensemble,auc,gmm,compare,risk,inspect,identify,explain,whatif,
-conformal,monitor,export-model,report,run-all,serve} ...``.
+conformal,monitor,export-model,report,run-all,serve,doctor,warmup,bench} ...``.
 
 ``train``, ``score``, ``ensemble``, ``auc``, ``gmm``, ``compare``, ``risk``,
-``identify``, ``explain``, ``whatif``, ``monitor``, ``report``, ``run-all`` and
-``serve``
+``identify``, ``explain``, ``whatif``, ``monitor``, ``report``, ``run-all``,
+``serve``, ``warmup`` and ``bench``
 run on the card by default (``--device cuda``) and exit with an error when
-CUDA is absent; ``--device cpu`` runs the plain PyTorch path.
+CUDA is absent; ``--device cpu`` runs the plain PyTorch path.  ``doctor``
+probes the card (``--platform cuda``, the default) or the CPU
+(``--platform cpu``) in a bounded subprocess.
 ``synth`` writes a synthetic campaign as .mat files; ``risk --backend numpy``
 runs the float64 host path; ``inspect``, ``conformal`` and ``export-model``
 do no device work (an exported artifact is moved to its device when it is
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+from pinnfc_tpu_torch.cli.admin import cmd_bench, cmd_doctor, cmd_warmup
 from pinnfc_tpu_torch.cli.diagnose import (
     cmd_auc, cmd_compare, cmd_conformal, cmd_gmm, cmd_report)
 from pinnfc_tpu_torch.cli.explain import cmd_explain, cmd_identify, cmd_inspect, cmd_whatif
@@ -445,6 +448,62 @@ def build_parser() -> argparse.ArgumentParser:
                          "scoring is collective-free; capacity scales with cards)")
     sv.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sv.set_defaults(fn=cmd_serve)
+
+    dr = sub.add_parser("doctor", help="deployment self-check: versions, environment, the kernel "
+                                       "library, warmup coverage, checkpoint/artifact "
+                                       "pre-flight, a bounded card probe")
+    dr.add_argument("--platform", choices=("cuda", "cpu"), default=None,
+                    help="the device the probe and --smoke bring up (default cuda; cpu runs "
+                         "the plain PyTorch path)")
+    dr.add_argument("--probe-timeout", type=float, default=600.0,
+                    help="seconds before the probe subprocess is declared stalled "
+                         "(default 600)")
+    dr.add_argument("--skip-probe", action="store_true",
+                    help="skip the probe (filesystem and environment checks only; CUDA is "
+                         "never initialised)")
+    dr.add_argument("--smoke", action="store_true",
+                    help="also run 101 Adam steps through the training kernel in a bounded "
+                         "subprocess (build or load, launch, readback)")
+    dr.add_argument("--ckpt", default=None,
+                    help="pre-flight a checkpoint: its arrays read on the host + sidecar")
+    dr.add_argument("--artifact", default=None,
+                    help="pre-flight an export-model artifact: deserialize it and report its "
+                         "platforms (nothing runs)")
+    dr.add_argument("--json", action="store_true",
+                    help="emit the check list as one JSON array")
+    dr.set_defaults(fn=cmd_doctor)
+
+    wu = sub.add_parser("warmup", help="build the kernel library and run each production step "
+                                       "once at the configured row counts, so the first real "
+                                       "run pays neither")
+    wu.add_argument("--small", action="store_true",
+                    help="warm the --small schedule/data-size steps")
+    wu.add_argument("--seed", type=int, default=42,
+                    help="data seed (row counts follow the data; match the training run)")
+    wu.add_argument("--steps-scale", type=float, default=None,
+                    help="multiply every stage's step count (match the training flags)")
+    wu.add_argument("--n-normal", type=int, default=None)
+    wu.add_argument("--n-fault", type=int, default=None)
+    wu.add_argument("--normal-mat", default=None, help="real campaign: warm for ITS row counts")
+    wu.add_argument("--fault-dir", default=None)
+    wu.add_argument("--precision", choices=("highest", "default"), default=None,
+                    help="the training kernel's form to warm (match the training flags)")
+    wu.add_argument("--skip-nonfinite", action="store_true")
+    wu.add_argument("--ckpt", default=None,
+                    help="also warm the monitor step for this checkpoint")
+    wu.add_argument("--mat", default=None,
+                    help="also run the downstream pipelines (AUC/GMM/risk/compare) once on "
+                         "this artifact")
+    wu.add_argument("--block", type=int, default=64,
+                    help="monitor block size to warm (with --ckpt)")
+    wu.add_argument("--json", action="store_true")
+    wu.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    wu.set_defaults(fn=cmd_warmup)
+
+    b = sub.add_parser("bench", help="training throughput of the flagship DNN stage in both "
+                                     "forms of the training kernel (one JSON line)")
+    b.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

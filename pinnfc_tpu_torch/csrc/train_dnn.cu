@@ -24,7 +24,11 @@
 // gradients (A transposed) share it.  Each float32 operand is split into
 // hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
 // mma.sync.m16n8k8 (TF32 in, float32 accumulate) adds a_lo b_hi, a_hi b_lo,
-// then a_hi b_hi; the dropped a_lo b_lo is about 2^-22 of the product.  A NaN
+// then a_hi b_hi into a zeroed accumulator for each k8 step, which is then
+// added to the running sum in float32 (summed over all of K inside the tensor
+// core, the gradient was ~1e-5 of max|g| from a float64 one, 20-50x the
+// float32 plain version's gap); the dropped a_lo b_lo is about 2^-22 of the
+// product.  A NaN
 // stays a NaN through the split, so a NaN row still reaches the flag.  cvt.rna
 // is a sequence of instructions, so an operand that several warps read is
 // split once, where it is written to shared memory, and kept as a hi and a lo
@@ -302,9 +306,13 @@ __device__ __forceinline__ void warp_mma_3xtf32(const float* a, const float* a_l
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        mma_tf32(c[i][j], al[i], bh[j]);
-        mma_tf32(c[i][j], ah[i], bl[j]);
-        mma_tf32(c[i][j], ah[i], bh[j]);
+        // this k8 step's three products, added to c in float32
+        float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(p, al[i], bh[j]);
+        mma_tf32(p, ah[i], bl[j]);
+        mma_tf32(p, ah[i], bh[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] += p[e];
       }
   }
 }
