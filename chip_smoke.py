@@ -5,10 +5,11 @@
 Phases, any failure exits non-zero before the result line:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile every kernel in pinnfc_tpu_torch/csrc with nvcc (sm_90a);
-   count the tensor-core instructions (HMMA) of each training-kernel function
-   and of the MC-dropout sample kernel in the library's SASS (cuobjdump):
-   fwd_bwd_kernel and wgrad_kernel must have bf16 ones (their bf16 form) and
-   others (their 3xTF32 form), mc_sample_kernel bf16 ones;
+   count the tensor-core instructions (HMMA, and wgmma's HGMMA) of each
+   training-kernel function and of the MC-dropout sample kernel in the
+   library's SASS (cuobjdump): fwd_bwd_kernel and wgrad_kernel (the 3xTF32
+   form) must have HMMA, fwd_bwd_bf16_kernel and wgrad_bf16_kernel (the bf16
+   form) bf16 HMMA or HGMMA, mc_sample_kernel bf16 ones;
 3. kernel vs plain on the card: the MC-dropout kernel at flagship width on
    1,000 rows (ragged against its 128-row CTAs and 256-row mask blocks),
    64 samples, against its plain version with bf16 sample passes and against
@@ -199,10 +200,11 @@ Phases, any failure exits non-zero before the result line:
    /observe_many against the in-process monitor;
 21. the training kernel's bf16 form (precision "default") on the card: the
    one-step gradient of ``pinnfc_train_dnn_grad`` in both forms on 6,000 and
-   37 rows against the plain version with bf16 products within
-   ``BF16_GRAD_BAND`` of max|g| (the float32 plain gradient, a planted fault,
-   must fail it; the 3xTF32 form's gaps to the float32 and float64 plain
-   gradients printed); a 20-step stage against its bf16 plain version (loss[0],
+   37 rows, and in the bf16 form on 511, 513 and 1,000 (ragged against its
+   64-row CTAs and the 512-row mask blocks), against the plain version with
+   bf16 products within ``BF16_GRAD_BAND`` of max|g| (the float32 plain
+   gradient, a planted fault, must fail it; the 3xTF32 form's gaps to the
+   float32 and float64 plain gradients printed); a 20-step stage against its bf16 plain version (loss[0],
    the losses within ``BF16_LOSS_BAND`` of the largest |loss|, at most
    ``BF16_WEIGHT_SHARE`` of the weights further than 1e-3), two runs bitwise
    equal, a chunk from step 200 bitwise the whole stage, a NaN row with
@@ -216,7 +218,8 @@ Phases, any failure exits non-zero before the result line:
    non-flagship model's bf16-operand autograd gradient against the
    hand-derived bf16 one (the float32 autograd must fail the band) and its
    200-step stage at "default"; both forms' ms/step of a 200-step stage in
-   turns, the bf16 plain version's, and a profiler split of the bf16 form;
+   turns, the bf16 plain version's, a profiler split of the bf16 form and
+   its scratch bytes per step;
    the 3xTF32 form's one-step gradient within max(4 × the float32 plain
    version's gap, 1e-6) of max|g| of a float64 gradient;
 22. the operational commands on the card: ``cli doctor --smoke --json``
@@ -678,9 +681,13 @@ def time_training(mlp, params, ds):
     return kernel_ms, chunk_ms, plain_ms, per_step, traced, breakdown, lam_ms
 
 
-# the kernels of csrc/train_dnn.cu: launched every step, and once per stage
+# the kernels of csrc/train_dnn.cu: launched every step (the 3xTF32 form's,
+# the bf16 form's), and once per stage
 STEP_KERNELS = ("fwd_bwd_kernel", "wgrad_kernel", "finalize_kernel", "adam_kernel")
+BF16_STEP_KERNELS = ("bf16_weights_kernel", "fwd_bwd_bf16_kernel", "wgrad_bf16_kernel",
+                     "finalize_kernel", "adam_kernel")
 STAGE_KERNELS = ("transpose_kernel",)
+TRAIN_KERNELS = tuple(dict.fromkeys(STEP_KERNELS + BF16_STEP_KERNELS + STAGE_KERNELS))
 
 
 # the kernels of csrc/mc_dropout.cu
@@ -688,9 +695,10 @@ MC_KERNELS = ("mc_sample_kernel", "mc_base_kernel")
 
 
 def sass_hmma(lib) -> dict:
-    """Tensor-core (HMMA) instructions in the SASS of each function of
+    """Tensor-core instructions in the SASS of each function of
     csrc/train_dnn.cu and csrc/mc_dropout.cu in the built library, counted
-    from ``cuobjdump -sass``; bf16 ones under ``<name>.bf16``."""
+    from ``cuobjdump -sass``: HMMA (mma.sync) under ``<name>``, the bf16 ones
+    also under ``<name>.bf16``, HGMMA (wgmma) under ``<name>.hgmma``."""
     from pinnfc_tpu_torch.ops import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -700,23 +708,25 @@ def sass_hmma(lib) -> dict:
     counts, current = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            current = next((k for k in STEP_KERNELS + STAGE_KERNELS + MC_KERNELS if k in line),
-                           None)
+            current = next((k for k in TRAIN_KERNELS + MC_KERNELS if k in line), None)
             if current:
-                counts.setdefault(current, 0)
-                counts.setdefault(current + ".bf16", 0)
+                for key in (current, current + ".bf16", current + ".hgmma"):
+                    counts.setdefault(key, 0)
+        elif current and "HGMMA" in line:
+            counts[current + ".hgmma"] += 1
         elif current and "HMMA" in line:
             counts[current] += 1
             counts[current + ".bf16"] += "BF16" in line
     return counts
 
 
-def kernel_breakdown(fn, steps: int, required=STEP_KERNELS + STAGE_KERNELS):
+def kernel_breakdown(fn, steps: int, required=STEP_KERNELS + STAGE_KERNELS,
+                     step_kernels=STEP_KERNELS):
     """From a torch.profiler trace of ``fn``, one ``steps``-step stage: device
     ms per step of each kernel of csrc/train_dnn.cu, the launches of each (and
     the trace's device memsets, the wrapper's and torch's), and the device
-    launches per step of the step kernels.  Fails if a kernel of ``required``
-    shows no device time."""
+    launches per step of ``step_kernels`` (a form's kernels of a step).
+    Fails if a kernel of ``required`` shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -729,13 +739,13 @@ def kernel_breakdown(fn, steps: int, required=STEP_KERNELS + STAGE_KERNELS):
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         if ev.key.startswith("Memset"):
             launches["memset"] += ev.count
-        name = next((k for k in STEP_KERNELS + STAGE_KERNELS if k in ev.key), None)
+        name = next((k for k in TRAIN_KERNELS if k in ev.key), None)
         if name and dev_us:
             ms[name] = ms.get(name, 0.0) + dev_us / steps / 1e3
             launches[name] = launches.get(name, 0) + ev.count
     missing = [k for k in required if k not in ms]
     check(not missing, f"the profiler trace shows no device time for {missing}")
-    per_step = sum(launches[k] for k in STEP_KERNELS) / steps
+    per_step = sum(launches[k] for k in step_kernels) / steps
     return ms, launches, per_step
 
 
@@ -3111,9 +3121,10 @@ def run_cli_together(*argvs, timeout: int = 600):
     return outs, time.perf_counter() - t0
 
 
-def check_bf16_grads(mlp, x, y, seed: int) -> dict:
-    """The kernel's one-step gradient in both forms (``step_grads``) against
-    the plain version on the card; returns the gaps."""
+def check_bf16_grads(mlp, x, y, seed: int, tf32: bool = True) -> dict:
+    """The kernel's one-step gradient (``step_grads``) in the bf16 form and,
+    with ``tf32``, the 3xTF32 form against the plain version on the card;
+    returns the gaps."""
     from pinnfc_tpu_torch.ops import train_dnn as td
     from pinnfc_tpu_torch.ops.mc_dropout import dropout_constants
 
@@ -3122,41 +3133,49 @@ def check_bf16_grads(mlp, x, y, seed: int) -> dict:
     keep = td.keep_masks(n, mlp.dropout_widths(), seed, 0, thresh, x.device)
     ws = td.mlp_weights(mlp)
     k_loss, k_g = td.step_grads(mlp, x, y, seed, 0, precision="default")
-    kh_loss, kh_g = td.step_grads(mlp, x, y, seed, 0, precision="highest")
     p_loss, p_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n), torch.bfloat16)
     f_loss, f_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n))
-    _, d_g = td.loss_and_grads([w.double() for w in ws], x.double(), y.double(), keep,
-                               inv_keep, td._inv_n(n))
     torch.cuda.synchronize()
     gaps = {"bf16_kernel_vs_bf16_plain": rel_gap(k_g, p_g),
             "fp32_plain_vs_bf16_plain (planted fault)": rel_gap(f_g, p_g),
             "bf16_kernel_vs_fp32_plain": rel_gap(k_g, f_g),
-            "3xtf32_kernel_vs_fp32_plain": rel_gap(kh_g, f_g),
-            "3xtf32_kernel_vs_fp64_plain": rel_gap(kh_g, d_g),
-            "fp32_plain_vs_fp64_plain": rel_gap(f_g, d_g),
-            "3xtf32_kernel_vs_fp64_plain_per_tensor": [rel_gap([a], [b]) for a, b in
-                                                        zip(kh_g, d_g)],
-            "loss_rel_bf16": float((k_loss - p_loss).abs() / p_loss.abs()),
-            "loss_rel_3xtf32": float((kh_loss - f_loss).abs() / f_loss.abs())}
+            "loss_rel_bf16": float((k_loss - p_loss).abs() / p_loss.abs())}
     check(gaps["bf16_kernel_vs_bf16_plain"] <= BF16_GRAD_BAND,
           f"N={n}: the bf16 kernel's one-step gradient is outside its band: {gaps}")
     check(gaps["fp32_plain_vs_bf16_plain (planted fault)"] > BF16_GRAD_BAND,
           f"N={n}: the float32 gradient (a planted fault) passes the bf16 band: {gaps}")
-    # float32 accuracy: as close to float64 as the float32 plain version is
-    tf32_bound = max(4 * gaps["fp32_plain_vs_fp64_plain"], 1e-6)
-    check(gaps["3xtf32_kernel_vs_fp64_plain"] <= tf32_bound,
-          f"N={n}: the 3xTF32 kernel's one-step gradient is not float32-accurate: "
-          f"{gaps['3xtf32_kernel_vs_fp64_plain']:.3e} of max|g| from float64, bound "
-          f"{tf32_bound:.3e}")
-    print(f"[check] train_dnn 3xTF32 form, N={n}: one-step gradient "
-          f"{gaps['3xtf32_kernel_vs_fp64_plain']:.3e} of max|g| from a float64 gradient, "
-          f"within max(4 × the float32 plain version's {gaps['fp32_plain_vs_fp64_plain']:.3e}, "
-          f"1e-6): ok")
+    if tf32:
+        kh_loss, kh_g = td.step_grads(mlp, x, y, seed, 0, precision="highest")
+        _, d_g = td.loss_and_grads([w.double() for w in ws], x.double(), y.double(), keep,
+                                   inv_keep, td._inv_n(n))
+        torch.cuda.synchronize()
+        gaps.update({"3xtf32_kernel_vs_fp32_plain": rel_gap(kh_g, f_g),
+                     "3xtf32_kernel_vs_fp64_plain": rel_gap(kh_g, d_g),
+                     "fp32_plain_vs_fp64_plain": rel_gap(f_g, d_g),
+                     "3xtf32_kernel_vs_fp64_plain_per_tensor": [rel_gap([a], [b]) for a, b in
+                                                                 zip(kh_g, d_g)],
+                     "loss_rel_3xtf32": float((kh_loss - f_loss).abs() / f_loss.abs())})
+        # float32 accuracy: as close to float64 as the float32 plain version is
+        tf32_bound = max(4 * gaps["fp32_plain_vs_fp64_plain"], 1e-6)
+        check(gaps["3xtf32_kernel_vs_fp64_plain"] <= tf32_bound,
+              f"N={n}: the 3xTF32 kernel's one-step gradient is not float32-accurate: "
+              f"{gaps['3xtf32_kernel_vs_fp64_plain']:.3e} of max|g| from float64, bound "
+              f"{tf32_bound:.3e}")
+        print(f"[check] train_dnn 3xTF32 form, N={n}: one-step gradient "
+              f"{gaps['3xtf32_kernel_vs_fp64_plain']:.3e} of max|g| from a float64 gradient, "
+              f"within max(4 × the float32 plain version's "
+              f"{gaps['fp32_plain_vs_fp64_plain']:.3e}, 1e-6): ok")
     print(f"[check] train_dnn bf16 form, N={n}: one-step gradient (pinnfc_train_dnn_grad) "
           f"within {BF16_GRAD_BAND:g} of max|g| of the bf16 plain version, the float32 "
           f"plain gradient (planted fault) outside it; worst tensor's max|Δg|/max|g| "
           f"{json.dumps(gaps)}: ok")
     return gaps
+
+
+# phase 21's rows of the bf16 form's one-step gradient: the campaign's 6,000
+# and 37 rows (both forms), then rows ragged against the bf16 form's 64-row
+# CTAs and the 512-row mask blocks
+BF16_GRAD_ROWS = (6000, 37, 511, 513, 1000)
 
 
 def run_bf16_slice(dev, train_ds, mlp) -> dict:
@@ -3173,7 +3192,8 @@ def run_bf16_slice(dev, train_ds, mlp) -> dict:
 
     x, y = train_ds.x_train, train_ds.y_train
     seed, hp, bf = 20240601, dict(lr=0.01, lr_step=5, lr_gamma=0.5), torch.bfloat16
-    out = {"grad_gaps": {n: check_bf16_grads(mlp, x[:n], y[:n], seed) for n in (6000, 37)}}
+    out = {"grad_gaps": {n: check_bf16_grads(mlp, x[:n], y[:n], seed, tf32=n in (6000, 37))
+                         for n in BF16_GRAD_ROWS}}
 
     traces = {}
     for n in (6000, 37):
@@ -3346,20 +3366,24 @@ def run_bf16_slice(dev, train_ds, mlp) -> dict:
     # the step kernels only: a later profiler session of the process has
     # shown no device time for the once-per-stage transpose (1 µs)
     breakdown, traced, per_step = kernel_breakdown(
-        lambda: td.train_dnn(mlp, x, y, 7, 50, precision="default"), 50, STEP_KERNELS)
+        lambda: td.train_dnn(mlp, x, y, 7, 50, precision="default"), 50, BF16_STEP_KERNELS,
+        BF16_STEP_KERNELS)
     flop = TRAIN_FLOP_PER_ROW_STEP * x.shape[0]
     n_param = sum(p.numel() for p in mlp.parameters())
     t_bytes = 4 * (x.shape[0] * 9 + 2 * n_param) / steps + 4
     bound = max(flop / BF16_PEAK, t_bytes / HBM_RATE) * 1e3
     out.update(ms_bf16=ms["default"], ms_3xtf32=ms["highest"], plain_bf16_ms=plain_ms,
                bound_bf16_ms=bound, kernel_ms_per_step_bf16=breakdown,
-               traced_launches_50_steps_bf16=traced, device_launches_per_step_bf16=per_step)
+               traced_launches_50_steps_bf16=traced, device_launches_per_step_bf16=per_step,
+               scratch_bytes_per_step_bf16=int(
+                   build.load().pinnfc_train_dnn_bf16_scratch_bytes(x.shape[0])))
     print(f"[time] train_dnn per step of a {steps}-step stage at N={x.shape[0]} (median of 3, "
           f"in turns): 3xTF32 {ms['highest']} ms, bf16 {ms['default']} ms; bf16 bound "
           f"{bound:.5f} ms (operations, 989 TFLOP/s), bf16 at {bound / min(ms['default']):.1%} "
           f"of it; bf16 plain {plain_ms:.4f} ms/step; profiler, 50-step bf16 stage: "
           f"{per_step} device launches per step, per-kernel device ms/step "
-          f"{json.dumps(breakdown)}")
+          f"{json.dumps(breakdown)}; fwd_bwd_bf16_kernel writes "
+          f"{out['scratch_bytes_per_step_bf16']:,} bytes of scratch per step")
     return out
 
 
@@ -3473,15 +3497,18 @@ def main() -> int:
     build.load()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     hmma = sass_hmma(lib)
-    for fn in ("fwd_bwd_kernel", "wgrad_kernel"):
-        # the 3xTF32 form's HMMA are the ones that are not bf16
-        check(hmma.get(fn, 0) > hmma.get(f"{fn}.bf16", 0) > 0,
-              f"{fn}: the products of the training kernel's 3xTF32 or bf16 form are not on "
-              f"the tensor cores: HMMA counts {hmma}")
+    for fn in ("fwd_bwd_kernel", "wgrad_kernel"):  # the 3xTF32 form: TF32 HMMA
+        check(hmma.get(fn, 0) > hmma.get(f"{fn}.bf16", 0),
+              f"{fn}: the products of the training kernel's 3xTF32 form are not on the "
+              f"tensor cores: HMMA counts {hmma}")
+    for fn in ("fwd_bwd_bf16_kernel", "wgrad_bf16_kernel"):  # the bf16 form
+        check(hmma.get(f"{fn}.bf16", 0) + hmma.get(f"{fn}.hgmma", 0) > 0,
+              f"{fn}: the products of the training kernel's bf16 form are not on the tensor "
+              f"cores: HMMA/HGMMA counts {hmma}")
     check(hmma.get("mc_sample_kernel.bf16", 0) > 0,
           f"the MC sample kernel's products are not on the tensor cores in bf16: {hmma}")
     print(f"[build] HMMA instructions in the SASS of csrc/train_dnn.cu and csrc/mc_dropout.cu "
-          f"(bf16 ones under .bf16): {json.dumps(hmma)}")
+          f"(bf16 ones under .bf16, wgmma's HGMMA under .hgmma): {json.dumps(hmma)}")
 
     # ---- 3. kernel vs plain on the card ----
     gen = torch.Generator().manual_seed(0)
@@ -3814,9 +3841,14 @@ def main() -> int:
                   "launches_ckpt_every_100":
                       bf16["cli"]["ckpt_every_100"]["launches"]["train_dnn"],
                   "launches_sharded_grad": bf16["sharded_4"]["launches"]["train_dnn_grad"],
+                  "kernels": list(BF16_STEP_KERNELS),
                   "kernel_ms_per_step": bf16["kernel_ms_per_step_bf16"],
+                  "scratch_bytes_per_step": bf16["scratch_bytes_per_step_bf16"],
+                  "grad_gap_by_rows": {n: g["bf16_kernel_vs_bf16_plain"]
+                                       for n, g in bf16["grad_gaps"].items()},
                   "sass_hmma_bf16": {k: v for k, v in hmma.items()
-                                     if k.endswith(".bf16") and not k.startswith("mc_")},
+                                     if k.endswith((".bf16", ".hgmma"))
+                                     and not k.startswith("mc_")},
                   "library_ms": None}},
     ]
     print(f"[time] λ-stage ms/step {json.dumps(lam_ms)}")

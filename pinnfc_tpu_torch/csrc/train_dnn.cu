@@ -14,8 +14,10 @@
 // one, so float32 accuracy costs 18.8 GFLOP of TF32: 0.038 ms/step against
 // 495 TFLOP/s.  The same work in float32 outside the tensor cores would take
 // 0.093 ms/step at 67 TFLOP/s.  The data (0.19 MB) and the state (weights,
-// Adam moments, 2.8 MB) stay in L2.  Only wgmma reaches the full tensor-core
-// rate; that form is later work.
+// Adam moments, 2.8 MB) stay in L2; the per-step scratch barely fits: the
+// 3xTF32 form writes and reads back 7,692 bytes per row (960 masked
+// activations and 962 deltas in float32), 46 MB at N = 6,000 against the
+// card's 50 MB of L2.
 //
 // 3xTF32 ("highest", the TPU kernel's Precision.HIGHEST).  warp_mma_3xtf32 is
 // the one tile routine of every product: a warp's C(16 TM x 8 TN) += A(16 TM x
@@ -33,30 +35,72 @@
 // is a sequence of instructions, so an operand that several warps read is
 // split once, where it is written to shared memory, and kept as a hi and a lo
 // plane; the weights, which one warp each reads, are split as they are loaded.
+// (The shared templates' BF16 = true branches, the first port of the bf16
+// form, are no longer instantiated.)
 //
-// bf16 ("default", the TPU kernel's mxu_prec = None: one bf16 MXU pass).  The
-// kernels fwd_bwd_kernel and wgrad_kernel take the form as a template
-// argument; the entries take it as `bf16`.  In the bf16 form every product of
-// a step takes operands rounded to bf16 (nearest even, cvt.rn.bf16x2.f32, as
-// torch's .to(torch.bfloat16)) and accumulates in float32: the forward
-// products, the data-gradient products d W^T and the weight-gradient products
-// A^T D run through warp_mma_bf16 (mma.sync.m16n8k16, bf16 in, float32
-// accumulate; layer 0's depth of 8 is one k16 step whose upper half is zero);
-// the width-1 heads (Wm, V3: row_dot, the dq3 V3^T and dpred Wm^T outer
-// products, their weight gradients) round both operands of each float32 FMA.
-// Bias adds, bias-gradient sums, tanh, softplus, the loss, the masks, Adam and
-// the master weights stay float32.  Activations and deltas stay in shared
-// memory as one float32 plane (the lo plane is unused) and are rounded as
-// they are packed into a fragment, as are the weights: a masked activation is
-// rounded as the value h (1/(1-p)) that the next product reads, as
-// pallas_train.py feeds it.  The bf16 work is 6.25 GFLOP per step at
-// N = 6,000: 0.0063 ms against 989 TFLOP/s.  The plain version with
-// product_dtype=torch.bfloat16 rounds the same operands.
-//
+// bf16 ("default", the TPU kernel's mxu_prec = None: one bf16 MXU pass): the
+// same entries with `bf16` set.  Its rounding contract, which the plain
+// version with product_dtype=torch.bfloat16 shares: every product of a step
+// takes operands rounded to bf16 (nearest even, cvt.rn.bf16x2.f32, as
+// torch's .to(torch.bfloat16)) and accumulates in float32; the width-1 heads
+// (Wm, V3: their row dots, the dq3 V3^T and dpred Wm^T outer products, their
+// weight gradients) round both operands of each float32 FMA; a masked
+// activation is rounded as the value h (1/(1-p)) that the next product reads.
+// Bias adds, bias-gradient sums, tanh, softplus, the loss, the masks, the
+// (1 - h^2) of the backward (from the float32 h), Adam and the master weights
+// stay float32.  The bf16 work is 6.25 GFLOP per step at N = 6,000: 0.0063 ms
+// against 989 TFLOP/s, so the form is bound by operations.  What held back
+// its first port (0.19 ms/step: the 3xTF32 kernels with bf16 tile routines)
+// was everything around the products: float32 operands rounded at every
+// fragment load by every warp, the 3xTF32 layout (one 48-row CTA of 8 warps
+// per SM, epilogues through shared memory), two hashes per mask element, and
+// the float32 scratch.  It has kernels of its own:
+//  - bf16_weights_kernel rounds the weights once per step into bf16 copies
+//    in the workspace: W1 (padded with zero rows to K0 = 16), W2, W3, V1, V2,
+//    and the transposes W2^T, W3^T, V1^T, V2^T that the backward reads.
+//  - fwd_bwd_bf16_kernel: a CTA owns BROWS = 64 rows (94 CTAs at N = 6,000;
+//    8 CTAs per 512-row mask block at row_off 0) with 16 warps, 2 row slices
+//    x 8 column eighths of 32 x N/8 each, so an A fragment is loaded by 8
+//    warps and a B fragment by 2, not by all.  Activations and deltas live in
+//    shared memory as bf16 [row][feature], rounded once in the epilogue; the
+//    bf16 weights stream through a cp.async ring of 64-row tiles (the next
+//    layer's first tiles requested before each epilogue); every fragment
+//    comes from ldmatrix (.trans for the (K, N) weights).  The epilogues work
+//    on the accumulators in registers, four tanhf per out-of-line call.  The
+//    forward hashes each masked element once (the row's part of the hash
+//    folded into one key per row) and stores the backward's factor, (1 - h^2)
+//    where kept and 0 where dropped, as float32 in fragment order (a float4
+//    per thread and tile, coalesced), so the backward calls no hash and reads
+//    no h.  The bias gradients (column sums
+//    of the float32 deltas) and the width-1 heads' weight gradients are
+//    summed over the CTA's rows in a fixed order (colsum).  The masked
+//    activations and the deltas go to a bf16 scratch for the weight
+//    gradients.
+//  - wgrad_bf16_kernel: the tensor-core weight gradients A^T D from the bf16
+//    scratch in 64 x 128 tiles (24 tiles x SPLIT row segments, one wave),
+//    64-row chunks through a cp.async ring, both operands through
+//    ldmatrix.trans, with no conversion; two groups of 8 warps split each
+//    chunk's k16 steps and add their sums in group order at the end.  One
+//    more CTA per segment adds the segment's colsum rows in CTA order.
+//    finalize_kernel and adam_kernel are the 3xTF32 form's.
+// Per row its scratch holds 3,744 bytes of bf16 operands (x padded, four
+// masked activations, five deltas) and 3,584 of float32 factors; it shares
+// the workspace with the 3xTF32 form's scratch.  Where its time goes, on an
+// H100 (ops/train_ablation.py: clock stamps inside fwd_bwd_bf16_kernel, and
+// copies of this file with one part removed each, PERF.md): the epilogues
+// (tanh, hash, factor stores and loads) and the products take turns inside a
+// CTA, and the weight stream (every CTA reads all 0.7 MB of bf16 weights)
+// costs more than the tensor-core work.  A second 64-row CTA per SM, a
+// deeper ring, L2 eviction hints, weight tiles by bulk copies (one warp
+// issuing a row each, on mbarriers), and a 2-CTA cluster that splits each
+// layer's columns (each CTA streaming half the weights) all ran slower;
+// bulk-copy stores of the scratch ran no faster.
+
 // Design.  The TPU kernel is one program that loops over steps and 512-row
 // blocks with all state in VMEM; on the H100 that shape would use one SM.  Here
-// every step is four launches on the caller's stream, queued from C with no
-// host sync, and all state stays in device memory (in L2) for the stage:
+// every step is four launches on the caller's stream (five in the bf16 form,
+// whose kernels 1 and 2 are the ones above), queued from C with no host sync,
+// and all state stays in device memory for the stage:
 //  1. fwd_bwd_kernel: a CTA owns ROWS = 48 rows (125 CTAs at N = 6,000, one
 //     wave on 132 SMs, one CTA per SM) and runs the forward and the
 //     input-gradient backward for them.  The layer's input lives in shared
@@ -987,10 +1031,810 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(float* p, float* m, float
   put_transposed(tr, e, w);
 }
 
+// ===========================================================================
+// The bf16 form (precision "default"): bf16_weights_kernel,
+// fwd_bwd_bf16_kernel and wgrad_bf16_kernel (see the note at the top).
+
+constexpr int BROWS = 64;      // rows per CTA of fwd_bwd_bf16_kernel
+constexpr int WMS = BROWS / 32;  // its 32-row slices
+constexpr int BTHREADS = WMS * 256;  // its warps: WMS slices x 8 column eighths
+constexpr int BKT = 64;        // weight rows per slot of its ring
+constexpr int BNSTAGE = 4;     // slots in its weight ring
+constexpr int K0 = 16;         // layer 0's depth: x and W1 padded with zeros
+// leading dimension, in bf16, of a shared buffer of width w: the eight 16-byte
+// rows of an ldmatrix 8x8 matrix fall on distinct banks
+__host__ __device__ constexpr int ldh(int w) { return w + 8; }
+constexpr int BSLOT = BKT * ldh(H);  // bf16 of one ring slot
+constexpr int BACT = BROWS * ldh(H);  // bf16 of one activation buffer
+// a CTA's backward factors of the four masked layers (widths H, H, H, V0)
+constexpr int FACT_CTA = BROWS * (3 * H + V0);
+// a CTA's column sums over its rows: the biases' gradients (the deltas'
+// column sums), the width-1 heads' weight gradients and their biases'
+constexpr int CS_B1 = 0, CS_B2 = H, CS_B3 = 2 * H, CS_WM = 3 * H, CS_C1 = 4 * H,
+              CS_C2 = CS_C1 + V0, CS_V3 = CS_C2 + V1, CS_BM = CS_V3 + V1, CS_C3 = CS_BM + 1,
+              NCS = CS_C3 + 1;
+// shared memory of fwd_bwd_bf16_kernel: two activation buffers, t2, x and the
+// weight ring (bf16), then the heads' partial dots [2][8][BROWS], the column
+// sums [WMS][H] and dpred, dq3 [2][BROWS] (float32)
+constexpr size_t BSMEM_BYTES =
+    (size_t)(2 * BACT + BROWS * ldh(V1) + BROWS * ldh(K0) + BNSTAGE * BSLOT) * 2 +
+    (size_t)(2 * 8 * BROWS + WMS * H + 2 * BROWS) * 4;  // 154,112
+static_assert(BSMEM_BYTES <= 232448, "over the H100's 227 KB of shared memory per block");
+static_assert(BROWS % 32 == 0 && BTHREADS >= H, "whole 32-row warp slices");
+static_assert(MASK_BLOCK * H <= (1u << 17) && (MASK_BLOCK % BROWS) == 0,
+              "mask counters below 2^17; whole CTAs per mask block at row_off 0");
+
+constexpr int WTK = 64;    // gradient rows (k) of a tile of wgrad_bf16_kernel
+constexpr int WTJ = 128;   // ... and columns (j)
+constexpr int WGR = 64;    // data rows per staged chunk
+constexpr int WGSTAGE = 3;  // chunks in its ring
+constexpr int WLDA = WTK + 8, WLDD = WTJ + 8;  // leading dimensions (bf16) of a chunk of A, D
+constexpr int WMT = WTK / 32;  // 16-row mma tiles of a warp: 2 (k) x 4 (j) warps of WTK/2 x 32
+constexpr int WSLOT = WGR * (WLDA + WLDD);     // bf16 of one ring slot
+constexpr size_t WSMEM_BYTES = (size_t)WGSTAGE * WSLOT * 2;  // 79,872
+constexpr int WGROUPS = 2;  // groups of 8 warps of wgrad_bf16_kernel, each over every other k16 step
+constexpr int WTHREADS = WGROUPS * 256;
+static_assert((WGROUPS - 1) * WTK * WTJ * 4 <= (int)WSMEM_BYTES, "the groups' sums fit the ring");
+constexpr int NT16 = 5;    // W1, W2, W3, V1, V2: the tensor-core gradients
+// row segments of wgrad_bf16_kernel are multiples of SEG_ALIGN rows: whole
+// fwd_bwd CTAs and whole chunks
+constexpr int SEG_ALIGN = BROWS > WGR ? BROWS : WGR;
+static_assert(SEG_ALIGN % BROWS == 0 && SEG_ALIGN % WGR == 0, "powers of two");
+
+struct Bf16Weights {
+  uint16_t* w1;                     // W1 (K0, H), rows D_IN.. zero
+  uint16_t *w2, *w3, *v1, *v2;      // (in, out) row-major
+  uint16_t *w2t, *w3t, *v1t, *v2t;  // transposed (out, in)
+};
+
+struct Scratch16 {
+  uint16_t* x16;                          // x [np][K0], columns D_IN.. zero
+  uint16_t *h1d, *h2d, *h3d, *t1d;        // masked activations [np][width]
+  uint16_t *da1, *da2, *da3, *dq1, *dq2;  // deltas [np][width]
+  float* fact;    // [ncta][FACT_CTA], in fragment order
+  float* colsum;  // [ncta][NCS]
+  float* lossrow; // [n]
+};
+
+struct Bf16Bufs {
+  Bf16Weights w;
+  Scratch16 s;
+};
+
+// What a layer's mask needs of the step: the global row of row 0, the keep
+// threshold, 1 / (1 - p).
+struct MaskArgs {
+  int row_off;
+  uint32_t thresh;
+  float inv_keep;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+__device__ __forceinline__ uint16_t to_bf16(float x) {
+  return (uint16_t)(pack_bf16x2(x, 0.0f) & 0xFFFFu);
+}
+__device__ __forceinline__ float bf16_val(uint16_t b) { return __uint_as_float((uint32_t)b << 16); }
+__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// wang_hash(ctr ^ hs) == wang_rest(row_key ^ c) for the counter ctr = base + c
+// of column c < W of a row (base = local_row * W, W a power of two, ctr <
+// 2^17): the hash's first step (x ^ 61) ^ (x >> 16) distributes over the XOR,
+// and ctr >> 16 == base >> 16.
+__device__ __forceinline__ uint32_t mask_row_key(uint32_t hs, uint32_t base) {
+  return base ^ (base >> 16) ^ hs ^ 61u ^ (hs >> 16);
+}
+// tanhf of four values, out of line: the forward epilogues are unrolled over
+// a thread's fragment, and 150 inlined copies of tanhf made the kernel's
+// code too large for the instruction caches (10,720 SASS instructions;
+// 9,368 and 5 % faster with one copy of a one-value call), while four
+// independent values per call keep the chains of tanhf interleaved.
+__device__ __noinline__ float4 tanh4(float4 z) {
+  return make_float4(tanhf(z.x), tanhf(z.y), tanhf(z.z), tanhf(z.w));
+}
+__device__ __forceinline__ uint32_t wang_rest(uint32_t x) {
+  x *= 9u;
+  x = x ^ (x >> 4);
+  x *= 0x27D4EB2Du;
+  x = x ^ (x >> 15);
+  x *= 2654435761u;
+  x = x ^ (x >> 13);
+  return x;
+}
+
+// The bf16 weight copies from the flat float32 parameters, rounded once per
+// step (nearest even): W2, W3, V1, V2 and their transposes (the backward's
+// operands), a 32 x 32 tile per CTA through shared memory so that every
+// read and write is coalesced, then W1 padded to K0 rows, a 32-column block
+// per CTA.
+constexpr int CAST_TILES = 2 * (H / 32) * (H / 32) + (H / 32) * (V0 / 32) + (V0 / 32) * (V1 / 32);
+constexpr int CAST_BLOCKS = CAST_TILES + H / 32;
+__global__ void __launch_bounds__(THREADS) bf16_weights_kernel(const float* __restrict__ p,
+                                                               Bf16Weights wb) {
+  __shared__ uint16_t tile[32][33];
+  int b = blockIdx.x;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  if (b >= CAST_TILES) {
+    const int c = (b - CAST_TILES) * 32 + tx;
+    for (int r = ty; r < K0; r += THREADS / 32) {
+      wb.w1[r * H + c] = to_bf16(r < D_IN ? p[OFF_W1 + r * H + c] : 0.0f);
+    }
+    return;
+  }
+  const float* src = p + OFF_W2;
+  uint16_t *dst = wb.w2, *dst_t = wb.w2t;
+  int K = H, N = H;
+  if (b >= (H / 32) * (H / 32)) {
+    b -= (H / 32) * (H / 32);
+    src = p + OFF_W3, dst = wb.w3, dst_t = wb.w3t;
+    if (b >= (H / 32) * (H / 32)) {
+      b -= (H / 32) * (H / 32);
+      src = p + OFF_V1, dst = wb.v1, dst_t = wb.v1t, N = V0;
+      if (b >= (H / 32) * (V0 / 32)) {
+        b -= (H / 32) * (V0 / 32);
+        src = p + OFF_V2, dst = wb.v2, dst_t = wb.v2t, K = V0, N = V1;
+      }
+    }
+  }
+  const int k0 = (b / (N / 32)) * 32, n0 = (b % (N / 32)) * 32;
+  for (int r = ty; r < 32; r += THREADS / 32) {
+    const uint16_t v = to_bf16(src[(k0 + r) * N + n0 + tx]);
+    dst[(k0 + r) * N + n0 + tx] = v;
+    tile[r][tx] = v;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += THREADS / 32) dst_t[(n0 + r) * K + k0 + tx] = tile[tx][r];
+}
+
+// Stage rows [k0, k0 + KS) of W (bf16, row-major (K, N) in device memory) into
+// a ring slot (leading dimension ldh(N)) with cp.async, as one committed group.
+template <int N, int KS>
+__device__ __forceinline__ void stage_w16(const uint16_t* __restrict__ W, int k0,
+                                          uint16_t* slot) {
+  constexpr int CHUNKS = KS * N / 8;  // 16-byte copies
+  for (int e = threadIdx.x; e < CHUNKS; e += BTHREADS) {
+    cp_async16(slot + (e / (N / 8)) * ldh(N) + (e % (N / 8)) * 8, W + (size_t)k0 * N + 8 * e);
+  }
+  cp_async_commit();
+}
+
+// Put the first BNSTAGE - 1 slots of W (K, N) in flight, one committed group
+// each (empty groups past K); cta_mma16<K, N> expects them.
+template <int K, int N>
+__device__ __forceinline__ void prefetch_w16(const uint16_t* __restrict__ W, uint16_t* ring) {
+  constexpr int KS = K < BKT ? K : BKT, T = K / KS;
+#pragma unroll
+  for (int s = 0; s < BNSTAGE - 1; ++s) {
+    if (s < T) {
+      stage_w16<N, KS>(W, s * KS, ring + s * BSLOT);
+    } else {
+      cp_async_commit();
+    }
+  }
+}
+
+// The CTA's C(BROWS x N) = in(BROWS x K, bf16, leading dimension ldh(K)) @ W
+// (bf16 (K, N) in device memory), streamed KS rows at a time through the
+// ring, whose first slots prefetch_w16<K, N> has put in flight.  Warp
+// (wm, wn) = (warp / 8, warp % 8) owns rows [32 wm, 32 wm + 32) and columns
+// [wn N/8, (wn + 1) N/8); fragments come from ldmatrix (.trans for W).  With
+// g = lane / 4, q = lane % 4, acc[i][j][e] is C at row 32 wm + 16 i + g +
+// 8 (e / 2), column wn N/8 + 8 j + 2 q + e % 2.  Ends with a barrier.
+template <int K, int N>
+__device__ __forceinline__ void cta_mma16(const uint16_t* in, const uint16_t* __restrict__ W,
+                                          uint16_t* ring, float (&acc)[2][N / 64][4]) {
+  constexpr int KS = K < BKT ? K : BKT, NT = N / 64, T = K / KS;
+  static_assert(K % KS == 0 && KS % 16 == 0 && N % 64 == 0, "bad tiling");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 3, wn = warp & 7;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  // lanes 0-15 address rows 0-15 of the first eight columns, lanes 16-31 the
+  // same rows eight columns on
+  const uint32_t a_addr = smem_u32(in + (wm * 32 + (lane & 15)) * ldh(K) + (lane >> 4) * 8);
+  const uint32_t b_off = ((lane & 15) * ldh(N) + wn * (N / 8) + (lane >> 4) * 8) * 2;
+  for (int c = 0; c < T; ++c) {
+    cp_async_wait<BNSTAGE - 2>();  // slot c has landed (this thread's part)
+    __syncthreads();               // ... everyone's, and slot c - 1 is free
+    const int next = c + BNSTAGE - 1;
+    if (next < T) {
+      stage_w16<N, KS>(W, next * KS, ring + (next % BNSTAGE) * BSLOT);
+    } else {
+      cp_async_commit();
+    }
+    const uint32_t b_addr = smem_u32(ring + (c % BNSTAGE) * BSLOT) + b_off;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], a_addr + (i * 16 * ldh(K) + c * KS + kk) * 2);
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, b_addr + kk * ldh(N) * 2);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][0], a[i], b);
+      } else {
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          // b[0], b[1]: tile 2 jp (k rows 0-7, 8-15); b[2], b[3]: tile 2 jp + 1
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, b_addr + (kk * ldh(N) + 16 * jp) * 2);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][2 * jp], a[i], b0);
+            mma_bf16(acc[i][2 * jp + 1], a[i], b1);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Copy the CTA's bf16 tile [BROWS][ldh(N)] in shared memory to its rows of a
+// [rows][N] buffer in device memory, 16 bytes a thread.
+template <int N>
+__device__ __forceinline__ void copy_tile16(const uint16_t* tile, uint16_t* dst) {
+  for (int e = threadIdx.x; e < BROWS * N / 8; e += BTHREADS) {
+    const int r = e / (N / 8), c = (e % (N / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * N + c) =
+        *reinterpret_cast<const uint4*>(tile + r * ldh(N) + c);
+  }
+}
+
+// Forward layer of the bf16 form: h = tanh(in @ W + b) and, with DROP, the
+// layer's mask (hs: its hashed salts in the mask blocks of global rows below
+// split and from split on); the bf16 masked value goes to out (the next
+// product's operand) and, with gout, to the CTA's rows of gout (the weight
+// gradient's operand).  The
+// backward's factor, (1 - h^2) where kept and 0 where dropped, goes to fact
+// in fragment order (float4 per thread and (i, j)), or, without DROP, into
+// ft.  With head, the dot of the bf16 output with bf16(head) goes to
+// hred[wn][row] (one partial per column eighth).  Between the product and
+// the epilogue the first tiles of the next layer's weights (next_w, (NK,
+// NN)) are requested.  Ends with a barrier, then the copy to gout.
+template <int K, int N, bool DROP, int NK, int NN>
+__device__ __forceinline__ void fwd_layer16(MaskArgs ma, const uint16_t* in,
+                                            const uint16_t* __restrict__ W,
+                                            const float* __restrict__ bias, uint16_t* out,
+                                            uint16_t* gout, uint16_t* ring, uint32_t hs0,
+                                            uint32_t hs1, int split, float* fact,
+                                            const float* __restrict__ head, float* hred,
+                                            float* ft, int row0,
+                                            const uint16_t* __restrict__ next_w) {
+  constexpr int NT = N / 64;
+  float acc[2][NT][4];
+  cta_mma16<K, N>(in, W, ring, acc);
+  prefetch_w16<NK, NN>(next_w, ring);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, wm = warp >> 3, wn = warp & 7;
+  const int g = lane >> 2, col0 = wn * (N / 8) + 2 * (lane & 3);
+  uint32_t rk[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int grow = ma.row_off + row0 + wm * 32 + 16 * i + 8 * hh + g;
+      rk[i][hh] = mask_row_key(grow < split ? hs0 : hs1, ((uint32_t)grow % MASK_BLOCK) * N);
+    }
+  float hp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = col0 + 8 * j;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+    float2 hw = make_float2(0.0f, 0.0f);
+    if (head) {
+      const float2 w = __ldg(reinterpret_cast<const float2*>(head + c));
+      hw = make_float2(operand<true>(w.x), operand<true>(w.y));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float f[4];
+      const float4 th = tanh4(make_float4(acc[i][j][0] + b.x, acc[i][j][1] + b.y,
+                                          acc[i][j][2] + b.x, acc[i][j][3] + b.y));
+      const float tv[4] = {th.x, th.y, th.z, th.w};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wm * 32 + 16 * i + 8 * hh + g;
+        float v0 = tv[2 * hh], v1 = tv[2 * hh + 1];
+        const float f0 = 1.0f - __fmul_rn(v0, v0), f1 = 1.0f - __fmul_rn(v1, v1);
+        if constexpr (DROP) {
+          const bool k0 = wang_rest(rk[i][hh] ^ (uint32_t)c) >= ma.thresh;
+          const bool k1 = wang_rest(rk[i][hh] ^ (uint32_t)(c + 1)) >= ma.thresh;
+          f[2 * hh] = k0 ? f0 : 0.0f;
+          f[2 * hh + 1] = k1 ? f1 : 0.0f;
+          v0 = k0 ? v0 * ma.inv_keep : 0.0f;
+          v1 = k1 ? v1 * ma.inv_keep : 0.0f;
+        } else {
+          ft[(i * NT + j) * 4 + 2 * hh] = f0;
+          ft[(i * NT + j) * 4 + 2 * hh + 1] = f1;
+        }
+        const uint32_t pk = pack_bf16x2(v0, v1);
+        *reinterpret_cast<uint32_t*>(out + r * ldh(N) + c) = pk;
+        if (head) hp[i][hh] = fmaf(bf16_hi(pk), hw.y, fmaf(bf16_lo(pk), hw.x, hp[i][hh]));
+      }
+      if constexpr (DROP) {
+        __stcg(reinterpret_cast<float4*>(fact + ((i * NT + j) * BTHREADS + t) * 4),
+               make_float4(f[0], f[1], f[2], f[3]));
+      }
+    }
+  }
+  if (head) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = hp[i][hh];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if ((lane & 3) == 0) hred[wn * BROWS + wm * 32 + 16 * i + 8 * hh + g] = v;
+      }
+  }
+  __syncthreads();
+  if (gout != nullptr) copy_tile16<N>(out, gout + (size_t)row0 * N);
+}
+
+// Sum v over the warp's 32 rows of its fragment (the thread's four rows, then
+// the eight g's by shuffles): lanes 0-3 hold the sums.
+__device__ __forceinline__ float warp_rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// The column sums of the row slices in cred[WMS][H] into colsum (columns
+// 0..N-1), in slice order; follows a barrier after cred was written.
+template <int N>
+__device__ __forceinline__ void put_colsum(const float* cred, float* colsum) {
+  if (threadIdx.x < N) {
+    float v = cred[threadIdx.x];
+#pragma unroll
+    for (int m = 1; m < WMS; ++m) v += cred[m * H + threadIdx.x];
+    colsum[threadIdx.x] = v;
+  }
+}
+
+// Backward layer of the bf16 form: d = ((in @ WT, plus bf16(rowadd[row]) *
+// bf16(wadd[col]) when given) / (1 - p)) * fact, fact the forward's factor of
+// the layer (0 where dropped); bf16 to out and to the CTA's rows of gout, the
+// float32 column sums to colsum.  The next layer's first weight tiles
+// (next_w, (NK, NN); none for NK = 0) are requested between the product and
+// the epilogue.
+template <int K, int N, int NK, int NN>
+__device__ __forceinline__ void bwd_layer16(MaskArgs ma, const uint16_t* in,
+                                            const uint16_t* __restrict__ WT, uint16_t* out,
+                                            uint16_t* gout, uint16_t* ring, const float* fact,
+                                            const float* rowadd, const float* __restrict__ wadd,
+                                            float* cred, float* colsum, int row0,
+                                            const uint16_t* __restrict__ next_w) {
+  constexpr int NT = N / 64;
+  float acc[2][NT][4];
+  cta_mma16<K, N>(in, WT, ring, acc);
+  if constexpr (NK > 0) prefetch_w16<NK, NN>(next_w, ring);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, wm = warp >> 3, wn = warp & 7;
+  const int g = lane >> 2, col0 = wn * (N / 8) + 2 * (lane & 3);
+  // the thread's factors, all requested before the first is used
+  float4 fv[2 * NT];
+#pragma unroll
+  for (int q = 0; q < 2 * NT; ++q) {
+    fv[q] = __ldcs(reinterpret_cast<const float4*>(fact + (q * BTHREADS + t) * 4));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = col0 + 8 * j;
+    float2 w = make_float2(0.0f, 0.0f);
+    if (rowadd != nullptr) {
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(wadd + c));
+      w = make_float2(operand<true>(wv.x), operand<true>(wv.y));
+    }
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float f[4] = {fv[i * NT + j].x, fv[i * NT + j].y, fv[i * NT + j].z, fv[i * NT + j].w};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wm * 32 + 16 * i + 8 * hh + g;
+        float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+        if (rowadd != nullptr) {
+          const float ra = operand<true>(rowadd[r]);
+          v0 = fmaf(ra, w.x, v0);  // ra w is exact: the sum of two float32 terms
+          v1 = fmaf(ra, w.y, v1);
+        }
+        const float d0 = (v0 * ma.inv_keep) * f[2 * hh], d1 = (v1 * ma.inv_keep) * f[2 * hh + 1];
+        *reinterpret_cast<uint32_t*>(out + r * ldh(N) + c) = pack_bf16x2(d0, d1);
+        s0 += d0;
+        s1 += d1;
+      }
+    }
+    s0 = warp_rows_sum(s0);
+    s1 = warp_rows_sum(s1);
+    if (g == 0) {
+      cred[wm * H + c] = s0;
+      cred[wm * H + c + 1] = s1;
+    }
+  }
+  __syncthreads();
+  put_colsum<N>(cred, colsum);
+  copy_tile16<N>(out, gout + (size_t)row0 * N);
+}
+
+// Kernel 1 of the bf16 form: the forward and the input-gradient backward of
+// BROWS rows, as fwd_bwd_kernel, with bf16 operands in shared memory and in
+// the scratch, one hash per masked element (the backward reads the factors
+// the forward stored), the epilogues on the accumulators in registers, and
+// the bias gradients and the width-1 heads' weight gradients summed over the
+// CTA's rows (colsum).  Rows past n compute zeros from x = 0 and their deltas
+// are exactly 0, so the scratch's rows up to the CTA's end are written whole.
+__global__ void __launch_bounds__(BTHREADS, 1) fwd_bwd_bf16_kernel(Step st, Bf16Bufs b) {
+  extern __shared__ __align__(16) uint16_t sm16[];
+  uint16_t* act0 = sm16;                  // [BROWS][ldh(width)]
+  uint16_t* act1 = act0 + BACT;           // [BROWS][ldh(width)]
+  uint16_t* t2s = act1 + BACT;            // [BROWS][ldh(V1)]
+  uint16_t* xs = t2s + BROWS * ldh(V1);   // [BROWS][ldh(K0)]
+  uint16_t* ring = xs + BROWS * ldh(K0);  // BNSTAGE x [BKT][ldh(width)]
+  float* hred = reinterpret_cast<float*>(ring + BNSTAGE * BSLOT);  // [2][8][BROWS]
+  float* cred = hred + 2 * 8 * BROWS;                              // [WMS][H]
+  float* rowv = cred + WMS * H;  // [0, BROWS): dpred, [BROWS, 2 BROWS): dq3
+
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * BROWS;
+  const int n = st.n;
+  const float* p = st.p;
+  const Bf16Weights& w = b.w;
+  const Scratch16& s = b.s;
+  float* fact = s.fact + (size_t)blockIdx.x * FACT_CTA;
+  float* colsum = s.colsum + (size_t)blockIdx.x * NCS;
+  prefetch_w16<K0, H>(w.w1, ring);
+  for (int e = t; e < BROWS * K0; e += BTHREADS) {
+    const int r = e / K0, d = e % K0;
+    const uint16_t v = to_bf16(d < D_IN && row0 + r < n ? st.x[(size_t)(row0 + r) * D_IN + d] : 0.0f);
+    xs[r * ldh(K0) + d] = v;
+    s.x16[(size_t)row0 * K0 + e] = v;
+  }
+
+  // the salts of the masked layers (0..2 the trunk, 3 the first variance
+  // layer) in the mask blocks of this CTA's rows
+  const uint32_t blk = (uint32_t)(row0 + st.row_off) / MASK_BLOCK;
+  const uint32_t base = st.seed * 2654435761u + (uint32_t)st.t * 40503u;
+  const int split = (int)((blk + 1u) * MASK_BLOCK);
+  uint32_t hs[4][2];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    hs[l][0] = hashed_salt(base + blk * 7919u + (uint32_t)l);
+    hs[l][1] = hashed_salt(base + (blk + 1u) * 7919u + (uint32_t)l);
+  }
+  float ft[2 * 1 * 4];  // (1 - t2^2) of the thread's fragment of the V2 layer
+
+  // ---- forward ----
+  const MaskArgs ma{st.row_off, st.thresh, st.inv_keep};
+  fwd_layer16<K0, H, true, H, H>(ma, xs, w.w1, p + OFF_W1 + D_IN * H, act0, s.h1d, ring,
+                                 hs[0][0], hs[0][1], split, fact, nullptr, nullptr, nullptr,
+                                 row0, w.w2);
+  fwd_layer16<H, H, true, H, H>(ma, act0, w.w2, p + OFF_W2 + H * H, act1, s.h2d, ring, hs[1][0],
+                                hs[1][1], split, fact + BROWS * H, nullptr, nullptr, nullptr,
+                                row0, w.w3);
+  fwd_layer16<H, H, true, H, V0>(ma, act1, w.w3, p + OFF_W3 + H * H, act0, s.h3d, ring,
+                                 hs[2][0], hs[2][1], split, fact + 2 * BROWS * H, p + OFF_WM,
+                                 hred, nullptr, row0, w.v1);
+  fwd_layer16<H, V0, true, V0, V1>(ma, act0, w.v1, p + OFF_V1 + H * V0, act1, s.t1d, ring,
+                                   hs[3][0], hs[3][1], split, fact + 3 * BROWS * H, nullptr,
+                                   nullptr, nullptr, row0, w.v2);
+  fwd_layer16<V0, V1, false, V1, V0>(ma, act1, w.v2, p + OFF_V2 + V0 * V1, t2s, nullptr, ring,
+                                     0u, 0u, split, nullptr, p + OFF_V3, hred + 8 * BROWS, ft,
+                                     row0, w.v2t);
+
+  // ---- loss and the head's deltas, one thread per row ----
+  if (t < BROWS) {
+    const int row = row0 + t;
+    const bool valid = row < n;
+    float pred = 0.0f, q3 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      pred += hred[k * BROWS + t];
+      q3 += hred[(8 + k) * BROWS + t];
+    }
+    pred += __ldg(p + OFF_WM + H);
+    q3 += __ldg(p + OFF_V3 + V1);
+    const float yv = valid ? st.y[row] : 0.0f;
+    const float sp = fmaxf(q3, 0.0f) + log1pf(expf(-fabsf(q3)));  // jax.nn.softplus
+    const float lv = logf(sp + 1e-6f);
+    const float r = yv - pred;
+    const float e = expf(-lv);
+    const float loss = 0.5f * e * r * r + 0.5f * lv + 0.01f * fabsf(lv);
+    const float sgn = lv > 0.0f ? 1.0f : (lv < 0.0f ? -1.0f : 0.0f);
+    const float dpred = (-e * r) * st.inv_n;
+    const float dlv = (0.5f * (1.0f - e * r * r) + 0.01f * sgn) * st.inv_n;
+    const float sig = 1.0f / (1.0f + expf(-q3));
+    const float dq3 = dlv * sig / (sp + 1e-6f);
+    rowv[t] = valid ? dpred : 0.0f;
+    rowv[BROWS + t] = valid ? dq3 : 0.0f;
+    if (valid) s.lossrow[row] = loss;
+  }
+  __syncthreads();
+
+  // ---- the heads' weight and bias gradients over the CTA's rows ----
+  for (int u = t; u < H + V1 + 2; u += BTHREADS) {
+    float a = 0.0f;
+    if (u < H) {
+      for (int r = 0; r < BROWS; ++r) a = fmaf(bf16_val(act0[r * ldh(H) + u]), operand<true>(rowv[r]), a);
+      colsum[CS_WM + u] = a;
+    } else if (u < H + V1) {
+      for (int r = 0; r < BROWS; ++r) {
+        a = fmaf(bf16_val(t2s[r * ldh(V1) + u - H]), operand<true>(rowv[BROWS + r]), a);
+      }
+      colsum[CS_V3 + u - H] = a;
+    } else {
+      const float* v = rowv + (u - H - V1) * BROWS;
+      for (int r = 0; r < BROWS; ++r) a += v[r];
+      colsum[u == H + V1 ? CS_BM : CS_C3] = a;
+    }
+  }
+
+  // ---- backward ----
+  // dq2 = (bf16(dq3) bf16(V3)^T) * (1 - t2^2), on the V2 layer's fragment
+  {
+    const int lane = t & 31, warp = t >> 5, wm = warp >> 3, wn = warp & 7, g = lane >> 2;
+    const int c = wn * (V1 / 8) + 2 * (lane & 3);
+    const float w0 = operand<true>(__ldg(p + OFF_V3 + c));
+    const float w1 = operand<true>(__ldg(p + OFF_V3 + c + 1));
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wm * 32 + 16 * i + 8 * hh + g;
+        const float dq = operand<true>(rowv[BROWS + r]);
+        const float d0 = (dq * w0) * ft[i * 4 + 2 * hh], d1 = (dq * w1) * ft[i * 4 + 2 * hh + 1];
+        *reinterpret_cast<uint32_t*>(act1 + r * ldh(V1) + c) = pack_bf16x2(d0, d1);
+        s0 += d0;
+        s1 += d1;
+      }
+    s0 = warp_rows_sum(s0);
+    s1 = warp_rows_sum(s1);
+    if (g == 0) {
+      cred[wm * H + c] = s0;
+      cred[wm * H + c + 1] = s1;
+    }
+  }
+  __syncthreads();
+  put_colsum<V1>(cred, colsum + CS_C2);
+  copy_tile16<V1>(act1, s.dq2 + (size_t)row0 * V1);
+  // (cta_mma16's first barrier orders these reads before the next epilogue's writes)
+  // dq1 = mask3(dq2 V2^T) * (1 - t1^2)
+  bwd_layer16<V1, V0, V0, H>(ma, act1, w.v2t, act0, s.dq1, ring, fact + 3 * BROWS * H, nullptr,
+                             nullptr, cred, colsum + CS_C1, row0, w.v1t);
+  // da3 = mask2(dpred Wm^T + dq1 V1^T) * (1 - h3^2)
+  bwd_layer16<V0, H, H, H>(ma, act0, w.v1t, act1, s.da3, ring, fact + 2 * BROWS * H, rowv,
+                           p + OFF_WM, cred, colsum + CS_B3, row0, w.w3t);
+  // da2 = mask1(da3 W3^T) * (1 - h2^2)
+  bwd_layer16<H, H, H, H>(ma, act1, w.w3t, act0, s.da2, ring, fact + BROWS * H, nullptr, nullptr,
+                          cred, colsum + CS_B2, row0, w.w2t);
+  // da1 = mask0(da2 W2^T) * (1 - h1^2)
+  bwd_layer16<H, H, 0, 0>(ma, act0, w.w2t, act1, s.da1, ring, fact, nullptr, nullptr, cred,
+                          colsum + CS_B1, row0, nullptr);
+}
+
+// One tensor-core gradient of wgrad_bf16_kernel: G (k, j) = A^T D over the
+// rows, A bf16 [np][lda] (its first k columns), D bf16 [np][j].
+struct GradTensor16 {
+  const uint16_t* a;
+  const uint16_t* d;
+  int lda, k, j, off;
+};
+
+struct GradPass16 {
+  GradTensor16 g[NT16];
+  int unit0[NT16 + 1];  // first tile of each tensor; unit0[NT16]: the column-sum unit
+  float* part;          // [SPLIT][N_PARAM]
+  const float* colsum;  // [ncta][NCS]
+  int ncta, np, seg_rows;  // seg_rows: a multiple of SEG_ALIGN
+};
+
+// Where column sum e of a CTA (CS_*) lies in the flat parameter layout.
+__device__ __forceinline__ int colsum_dst(int e) {
+  if (e < CS_B2) return OFF_W1 + D_IN * H + e;
+  if (e < CS_B3) return OFF_W2 + H * H + (e - CS_B2);
+  if (e < CS_WM) return OFF_W3 + H * H + (e - CS_B3);
+  if (e < CS_C1) return OFF_WM + (e - CS_WM);
+  if (e < CS_C2) return OFF_V1 + H * V0 + (e - CS_C1);
+  if (e < CS_V3) return OFF_V2 + V0 * V1 + (e - CS_C2);
+  if (e < CS_BM) return OFF_V3 + (e - CS_V3);
+  return e == CS_BM ? OFF_WM + H : OFF_V3 + V1;
+}
+
+// Kernel 2 of the bf16 form.  A CTA owns a WTK x WTJ tile (k0, j0) of one
+// tensor-core gradient and row segment blockIdx.y, and walks the segment's
+// rows in order, WGR-row chunks of A and D (bf16, as fwd_bwd_bf16_kernel
+// stored them) through a cp.async ring; both operands reach the tensor cores
+// through ldmatrix.trans (A as the transposed mma A operand, the rows as the
+// mma's k).  Warp w owns rows k0 + 32 (w / 4) and columns j0 + 32 (w % 4) of
+// the tile.  The segment's column-sum unit (blockIdx.x == unit0[NT16]) adds
+// the column sums of the fwd_bwd CTAs in the segment, in CTA order: the
+// biases and the width-1 heads.  No float atomics.
+__global__ void __launch_bounds__(WTHREADS, 1) wgrad_bf16_kernel(GradPass16 gp) {
+  extern __shared__ __align__(16) uint16_t wsm[];  // WGSTAGE x (A chunk, D chunk)
+  const int t = threadIdx.x;
+  const int u = blockIdx.x, seg = blockIdx.y;
+  const int rb = seg * gp.seg_rows;
+  float* out = gp.part + (size_t)seg * N_PARAM;
+  if (u == gp.unit0[NT16]) {
+    constexpr int PER = (NCS + WTHREADS - 1) / WTHREADS;
+    const int c0 = min(gp.ncta, rb / BROWS), c1 = min(gp.ncta, (rb + gp.seg_rows) / BROWS);
+    float sum[PER];
+#pragma unroll
+    for (int m = 0; m < PER; ++m) sum[m] = 0.0f;
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c) {
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int e = t + m * WTHREADS;
+        if (e < NCS) sum[m] += gp.colsum[(size_t)c * NCS + e];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      if (t + m * WTHREADS < NCS) out[colsum_dst(t + m * WTHREADS)] = sum[m];
+    }
+    return;
+  }
+  int i = 0;
+  while (u >= gp.unit0[i + 1]) ++i;
+  const GradTensor16 g = gp.g[i];
+  const int jtiles = (g.j + WTJ - 1) / WTJ;
+  const int k0 = ((u - gp.unit0[i]) / jtiles) * WTK;
+  const int j0 = ((u - gp.unit0[i]) % jtiles) * WTJ;
+  const int re = min(gp.np, rb + gp.seg_rows);
+  const int chunks = rb < re ? (re - rb) / WGR : 0;
+  const int lane = t & 31, warp = (t >> 5) & 7, grp = t >> 8;
+  const int wk = (warp >> 2) * (WTK / 2), wj = (warp & 3) * 32;
+  // the warp's 16-row mma tiles inside the tensor: the first nm of WMT
+  // (warp-uniform)
+  const int nm = j0 + wj < g.j ? max(0, min(WMT, (g.k - k0 - wk + 15) / 16)) : 0;
+
+  float acc[WMT][4][4];
+#pragma unroll
+  for (int a = 0; a < WMT; ++a)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][jn][e] = 0.0f;
+
+  // Stage chunk ch of the segment into its ring slot as one committed group:
+  // A's columns k0.. inside its width, D's columns j0.. inside j.  Past the
+  // last chunk the group is empty.
+  auto stage = [&](int ch) {
+    if (ch < chunks) {
+      uint16_t* as = wsm + (ch % WGSTAGE) * WSLOT;
+      uint16_t* ds = as + WGR * WLDA;
+      const size_t r0 = (size_t)rb + (size_t)ch * WGR;
+      for (int e = t; e < WGR * (WTK + WTJ) / 8; e += WTHREADS) {
+        if (e < WGR * WTK / 8) {
+          const int r = e / (WTK / 8), c = (e % (WTK / 8)) * 8;
+          if (k0 + c < g.lda) cp_async16(as + r * WLDA + c, g.a + (r0 + r) * g.lda + k0 + c);
+        } else {
+          const int e2 = e - WGR * WTK / 8, r = e2 / (WTJ / 8), c = (e2 % (WTJ / 8)) * 8;
+          if (j0 + c < g.j) cp_async16(ds + r * WLDD + c, g.d + (r0 + r) * g.j + j0 + c);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int ch = 0; ch < WGSTAGE - 1; ++ch) stage(ch);
+  // ldmatrix lanes, both .trans: A's 8x8 matrices (k 0-7 | 8-15) x (data rows
+  // 0-7 | 8-15) in the order of the mma's A fragment, D's (data rows 0-7 |
+  // 8-15) x (j 0-7 | 8-15) in the order of two B fragments
+  const int a_r = (lane & 7) + 8 * ((lane >> 4) & 1), a_c = wk + 8 * ((lane >> 3) & 1);
+  const int b_r = lane & 15, b_c = wj + 8 * (lane >> 4);
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<WGSTAGE - 2>();  // chunk ch has landed (this thread's part)
+    __syncthreads();               // ... everyone's, and chunk ch - 1 is done with
+    stage(ch + WGSTAGE - 1);
+    if (nm > 0) {
+      const uint16_t* as = wsm + (ch % WGSTAGE) * WSLOT;
+      const uint16_t* ds = as + WGR * WLDA;
+#pragma unroll
+      for (int kk = 16 * grp; kk < WGR; kk += 16 * WGROUPS) {
+        uint32_t a[WMT][4];
+#pragma unroll
+        for (int i = 0; i < WMT; ++i) {
+          if (i < nm) ldmatrix_x4_trans(a[i], smem_u32(as + (kk + a_r) * WLDA + a_c + 16 * i));
+        }
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t bq[4];
+          ldmatrix_x4_trans(bq, smem_u32(ds + (kk + b_r) * WLDD + b_c + 16 * jp));
+          const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+#pragma unroll
+          for (int i = 0; i < WMT; ++i) {
+            if (i < nm) {
+              mma_bf16(acc[i][2 * jp], a[i], b0);
+              mma_bf16(acc[i][2 * jp + 1], a[i], b1);
+            }
+          }
+        }
+      }
+    }
+  }
+  // the groups' sums, added in group order through the ring
+  if (WGROUPS > 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the last chunk is done with
+    float* red = reinterpret_cast<float*>(wsm);
+    for (int gr = 1; gr < WGROUPS; ++gr) {
+      if (grp == gr && nm > 0) {
+#pragma unroll
+        for (int a = 0; a < WMT; ++a)
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn)
+            *reinterpret_cast<float4*>(red + (((gr - 1) * WMT + a) * 4 + jn) * 1024 + (t & 255) * 4) =
+                make_float4(acc[a][jn][0], acc[a][jn][1], acc[a][jn][2], acc[a][jn][3]);
+      }
+    }
+    __syncthreads();
+    if (grp != 0) return;
+    for (int gr = 1; gr < WGROUPS; ++gr) {
+      if (nm > 0) {
+#pragma unroll
+        for (int a = 0; a < WMT; ++a)
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                red + (((gr - 1) * WMT + a) * 4 + jn) * 1024 + t * 4);
+            acc[a][jn][0] += v.x;
+            acc[a][jn][1] += v.y;
+            acc[a][jn][2] += v.z;
+            acc[a][jn][3] += v.w;
+          }
+      }
+    }
+  }
+  if (nm > 0) {
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int a = 0; a < WMT; ++a)
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int k = k0 + wk + 16 * a + gq + 8 * hh, j = j0 + wj + 8 * jn + 2 * q;
+          if (k < g.k && j < g.j) {
+            *reinterpret_cast<float2*>(out + g.off + k * g.j + j) =
+                make_float2(acc[a][jn][2 * hh], acc[a][jn][2 * hh + 1]);
+          }
+        }
+  }
+}
+
 struct Workspace {
   float *grad, *part;
   Transposed tr;
   Scratch s;
+  Bf16Bufs b;
+  size_t scratch16_floats;  // the bf16 form's per-step scratch, x16 .. lossrow
 };
 
 // Carve the workspace into its buffers; returns its length in floats (with
@@ -1009,6 +1853,7 @@ size_t carve(float* work, int n, Workspace* w) {
   w->tr.w3t = take(H * H);
   w->tr.v1t = take(V0 * H);
   w->tr.v2t = take(V1 * V0);
+  const size_t common = off;
   w->s.h1d = take(nn * H);
   w->s.h2d = take(nn * H);
   w->s.h3d = take(nn * H);
@@ -1022,24 +1867,53 @@ size_t carve(float* work, int n, Workspace* w) {
   w->s.dpred = take(nn);
   w->s.dq3 = take(nn);
   w->s.lossrow = take(nn);
-  return off;
+  // the bf16 form's buffers share the rest of the workspace with the 3xTF32
+  // form's scratch
+  const size_t f32_end = off;
+  off = common;
+  auto take16 = [&](size_t halves) { return reinterpret_cast<uint16_t*>(take((halves + 1) / 2)); };
+  const size_t ncta = (nn + BROWS - 1) / BROWS, np = ncta * BROWS;
+  Bf16Weights& bw = w->b.w;
+  bw.w1 = take16(K0 * H);
+  bw.w2 = take16(H * H);
+  bw.w3 = take16(H * H);
+  bw.v1 = take16(H * V0);
+  bw.v2 = take16(V0 * V1);
+  bw.w2t = take16(H * H);
+  bw.w3t = take16(H * H);
+  bw.v1t = take16(V0 * H);
+  bw.v2t = take16(V1 * V0);
+  Scratch16& bs = w->b.s;
+  const size_t scratch16 = off;
+  bs.x16 = take16(np * K0);
+  bs.h1d = take16(np * H);
+  bs.h2d = take16(np * H);
+  bs.h3d = take16(np * H);
+  bs.t1d = take16(np * V0);
+  bs.da1 = take16(np * H);
+  bs.da2 = take16(np * H);
+  bs.da3 = take16(np * H);
+  bs.dq1 = take16(np * V0);
+  bs.dq2 = take16(np * V1);
+  bs.fact = take(ncta * FACT_CTA);
+  bs.colsum = take(ncta * NCS);
+  bs.lossrow = take(nn);
+  w->scratch16_floats = off - scratch16;
+  return off > f32_end ? off : f32_end;
 }
 
 // The kernels' arguments for n rows of x and y: the workspace carved, the
-// weight-gradient pass and the step (row_off 0, t 0); returns the first error
-// of raising the kernels' shared-memory limits (both forms).
+// weight-gradient passes of both forms and the step (row_off 0, t 0); returns
+// the first error of raising the kernels' shared-memory limits (both forms).
 int prepare(const float* x, const float* y, int n, const float* params, float* work,
             uint32_t seed, uint32_t thresh, float inv_keep, float inv_n, Workspace* w,
-            GradPass* gp, Step* st) {
-  const void* fwd[2] = {(const void*)fwd_bwd_kernel<false>, (const void*)fwd_bwd_kernel<true>};
-  const void* wg[2] = {(const void*)wgrad_kernel<false>, (const void*)wgrad_kernel<true>};
-  for (int f = 0; f < 2; ++f) {
-    cudaError_t err = cudaFuncSetAttribute(fwd[f], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)SMEM_BYTES);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(wg[f], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)GSMEM_BYTES);
-    }
+            GradPass* gp, GradPass16* gb, Step* st) {
+  const void* kernels[4] = {(const void*)fwd_bwd_kernel<false>, (const void*)wgrad_kernel<false>,
+                            (const void*)fwd_bwd_bf16_kernel, (const void*)wgrad_bf16_kernel};
+  const size_t bytes[4] = {SMEM_BYTES, GSMEM_BYTES, BSMEM_BYTES, WSMEM_BYTES};
+  for (int f = 0; f < 4; ++f) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernels[f], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes[f]);
     if (err != cudaSuccess) return (int)err;
   }
   carve(work, n, w);
@@ -1059,6 +1933,24 @@ int prepare(const float* x, const float* y, int n, const float* params, float* w
   gp->n = n;
   gp->seg_rows = ((n + SPLIT - 1) / SPLIT + GR - 1) / GR * GR;
 
+  const Scratch16& bs = w->b.s;
+  const uint16_t* a16[NT16] = {bs.x16, bs.h1d, bs.h2d, bs.h3d, bs.t1d};
+  const uint16_t* d16[NT16] = {bs.da1, bs.da2, bs.da3, bs.dq1, bs.dq2};
+  const int lda16[NT16] = {K0, H, H, H, V0};
+  const int k16[NT16] = {D_IN, H, H, H, V0};
+  const int j16[NT16] = {H, H, H, V0, V1};
+  const int off16[NT16] = {OFF_W1, OFF_W2, OFF_W3, OFF_V1, OFF_V2};
+  gb->unit0[0] = 0;
+  for (int i = 0; i < NT16; ++i) {
+    gb->g[i] = GradTensor16{a16[i], d16[i], lda16[i], k16[i], j16[i], off16[i]};
+    gb->unit0[i + 1] = gb->unit0[i] + ((k16[i] + WTK - 1) / WTK) * ((j16[i] + WTJ - 1) / WTJ);
+  }
+  gb->part = w->part;
+  gb->colsum = bs.colsum;
+  gb->ncta = (n + BROWS - 1) / BROWS;
+  gb->np = gb->ncta * BROWS;
+  gb->seg_rows = ((n + SPLIT - 1) / SPLIT + SEG_ALIGN - 1) / SEG_ALIGN * SEG_ALIGN;
+
   st->x = x;
   st->y = y;
   st->n = n;
@@ -1077,17 +1969,21 @@ int prepare(const float* x, const float* y, int n, const float* params, float* w
   return 0;
 }
 
-// Kernels 1 and 2 of a step, in the bf16 form when bf16 is set (else 3xTF32).
-void launch_grad_pass(bool bf16, const Step& st, const GradPass& gp, cudaStream_t stream) {
+// Kernels 1 and 2 of a step: in the bf16 form when bf16 is set, the bf16
+// weight copies first, else 3xTF32.  Returns the per-row losses they write.
+const float* launch_grad_pass(bool bf16, const Step& st, const GradPass& gp,
+                              const GradPass16& gb, const Workspace& w, cudaStream_t stream) {
+  if (bf16) {
+    bf16_weights_kernel<<<CAST_BLOCKS, THREADS, 0, stream>>>(st.p, w.b.w);
+    fwd_bwd_bf16_kernel<<<gb.ncta, BTHREADS, BSMEM_BYTES, stream>>>(st, w.b);
+    wgrad_bf16_kernel<<<dim3(gb.unit0[NT16] + 1, SPLIT), WTHREADS, WSMEM_BYTES, stream>>>(gb);
+    return w.b.s.lossrow;
+  }
   const int row_blocks = (st.n + ROWS - 1) / ROWS;
   const dim3 wgrid(gp.unit0[NT], SPLIT);
-  if (bf16) {
-    fwd_bwd_kernel<true><<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
-    wgrad_kernel<true><<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
-  } else {
-    fwd_bwd_kernel<false><<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
-    wgrad_kernel<false><<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
-  }
+  fwd_bwd_kernel<false><<<row_blocks, THREADS, SMEM_BYTES, stream>>>(st);
+  wgrad_kernel<false><<<wgrid, THREADS, GSMEM_BYTES, stream>>>(gp);
+  return w.s.lossrow;
 }
 
 }  // namespace
@@ -1104,6 +2000,14 @@ extern "C" void pinnfc_train_dnn_layout(int* out) {
 extern "C" long long pinnfc_train_dnn_workspace_floats(int n) {
   Workspace w;
   return (long long)carve(nullptr, n, &w);
+}
+
+// Bytes of the bf16 form's per-step scratch for n rows as carve lays it out:
+// the buffers that fwd_bwd_bf16_kernel writes every step.
+extern "C" long long pinnfc_train_dnn_bf16_scratch_bytes(int n) {
+  Workspace w;
+  carve(nullptr, n, &w);
+  return (long long)(w.scratch16_floats * sizeof(float));
 }
 
 // Run steps t0 .. t0 + n_iter - 1 of a stage on `stream`; returns the first
@@ -1128,8 +2032,9 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Workspace w;
   GradPass gp;
+  GradPass16 gb;
   Step st;
-  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &st);
+  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &gb, &st);
   if (status != 0) return status;
   int* flags = ints;
   int* counts = ints + n_iter;
@@ -1138,11 +2043,11 @@ extern "C" int pinnfc_train_dnn(const float* x, const float* y, int n, float* pa
   cudaError_t err = cudaMemsetAsync(w.part, 0, sizeof(float) * (size_t)SPLIT * N_PARAM, stream);
   if (err != cudaSuccess) return (int)err;
   const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
-  transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
+  if (!bf16) transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
   for (int t = 0; t < n_iter; ++t) {
     st.t = t0 + t;  // the step inside the stage: the mask salt
-    launch_grad_pass(bf16 != 0, st, gp, stream);
-    finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, w.grad, w.s.lossrow, n, inv_n,
+    const float* lossrow = launch_grad_pass(bf16 != 0, st, gp, gb, w, stream);
+    finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, w.grad, lossrow, n, inv_n,
                                                           losses, flags, t);
     adam_kernel<<<pblocks, THREADS, 0, stream>>>(params, m, v, w.grad, w.tr, flags, counts, t,
                                                  lr, lr_step, lr_gamma, skip);
@@ -1172,8 +2077,9 @@ extern "C" int pinnfc_train_dnn_grad(const float* x, const float* y, int n, int 
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Workspace w;
   GradPass gp;
+  GradPass16 gb;
   Step st;
-  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &st);
+  int status = prepare(x, y, n, params, work, seed, thresh, inv_keep, inv_n, &w, &gp, &gb, &st);
   if (status != 0) return status;
   st.t = t;
   st.row_off = row_off;
@@ -1181,10 +2087,10 @@ extern "C" int pinnfc_train_dnn_grad(const float* x, const float* y, int n, int 
   if (err == cudaSuccess) err = cudaMemsetAsync(flag, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   const int pblocks = (N_PARAM + THREADS - 1) / THREADS;
-  transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
-  launch_grad_pass(bf16 != 0, st, gp, stream);
-  finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, grad, w.s.lossrow, n, inv_n,
-                                                        loss, flag, 0);
+  if (!bf16) transpose_kernel<<<pblocks, THREADS, 0, stream>>>(params, w.tr);
+  const float* lossrow = launch_grad_pass(bf16 != 0, st, gp, gb, w, stream);
+  finalize_kernel<<<pblocks + 1, THREADS, 0, stream>>>(w.part, grad, lossrow, n, inv_n, loss,
+                                                        flag, 0);
   return (int)cudaGetLastError();
 }
 

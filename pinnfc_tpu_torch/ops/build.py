@@ -121,6 +121,39 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def edited_source(name: str, edits) -> str:
+    """The text of ``csrc/<name>`` with each (old, new) of ``edits`` applied;
+    raises if an old text is no longer there."""
+    src = (CSRC / name).read_text()
+    for old, new in edits:
+        if old not in src:
+            raise ValueError(f"csrc/{name} no longer contains {old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def compile_variants(texts: Dict[str, str], out_dir: Path) -> Dict[str, tuple]:
+    """Compile each source text of ``texts`` (all nvcc processes at once) into
+    its own shared library under ``out_dir``: name -> (the loaded library,
+    nvcc's log).  For measuring copies of a kernel with a part removed."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-Xptxas", "-v", "-shared", str(src), "-o",
+               str(out_dir / f"{name}.so")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    out = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        out[name] = (ctypes.CDLL(str(out_dir / f"{name}.so")), log)
+    return out
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first use) with its C signatures."""
     if _Library.handle is not None:
@@ -137,6 +170,7 @@ SIGNATURES = {
     "pinnfc_mc_dropout": (MC_DROPOUT_ARGTYPES, _I),
     "pinnfc_train_dnn_layout": ([ctypes.POINTER(_I)], None),
     "pinnfc_train_dnn_workspace_floats": ([_I], ctypes.c_longlong),
+    "pinnfc_train_dnn_bf16_scratch_bytes": ([_I], ctypes.c_longlong),
     # x, y, n, params, m, v, work, ints, losses, seed, t0, n_iter, lr, lr_step,
     # lr_gamma, thresh, inv_keep, inv_n, skip, bf16, stream
     "pinnfc_train_dnn": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _U, _I, _I, _F, _I, _F, _U, _F, _F,

@@ -51,34 +51,17 @@ ABLATIONS: Dict[str, List[Tuple[str, str]]] = {
 
 
 def variant_source(edits: List[Tuple[str, str]]) -> str:
-    src = (build.CSRC / "mc_dropout.cu").read_text()
-    for old, new in edits:
-        if old not in src:
-            raise ValueError(f"csrc/mc_dropout.cu no longer contains {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
+    return build.edited_source("mc_dropout.cu", edits)
 
 
 def build_variants(variants: Dict[str, List[Tuple[str, str]]]) -> Dict[str, ctypes.CDLL]:
     """Compile every variant (all nvcc processes at once) and load each."""
-    out_dir = build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in variants.items():
-        src = out_dir / f"{name}.cu"
-        src.write_text(variant_source(edits))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-Xptxas", "-v", "-shared",
-               str(src), "-o", str(out_dir / f"{name}.so")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
+    built = build.compile_variants({name: variant_source(edits) for name, edits in variants.items()},
+                                   build.BUILD_DIR / "ablation")
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+    for name, (lib, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "mc_sample_kernel" in ln or "spill" in ln]
         print(f"[build] {name}: {' | '.join(regs[-3:])}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
         lib.pinnfc_mc_dropout.argtypes = build.MC_DROPOUT_ARGTYPES
         lib.pinnfc_mc_dropout.restype = ctypes.c_int
         libs[name] = lib

@@ -217,12 +217,15 @@ def _rel_gap(got, want) -> float:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1000, 37])
+@pytest.mark.parametrize("n", [1000, 37, 511, 513])
 def test_train_kernel_bf16_form_matches_its_bf16_plain_version(cuda_device, n):
     """precision='default' runs: the bf16 form's one-step gradient within 1e-3
     of max|g| of the plain version with bf16 products (the worst tensor), the
-    float32 plain gradient outside that band; a 10-step stage launches the
-    kernel once, repeats bitwise, and keeps loss[0] within rtol 1e-3."""
+    float32 plain gradient outside that band, on row counts ragged against its
+    64-row CTAs and the 512-row mask blocks, and on a row shard at a global
+    row offset that is not a multiple of 64 (its rows' masks and its terms of
+    the whole mean); a 10-step stage launches the kernel once, repeats
+    bitwise, and keeps loss[0] within rtol 1e-3."""
     mlp, x, y = _train_inputs(n, cuda_device)
     before = dict(build.LAUNCHES)
     _, k_g = td.step_grads(mlp, x, y, 3, 0, precision="default")
@@ -233,12 +236,44 @@ def test_train_kernel_bf16_form_matches_its_bf16_plain_version(cuda_device, n):
     _, p_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n), torch.bfloat16)
     _, f_g = td.loss_and_grads(ws, x, y, keep, inv_keep, td._inv_n(n))
     assert _rel_gap(k_g, p_g) <= 1e-3 < _rel_gap(f_g, p_g)
+    lo = n // 3  # the shard's first global row
+    lib = build.load()
+    ks = td._to_kernel(lib, mlp, None)
+    work, grad, loss, flag = td._grad_buffers(lib, x[lo:], ks.params.numel())
+    td._launch_grad(lib, x[lo:].contiguous(), y[lo:].contiguous(), lo, ks.params, work, grad,
+                    loss, flag, 3, 5, thresh, inv_keep, td._inv_n(n), "default")
+    s_g = td.unflat_weights(td._flat_layout(grad, ks.ws, ks.offsets), mlp)
+    s_keep = td.keep_masks(n - lo, mlp.dropout_widths(), 3, 5, thresh, cuda_device, lo)
+    s_loss, sp_g = td.loss_and_grads(ws, x[lo:], y[lo:], s_keep, inv_keep, td._inv_n(n),
+                                     torch.bfloat16)
+    assert _rel_gap(s_g, sp_g) <= 1e-3 and int(flag[0]) == 0
+    torch.testing.assert_close(loss[0], s_loss, rtol=1e-3, atol=0)
     res = train_dnn_stage(mlp, x, y, 3, 10, precision="default")
     assert build.LAUNCHES["train_dnn"] == before["train_dnn"] + 1
     again = td.train_dnn(mlp, x, y, 3, 10, precision="default")
     assert torch.equal(again.losses, res.losses)
     plain = td.train_dnn_stage_plain(mlp, x, y, 3, 10, product_dtype=torch.bfloat16)
     torch.testing.assert_close(res.losses[0], plain.losses[0], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 37])
+def test_train_kernel_bf16_form_is_bitwise_repeatable_and_chunked(cuda_device, n):
+    """The bf16 form has no float atomics: two 20-step stages are bitwise
+    equal, and a stage run as 200 steps, then a chunk from step 200 with the
+    carried Adam state, is bitwise the whole 210-step stage."""
+    mlp, x, y = _train_inputs(n, cuda_device)
+    hp = dict(lr_step=50, lr_gamma=0.5, precision="default")
+    a = td.train_dnn(mlp, x, y, 3, 20, **hp)
+    b = td.train_dnn(mlp, x, y, 3, 20, **hp)
+    assert torch.equal(a.losses, b.losses)
+    assert torch.equal(td.flat_weights(a.mlp), td.flat_weights(b.mlp))
+    whole = td.train_dnn(mlp, x, y, 3, 210, **hp)
+    first = td.train_dnn(mlp, x, y, 3, 200, **hp)
+    rest = td.train_dnn(first.mlp, x, y, 3, 10, t0=200, state=first.state, **hp)
+    assert torch.equal(rest.losses, whole.losses[200:])
+    assert torch.equal(td.flat_weights(rest.mlp), td.flat_weights(whole.mlp))
+    assert int(rest.state.count) == int(whole.state.count) == 210
 
 
 @pytest.mark.cuda
