@@ -73,7 +73,10 @@ def all_residuals_kernel(
     """x_norm (N, 8) and u_norm (N, 1) or (N,), float32 → ResidualBundle of (N, 1)."""
     scalars = kernel_scalars(params, scaler_x, scaler_y)
     u_flat = check_inputs(x_norm, u_norm, scalars)
-    out = residuals_op(x_norm, u_flat, *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    # the operator's first call imports torch._dynamo (custom ops run under
+    # torch._disable_dynamo): seconds, timed into ONCE_S
+    out = build.once("dispatch.residuals_op", residuals_op, x_norm, u_flat,
+                     *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
     return ResidualBundle(*out.view(8, x_norm.shape[0], 1).unbind(0))
 
 

@@ -65,6 +65,7 @@ from pinnfc_tpu_torch.ops import build
 from pinnfc_tpu_torch.ops.mc_dropout import _GOLDEN, _U32, dropout_constants, wang_hash
 from pinnfc_tpu_torch.training.adam import (
     AdamState, adam_init, adam_step, all_finite, keep_if_nonfinite)
+from pinnfc_tpu_torch.utils.observability import span
 
 MASK_BLOCK = 512  # rows per mask block: part of the random stream's contract
 REG_WEIGHT = 0.01  # |logvar| regularizer of the loss (01:916-927)
@@ -429,25 +430,30 @@ def train_dnn(
     thresh, inv_keep = dropout_constants(dropout_p)
     x, y = x.contiguous(), y.contiguous()
     n, dev = x.shape[0], x.device
-    lib = build.load()
-    ks = _to_kernel(lib, mlp, state)
-    work = torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(n)), dtype=torch.float32,
-                       device=dev)
-    # the step flags, then the Adam count before each step: counts[0] =
-    # ints[n_iter] is the carried count, counts[n_iter] = ints[2 n_iter] the last
-    ints = torch.zeros(2 * n_iter + 1, dtype=torch.int32, device=dev)
-    if state is not None:
-        ints[n_iter:n_iter + 1].copy_(state.count.reshape(1))
-    losses = torch.empty(n_iter, dtype=torch.float32, device=dev)
-    build.launch(
-        lib.pinnfc_train_dnn, "train_dnn", dev,
-        x.data_ptr(), y.data_ptr(), n, ks.params.data_ptr(), ks.m.data_ptr(), ks.v.data_ptr(),
-        work.data_ptr(), ints.data_ptr(), losses.data_ptr(), int(seed) & _U32, int(t0),
-        int(n_iter), float(lr), int(lr_step), float(lr_gamma), thresh, inv_keep, _inv_n(n),
-        int(bool(skip_nonfinite)), int(precision == "default"),
-    )
-    build.LAUNCHES["train_dnn"] += 1
-    return _stage_out(mlp, ks, ints[2 * n_iter], losses)
+    # spans (utils/observability.py) at the stage's host edges and around the
+    # C entry, which enqueues every step
+    with span("train_dnn.prep"):
+        lib = build.load()
+        ks = _to_kernel(lib, mlp, state)
+        work = torch.empty(int(lib.pinnfc_train_dnn_workspace_floats(n)), dtype=torch.float32,
+                           device=dev)
+        # the step flags, then the Adam count before each step: counts[0] =
+        # ints[n_iter] is the carried count, counts[n_iter] = ints[2 n_iter] the last
+        ints = torch.zeros(2 * n_iter + 1, dtype=torch.int32, device=dev)
+        if state is not None:
+            ints[n_iter:n_iter + 1].copy_(state.count.reshape(1))
+        losses = torch.empty(n_iter, dtype=torch.float32, device=dev)
+    with span("train_dnn.launch"):
+        build.launch(
+            lib.pinnfc_train_dnn, "train_dnn", dev,
+            x.data_ptr(), y.data_ptr(), n, ks.params.data_ptr(), ks.m.data_ptr(),
+            ks.v.data_ptr(), work.data_ptr(), ints.data_ptr(), losses.data_ptr(),
+            int(seed) & _U32, int(t0), int(n_iter), float(lr), int(lr_step), float(lr_gamma),
+            thresh, inv_keep, _inv_n(n), int(bool(skip_nonfinite)), int(precision == "default"),
+        )
+        build.LAUNCHES["train_dnn"] += 1
+    with span("train_dnn.finish"):
+        return _stage_out(mlp, ks, ints[2 * n_iter], losses)
 
 
 def step_grads(

@@ -27,6 +27,7 @@ from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
 from pinnfc_tpu_torch.ops.smoothing import smooth_by_segments
 from pinnfc_tpu_torch.parallel.mesh import Mesh, data_size
 from pinnfc_tpu_torch.uq.mc_dropout import mc_dropout_samples
+from pinnfc_tpu_torch.utils.observability import span
 
 
 def default_mc_seed(seed: int) -> int:
@@ -76,51 +77,60 @@ def build_comprehensive_results(
     takes the unsharded path.
     """
     sx, sy = dataset.scaler_x, dataset.scaler_y
-    x_test = dataset.x_test
-    mlp = params["mlp"]
-    if data_size(mesh) > 1:
-        from pinnfc_tpu_torch.parallel.ensemble import mc_dropout_sharded
-
-        mc, passes = mc_dropout_sharded(mlp, x_test, int(mc_seed), mesh, mc_times=mc_times,
-                                        dropout=dropout)
-        export = {"sampler": "kernel" if mlp.is_flagship() else "vmap", "mc_passes": passes}
-    elif mlp.is_flagship():
-        mc = mc_dropout(mlp, x_test, int(mc_seed), mc_times=mc_times, dropout=dropout)
-        export = {"sampler": "kernel", "mc_passes": int(mc_times)}
-    else:
-        gen = torch.Generator(x_test.device).manual_seed(int(mc_seed))
-        mc, passes = mc_dropout_samples(mlp, x_test, gen, mc_times=mc_times, dropout=dropout)
-        export = {"sampler": "vmap", "mc_passes": passes}
-
-    x_real = sx.inverse(x_test)
-    y_real = sy.inverse(dataset.y_test)[:, 0]
-    # de-normalization through re-derived affine constants with +1e-12
-    # guards (01:1920-1932) rather than scaler.inverse
-    scale_y, min_y = sy.loss_affine()
-    pred_real = (mc.pred_mean - min_y) / (scale_y + 1e-12)
-    ale_real = mc.aleatoric_std / (scale_y + 1e-12)
-    epi_real = mc.epistemic_std / (scale_y + 1e-12)
-    bundle = all_residuals_kernel(params, x_test, mc.pred_mean[:, None], sx, sy)
-
+    x_test, mlp = dataset.x_test, params["mlp"]
     n = int(x_test.shape[0])
-    boundaries = list(dataset.info.boundary_lines)
-    if boundaries and boundaries[-1] != n:
-        boundaries = boundaries + [n]
+    with span("export"):  # its phases tile it, in order
+        with span("export.mc"):
+            if data_size(mesh) > 1:
+                from pinnfc_tpu_torch.parallel.ensemble import mc_dropout_sharded
 
-    out = np.zeros((n, 22), dtype=np.float64)
-    out[:, 0:8] = _np(x_real)
-    out[:, 8] = _np(y_real)
-    out[:, 9] = _np(pred_real)
-    out[:, 10] = smooth_by_segments(_np(ale_real), boundaries, smooth_window)
-    out[:, 11] = smooth_by_segments(_np(epi_real), boundaries, smooth_window)
-    out[:, 12] = out[:, 8] - out[:, 9]
-    out[:, 13] = _np(bundle.f_v[:, 0])
-    out[:, 14] = _np(bundle.f_t[:, 0])
-    out[:, 15] = _np(bundle.f_h[:, 0])
-    out[:, 16] = _np(bundle.f_o[:, 0])
-    out[:, 17] = dataset.info.fault_labels(n)
-    out[:, 18] = _np(bundle.v_phys_stack[:, 0])
-    out[:, 19] = _np(bundle.t_phys[:, 0])
-    out[:, 20] = _np(bundle.ratio_h[:, 0])
-    out[:, 21] = _np(bundle.ratio_o[:, 0])
+                mc, passes = mc_dropout_sharded(mlp, x_test, int(mc_seed), mesh,
+                                                mc_times=mc_times, dropout=dropout)
+                export = {"sampler": "kernel" if mlp.is_flagship() else "vmap",
+                          "mc_passes": passes}
+            elif mlp.is_flagship():
+                mc = mc_dropout(mlp, x_test, int(mc_seed), mc_times=mc_times, dropout=dropout)
+                export = {"sampler": "kernel", "mc_passes": int(mc_times)}
+            else:
+                gen = torch.Generator(x_test.device).manual_seed(int(mc_seed))
+                mc, passes = mc_dropout_samples(mlp, x_test, gen, mc_times=mc_times,
+                                                dropout=dropout)
+                export = {"sampler": "vmap", "mc_passes": passes}
+
+        with span("export.residuals"):
+            x_real = sx.inverse(x_test)
+            y_real = sy.inverse(dataset.y_test)[:, 0]
+            # de-normalization through re-derived affine constants with +1e-12
+            # guards (01:1920-1932) rather than scaler.inverse
+            scale_y, min_y = sy.loss_affine()
+            pred_real = (mc.pred_mean - min_y) / (scale_y + 1e-12)
+            ale_real = mc.aleatoric_std / (scale_y + 1e-12)
+            epi_real = mc.epistemic_std / (scale_y + 1e-12)
+            bundle = all_residuals_kernel(params, x_test, mc.pred_mean[:, None], sx, sy)
+
+        with span("export.to_host"):  # the first copy waits for the device
+            x_np, y_np, pred_np, ale_np, epi_np = (
+                _np(t) for t in (x_real, y_real, pred_real, ale_real, epi_real))
+            residuals_np = [_np(t[:, 0]) for t in bundle]
+
+        with span("export.smooth"):
+            boundaries = list(dataset.info.boundary_lines)
+            if boundaries and boundaries[-1] != n:
+                boundaries = boundaries + [n]
+            ale_smooth = smooth_by_segments(ale_np, boundaries, smooth_window)
+            epi_smooth = smooth_by_segments(epi_np, boundaries, smooth_window)
+
+        with span("export.assemble"):
+            out = np.zeros((n, 22), dtype=np.float64)
+            out[:, 0:8] = x_np
+            out[:, 8] = y_np
+            out[:, 9] = pred_np
+            out[:, 10] = ale_smooth
+            out[:, 11] = epi_smooth
+            out[:, 12] = out[:, 8] - out[:, 9]
+            # the bundle's fields in order: f_v, f_t, f_h, f_o, v_phys_stack,
+            # t_phys, ratio_h, ratio_o
+            for col, values in zip((13, 14, 15, 16, 18, 19, 20, 21), residuals_np):
+                out[:, col] = values
+            out[:, 17] = dataset.info.fault_labels(n)
     return ComprehensiveResults(out), export

@@ -76,6 +76,7 @@ from pinnfc_tpu_torch.training.adam import (
 from pinnfc_tpu_torch.utils import checkpoint
 from pinnfc_tpu_torch.utils.jax_params import (
     mlp_tree_from_flat, mlp_tree_to_flat, params_from_jax, params_to_numpy)
+from pinnfc_tpu_torch.utils.observability import span
 
 _GROUP_OF = {"thermal": "lam_t", "hydrogen": "lam_h", "oxygen": "lam_o"}
 _RESIDUAL = {"lam_t": thermal_residual_simple, "lam_h": hydrogen_residual,
@@ -566,7 +567,8 @@ def run_schedule(
         if k < start_stage:
             continue
         t0 = time.perf_counter()
-        params, losses = run_stage(k, stage, params, mid_resume if k == start_stage else None)
+        with span(f"stage.{stage.name}"):  # the losses' readback and any snapshot included
+            params, losses = run_stage(k, stage, params, mid_resume if k == start_stage else None)
         seconds = time.perf_counter() - t0
         log.add(f"{k}:{stage.name}", losses, seconds)
         if verbose:

@@ -1,7 +1,7 @@
-"""Metrics logging, step timing and profiling (counterpart of
+"""Metrics logging, spans and profiling (counterpart of
 ``pinnfc_tpu/utils/observability.py``): structured metric rows written as
-JSONL, a wall-clock step meter, and a ``torch.profiler`` trace in place of the
-JAX package's ``jax.profiler`` one.
+JSONL, the program's named spans, and a ``torch.profiler`` trace in place of
+the JAX package's ``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -14,6 +14,26 @@ import shutil
 import socket
 import time
 from typing import Dict, List, Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+SPAN_PREFIX = "pinnfc."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the host event ``pinnfc.<name>`` while a
+    ``torch.profiler`` is open (the benchmark's ``--trace 1``, ``cli train
+    --profile-dir``), on the profiler's clock, which the device events share.
+    The event is a plain record-function range, not a user annotation
+    (``record_function``): it puts nothing on the device timeline, where a
+    user annotation would show as busy time.  With no profiler open it costs
+    one C call and records nothing.  Under ``torch.autograd.profiler.
+    emit_nvtx()`` the range becomes an NVTX range."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _RecordFunctionFast(SPAN_PREFIX + name)
 
 
 class MetricsLogger:
@@ -33,27 +53,6 @@ class MetricsLogger:
 
     def latest(self) -> Optional[Dict]:
         return self.rows[-1] if self.rows else None
-
-
-class StepTimer:
-    """Wall-clock meter: mean steps per second over recorded windows."""
-
-    def __init__(self):
-        self.durations: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.durations.append(time.perf_counter() - self._t0)
-        self._t0 = None
-
-    def steps_per_sec(self, steps_per_window: int = 1) -> float:
-        if not self.durations:
-            return 0.0
-        return steps_per_window * len(self.durations) / sum(self.durations)
 
 
 def trace_profiler():
@@ -81,15 +80,3 @@ def write_chrome_trace(prof, log_dir: str) -> str:
         shutil.copyfileobj(src, dst, 1 << 20)
     os.remove(path)
     return path + ".gz"
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str, enabled: bool = True):
-    """Trace the enclosed work (``trace_profiler``) and write it into
-    ``log_dir`` on exit (``write_chrome_trace``).  Yields the profiler."""
-    if not enabled:
-        yield None
-        return
-    with trace_profiler() as prof:
-        yield prof
-    write_chrome_trace(prof, log_dir)

@@ -1127,3 +1127,91 @@ def test_bench_line_has_both_forms(cuda_device):
     doc = bench.run("cuda")
     assert doc["value"] > 0 and doc["throughput_steady_steps_per_sec"] > 0, doc
     assert doc["vs_baseline"] > 0
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU and CUDA profiler: (its result, device events,
+    the program's ``pinnfc.`` host events), each (name, start, end) in ns of
+    the profiler's clock, by start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    device, spans = [], []
+    for ev in prof.profiler.kineto_results.events():
+        item = (ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        if str(ev.device_type()).endswith("CUDA"):
+            device.append(item)
+        elif item[0].startswith("pinnfc."):
+            spans.append(item)
+    return out, sorted(device, key=lambda d: d[1]), sorted(spans, key=lambda s: s[1])
+
+
+def _inside(outer, events):
+    return all(outer[1] <= s and e <= outer[2] for _, s, e in events)
+
+
+@pytest.mark.cuda
+def test_export_spans_share_the_device_clock(cuda_device):
+    """The program's spans put nothing on the device timeline, and every
+    device operation of one export lies inside its ``pinnfc.export`` span:
+    host spans and device events are on one clock."""
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    ds = combine_and_normalize(*synthesize_stack_data(n_normal=600, n_fault=50, seed=42),
+                               device=cuda_device)
+
+    def export():
+        return build_comprehensive_results(params, ds, mc_seed=5, mc_times=64)[0].array
+
+    want = export()  # the first launches outside the trace
+    got, device, spans = _profiled(export)
+    np.testing.assert_array_equal(got, want)
+    assert device and not [d for d in device if d[0].startswith("pinnfc.")]
+    assert [s[0] for s in spans] == [
+        "pinnfc.export", "pinnfc.export.mc", "pinnfc.export.residuals",
+        "pinnfc.export.to_host", "pinnfc.export.smooth", "pinnfc.export.assemble"]
+    assert _inside(spans[0], device) and _inside(spans[0], spans[1:])
+    assert any("mc_sample_kernel" in d[0] for d in device)
+
+
+@pytest.mark.cuda
+def test_stage_spans_hold_the_training_kernel(cuda_device):
+    """A DNN stage's span holds the wrapper's three spans in order and every
+    operation of its training kernel; none of them reaches the device."""
+    from pinnfc_tpu_torch.config import StageConfig
+    from pinnfc_tpu_torch.training.stages import run_schedule
+
+    normal, _ = synthesize_stack_data(n_normal=1000, n_fault=10, seed=42)
+    ds = combine_and_normalize(normal, [], device=cuda_device)
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+
+    def stage():
+        return run_schedule(params, ds.x_train, ds.y_train, ds.scaler_x, ds.scaler_y,
+                            schedule=(StageConfig("dnn", 20, lr=0.01),), seed=3)
+
+    stage()
+    _, device, spans = _profiled(stage)
+    assert [s[0] for s in spans] == ["pinnfc.stage.dnn", "pinnfc.train_dnn.prep",
+                                     "pinnfc.train_dnn.launch", "pinnfc.train_dnn.finish"]
+    assert _inside(spans[0], spans[1:]) and spans[1][2] <= spans[2][1] <= spans[2][2] <= \
+        spans[3][1]
+    kernels = [d for d in device if "_kernel" in d[0]]
+    assert sum("fwd_bwd_kernel" in d[0] for d in kernels) == 20
+    assert _inside(spans[0], kernels)
+    assert not [d for d in device if d[0].startswith("pinnfc.")]
+
+
+@pytest.mark.cuda
+def test_once_counts_the_first_launches_and_dispatch(cuda_device, monkeypatch):
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    ds = combine_and_normalize(*synthesize_stack_data(n_normal=300, n_fault=20, seed=42),
+                               device=cuda_device)
+    build.load()
+    monkeypatch.setattr(build, "ONCE_S", {})
+    build_comprehensive_results(params, ds, mc_seed=5, mc_times=16)
+    first = dict(build.ONCE_S)
+    assert set(first) == {"launch.mc_dropout", "launch.residuals", "dispatch.residuals_op"}
+    assert all(v >= 0 for v in first.values())
+    build_comprehensive_results(params, ds, mc_seed=5, mc_times=16)
+    assert build.ONCE_S == first

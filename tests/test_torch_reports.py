@@ -20,7 +20,8 @@ from pinnfc_tpu_torch.cli import train as port_cli_train
 from pinnfc_tpu_torch.utils import tbevents as port_tb
 from pinnfc_tpu_torch.utils import checkpoint as port_checkpoint
 from pinnfc_tpu_torch.utils import observability
-from pinnfc_tpu_torch.utils.observability import MetricsLogger, StepTimer, profile_trace
+from pinnfc_tpu_torch.utils.observability import (
+    MetricsLogger, span, trace_profiler, write_chrome_trace)
 from pinnfc_tpu_torch.utils.threads import one_thread
 
 
@@ -59,7 +60,7 @@ def test_event_files_cross_read(tmp_path, writer, reader):
         reader.read_events(str(tmp_path / name))
 
 
-def test_metrics_logger_step_timer_and_profile_trace(tmp_path):
+def test_metrics_logger_and_chrome_trace(tmp_path):
     ml = MetricsLogger()
     assert ml.latest() is None
     ml.log(step=0, loss=np.float32(0.5))
@@ -68,22 +69,17 @@ def test_metrics_logger_step_timer_and_profile_trace(tmp_path):
     rows = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
     assert [(r["step"], r["loss"]) for r in rows] == [(0, 0.5), (1, 0.25)]
     assert ml.latest()["event"] == "final"
-    timer = StepTimer()
-    assert timer.steps_per_sec() == 0.0
-    with timer:
-        pass
-    assert timer.steps_per_sec(10) > 0
-    with profile_trace(str(tmp_path / "prof")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None
+    with trace_profiler() as prof:
+        with span("stage.dnn"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    path = write_chrome_trace(prof, str(tmp_path / "prof"))
     (name,) = os.listdir(tmp_path / "prof")
-    assert name.endswith(".pt.trace.json.gz")
+    assert path == str(tmp_path / "prof" / name) and name.endswith(".pt.trace.json.gz")
     with gzip.open(tmp_path / "prof" / name) as f:
         trace = json.load(f)
-    assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
-    with profile_trace(str(tmp_path / "off"), enabled=False) as prof:
-        assert prof is None
-    assert not os.path.exists(tmp_path / "off")
+    names = [ev.get("name", "") for ev in trace["traceEvents"]]
+    assert any("mm" in n for n in names)
+    assert "pinnfc.stage.dnn" in names  # the program's spans, as --profile-dir writes them
 
 
 def test_cli_train_writes_the_reports(campaign, tmp_path, capsys, monkeypatch):  # noqa: F811
