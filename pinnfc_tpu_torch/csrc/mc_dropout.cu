@@ -34,19 +34,22 @@
 // epistemic_std by 1.6e-3 relative, over the 1e-3 tolerance against the
 // plain version, which keeps torch.tanh.
 //
-// What bounds it on the H100: operations.  A row-sample costs 174,400 MAC; the
-// 15,600-row campaign at 2,000 samples is 1.09e13 FLOP of bf16 products
-// (11.0 ms at 989 TFLOP/s) plus one float32 base pass (0.08 ms at 67
-// TFLOP/s).  The bytes are negligible: x in, 4 floats out per row, 0.35 MB
-// of weights (bf16 for the wide products) that stay in L2.  With the products on the tensor cores, what the
-// float32 FMAs hid takes most of the time: the epilogue (per row-sample, 896
-// elements are tanh'd, hashed and masked and 64 more tanh'd: a few dozen
-// instructions each on the integer, FMA and MUFU pipes), which does not
-// overlap the tensor cores inside a CTA, and the weight stream from L2, which
-// every CTA re-reads for every pass.  pinnfc_tpu_torch/ops/mc_ablation.py
-// times copies of this file without each of these parts (PERF.md has the
-// numbers): the hash saves the most, then the tanh, the products and the
-// weight stream.
+// What bounds it on the H100: instruction issue and latency, not the tensor
+// cores or the bytes.  A row-sample costs 174,400 MAC; the 15,600-row
+// campaign at 2,000 samples is 1.09e13 FLOP of bf16 products (11.0 ms at 989
+// TFLOP/s) plus one float32 base pass (0.08 ms at 67 TFLOP/s), and the bytes
+// are negligible: x in, 4 floats out per row, 0.35 MB of weights (bf16 for
+// the wide products) that stay in L2.  The epilogue takes most of the time:
+// per row-sample 896 elements are tanh'd, hashed and masked and 64 more
+// tanh'd, a few dozen dependent instructions each on the integer, FMA and
+// MUFU pipes, and a warp's 64 accumulators leave its registers room for few
+// such chains at once.  The products, and the weight stream from L2 that
+// every CTA re-reads for every pass, use the tensor cores and the copy engine
+// and few issue slots.  So the sample kernel runs the two side by side inside
+// a CTA: two warp groups out of phase, one group's epilogue issuing while the
+// other group's products run (below).  pinnfc_tpu_torch/ops/mc_ablation.py
+// times copies of this file without each part, and a copy with clock64
+// stamps per group (PERF.md has the numbers).
 //
 // Design.
 //  - mc_base_kernel: the base pass in float32, as the float32 kernel did it
@@ -54,32 +57,55 @@
 //    memory, 8x8 register tiles of float32 FMAs); writes out[:, 0].
 //  - mc_sample_kernel: a CTA owns SROWS = 128 rows (122 CTAs for the campaign,
 //    one wave on 132 SMs at one CTA per SM) and loops over all samples itself,
-//    one sample of its 128 rows per pass: the M of every product is 128
-//    row-samples, which halves the L2 weight stream per unit of work against
-//    64.  (64 rows x 2 samples would fill 244 CTAs in two waves: the same
-//    92 % of the SMs, two salts per pass and a wasted sample when mc_times is
-//    odd; 128 x 1 was taken.)  The activations stay in shared memory as bf16
-//    [row][feature] across all layers and all samples: per-sample activations
-//    never touch device memory, which was the point of the TPU kernel.
-//    16 warps in a 4 (rows) x 4 (columns) grid; each owns a 32-row slice of a
-//    quarter of the output columns, so an epilogue holds at most 64
-//    accumulators per thread and its unrolled code stays small (8 warps of
-//    64-row slices, with room for 255 registers and no spills, ran slower on
-//    the card: fewer warps hide less of the epilogue's latency).  The bf16
-//    weights stream from L2 in KT-row tiles through an NSTAGE-tile cp.async
-//    ring; the next layer's first tiles are requested before each epilogue
-//    (the first trunk layer's, for the next sample, before the last one).
+//    one sample of its 128 rows per pass, so each weight tile it streams from
+//    L2 serves 128 row-samples.  (64 rows x 2 samples would fill 244 CTAs in
+//    two waves: the same 92 % of the SMs, two salts per pass and a wasted
+//    sample when mc_times is odd; 128 x 1 was taken.)  The activations stay in
+//    shared memory as bf16 [row][feature] across all layers and all samples,
+//    in one buffer that each layer's epilogue overwrites in place: per-sample
+//    activations never touch device memory, which was the point of the TPU
+//    kernel.
+//    16 warps in two groups of 8.  Group g owns rows [64 g, 64 g + 64) as 2
+//    row slices x 4 column quarters: warp w owns the 32-row slice w / 4 of the
+//    column quarter w % 4, so an epilogue holds at most 64 accumulators per
+//    thread.  Warps w and w + 4 share an SM sub-partition, so each
+//    sub-partition holds two warps of each group.
+//    No CTA-wide barrier inside the passes.  A warp's products read the rows
+//    of its slice alone, so a slice's 4 warps wait for each other (a named
+//    barrier) once their products have read a layer's input and once their
+//    epilogue has written the output over it.  The two groups take turns at
+//    the tensor cores: group 1 starts a layer's products once group 0 has
+//    finished them, and group 0 starts the next layer's once group 1 has
+//    finished this one's (a named barrier each way, the finishing side
+//    arriving without waiting).  So group 1 runs one product phase behind
+//    group 0 through all the passes, and each group's epilogue issues while
+//    the other group's products run.  A group whose rows all lie past n (the
+//    last CTA's second group when n % 128 is 1 to 64) does nothing.
+//    The bf16 weights stream from L2 through a ring of NSTAGE = 8 slots of
+//    KT = 32 weight rows: the TILES = 28 tiles of a pass (W1, W2, V0, V1) in
+//    order, each read by every warp of both groups.  A tile lands in its slot
+//    by one tensor copy (cp.async.bulk.tensor, through a map per weight that
+//    the C entry encodes) counted against the slot's mbarrier, as four column
+//    quarters, each swizzled so that ldmatrix reads it without bank
+//    conflicts.  Group 0 waits on the mbarrier; group 1, whose turn comes
+//    after group 0 has read the same tiles, does not.  The last warp of group
+//    1 to finish a product phase (a count in shared memory) has its lanes
+//    stage the tiles NSTAGE on into the slots the phase has read, so group
+//    0's next tiles land while group 1 runs its epilogue; eight slots hold a
+//    whole 256-row layer.  (A lone group 0 waits, counts and stages itself.)
 //    Operands reach the tensor cores through ldmatrix (.trans for the
-//    weights, stored (in, out)); the leading dimensions are padded by 8 bf16,
-//    so the eight 16-byte rows of each 8x8 matrix fall on distinct banks.
+//    weights, stored (in, out)); the activations' leading dimension is padded
+//    by 8 bf16, so the eight 16-byte rows of each 8x8 matrix fall on distinct
+//    banks.
 //    The epilogue works on the accumulators in registers: bias, tanh_sample,
 //    the mask, the bf16 pack (cvt.rn.bf16x2.f32) and a 32-bit shared store.  The
 //    mean head is summed in the second trunk layer's epilogue and the
 //    variance head in the last variance layer's (whose output is never
 //    stored), from the rounded values, then across the quad by shuffles and
-//    across the four column warps through shared memory in a fixed order.  No
-//    float atomics: two runs are bitwise equal.  Rows past n are computed and
-//    never stored.
+//    across the four column warps through shared memory in a fixed order.
+//    A row's sums live in shared memory and a lane of the first warp of its
+//    slice adds each sample to them, in sample order.  No float atomics: two
+//    runs are bitwise equal.  Rows past n are computed and never stored.
 //
 // The dropout masks are part of the random stream's contract and are bit-exact
 // with the TPU kernel: global row r belongs to mask block blk = r / 256 at
@@ -97,6 +123,8 @@
 // Within a thread's fragment the column offsets use bits disjoint from the
 // row's, so the counter XOR the key is a per-row value XOR a constant.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -232,49 +260,95 @@ mc_base_kernel(const float* __restrict__ x, int n, BaseWeights wt, float* __rest
 // ---------------------------------------------------------------------------
 // mc_sample_kernel: the dropout passes, wide products in bf16 on the tensor cores
 
-constexpr int SROWS = 128;        // rows (= row-samples) per CTA pass
-constexpr int STHREADS = 512;     // 16 warps: 4 row slices x 4 column quarters
-constexpr int WROWS = SROWS / 4;  // rows of a warp's slice
-constexpr int MT = WROWS / 16;    // ... in 16-row mma tiles
-constexpr int KT = 32;            // weight rows per staged tile
-constexpr int NSTAGE = 4;         // tiles in the weight ring
-constexpr int LDA = H + 8;        // leading dimension (bf16) of an activation buffer
-__host__ __device__ constexpr int ldw(int n) { return n + 8; }  // ... of a weight tile
-constexpr int WTILE = KT * ldw(H);  // bf16 of one ring slot
+constexpr int SROWS = 128;                  // rows (= row-samples) per CTA pass
+constexpr int STHREADS = 512;               // 16 warps in two groups
+constexpr int GROWS = SROWS / 2;            // rows of a group
+constexpr int GTHREADS = STHREADS / 2;      // threads of a group: 2 row slices x 4 column quarters
+constexpr int WROWS = SROWS / 4;            // rows of a warp's slice
+constexpr int MT = WROWS / 16;              // ... in 16-row mma tiles
+constexpr int KT = 32;                      // weight rows per ring slot
+constexpr int NSTAGE = 8;                   // slots in the weight ring
+constexpr int LDA = H + 8;                  // leading dimension (bf16) of the activations
+// A ring slot holds a KT-row tile of W (K, N) as its four column quarters,
+// quarter q at q KT RB(N), each of KT rows of RB(N) bytes (N / 4 bf16: 128,
+// 64 or 32 bytes), as one tensor copy lays them out with the swizzle of that
+// row length: the 16-byte chunk index XOR address bits 7-9, 7-8 or 7.  So a
+// quarter is read by the warps of one column quarter alone, and the eight
+// rows of each ldmatrix fall on distinct banks.
+__host__ __device__ constexpr int rb(int n) { return n / 4 * 2; }
+constexpr int SLOT_BYTES = KT * H * 2;
+// the ring tiles of one sample pass, in the order every warp reads them
+constexpr int TILE_W2 = H / KT, TILE_V0 = 2 * H / KT, TILE_V1 = 3 * H / KT;
+constexpr int TILES = TILE_V1 + V0 / KT;
+// named barriers (0 is __syncthreads): BAR_SLICE + w is row slice w's own
+// (its 4 warps), BAR_TURN + g group g's turn at the tensor cores
+constexpr int BAR_SLICE = 1, BAR_TURN = 5;
+constexpr int SLICE_THREADS = 128;
 
-// shared memory, in bytes: two activation buffers, the ring, x, and the two
-// heads' per-column-quarter partial sums
+// shared memory, in bytes: the ring (1,024-byte aligned for the swizzle,
+// hence the slack), the activations, x, the two heads' per-column-quarter
+// partial sums, the per-row sums, the ring's mbarriers and the count of
+// product phases read
+constexpr size_t RING_BYTES = (size_t)NSTAGE * SLOT_BYTES;
 constexpr size_t ACT_BYTES = (size_t)SROWS * LDA * 2;
-constexpr size_t RING_BYTES = (size_t)NSTAGE * WTILE * 2;
 constexpr size_t XS_BYTES = (size_t)SROWS * D_IN * 4;
 constexpr size_t RED_BYTES = (size_t)2 * 4 * SROWS * 4;
-constexpr size_t SSMEM_BYTES = 2 * ACT_BYTES + RING_BYTES + XS_BYTES + RED_BYTES;  // 210,944
+constexpr size_t ROW_BYTES = (size_t)4 * SROWS * 4;
+constexpr size_t BAR_BYTES = (size_t)NSTAGE * 8 + 8;
+constexpr size_t SSMEM_BYTES =
+    1024 + RING_BYTES + ACT_BYTES + XS_BYTES + RED_BYTES + ROW_BYTES + BAR_BYTES;  // 209,992
 
 static_assert(MASK_BLOCK % SROWS == 0, "a CTA's rows must lie in one mask block");
 static_assert(MASK_BLOCK * H <= 65536u, "mask counters must stay below 2^16");
 static_assert(SSMEM_BYTES <= 232448, "over the H100's 227 KB of shared memory per block");
 static_assert(MT >= 1 && WROWS % 16 == 0, "whole mma tiles");
+static_assert(NSTAGE >= H / KT, "the ring holds a whole layer");
 
 struct SampleWeights {
   const float *w0, *b0, *b1, *b2, *mw, *mb, *v0b, *v1b, *v2w, *v2b;  // float32
-  const uint16_t *w1, *w2, *v0w, *v1w;  // bf16 bit patterns, (in, out) row-major
 };
+// tensor maps of the bf16 wide weights, (in, out) row-major, in ring quarters
+struct WideMaps {
+  CUtensorMap w1, w2, v0, v1;
+};
+static_assert(sizeof(WideMaps) == 4 * sizeof(CUtensorMap), "the maps of a pass, in layer order");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_u32(dst)), "l"(src)
+// mbarriers, at shared addresses
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// one arrival that also expects `bytes` more of transactions in the phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// the box of the 3-D `map` at (c0, c1, c2) to shared memory at dst, counted
+// against bar's transactions
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4}], [%5];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+                  "r"(bar) : "memory");
 }
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -334,42 +408,73 @@ __device__ __forceinline__ float drop(float h, uint32_t mixed, uint32_t thresh, 
   return wang_rest(mixed) >= thresh ? h * inv_keep : 0.0f;
 }
 
-// Stage rows [k0, k0 + KT) of W (bf16, row-major (K, N) in device memory) into
-// a ring slot (leading dimension ldw(N)) with cp.async, as one committed group.
-template <int N>
-__device__ __forceinline__ void stage_weights(const uint16_t* __restrict__ W, int k0,
-                                              uint16_t* slot) {
-  constexpr int CHUNKS = KT * N / 8;  // 16-byte copies
-  for (int e = threadIdx.x; e < CHUNKS; e += STHREADS) {
-    cp_async16(slot + (e / (N / 8)) * ldw(N) + (e % (N / 8)) * 8, W + (size_t)k0 * N + 8 * e);
-  }
-  cp_async_commit();
+// What a warp carries through the sample passes.
+struct Pass {
+  const WideMaps* maps;
+  uint32_t ring;     // shared address of NSTAGE slots of SLOT_BYTES
+  uint16_t* act;     // the activations, SROWS x LDA bf16
+  uint32_t full;     // shared address of NSTAGE mbarriers, one per slot: its tile landed
+  uint32_t done;     // shared address of a count of the product phases the last-reading
+                     // group's warps have finished
+  uint32_t it;       // ring tiles this warp has read
+  uint32_t phase;    // product phases this warp's group has run
+  int mc_times;
+  int g;             // the warp's group
+  bool turns;        // both groups run (and take turns at the tensor cores)
+  uint32_t lr0, thresh;
+  float inv_keep;
+};
+
+// Stage tile j of the passes' sequence (TILES per pass: W1, W2, V0, V1 in
+// KT-row tiles) into ring slot j % NSTAGE: one tensor copy, issued by the
+// calling thread, its bytes expected by the slot's mbarrier.
+__device__ __forceinline__ void stage_tile(const WideMaps* maps, uint32_t j, uint32_t ring,
+                                           uint32_t full) {
+  static_assert(TILE_W2 == 8 && TILE_V0 == 16 && TILE_V1 == 24 && V0 == H / 2 && V1 == H / 4,
+                "a tile's layer is its position / 8, the layer's width H >> (layer - 1)");
+  const uint32_t p = j % TILES;
+  const uint32_t layer = p < TILE_V1 ? p / 8 : 3;  // W1, W2, V0, V1
+  const int n = H >> (layer < 2 ? 0 : layer - 1);
+  const int k0 = (int)(p - 8 * layer) * KT;
+  const uint32_t bar = full + (j % NSTAGE) * 8;
+  mbar_expect_tx(bar, KT * n * 2);
+  tma_load_3d(ring + (j % NSTAGE) * SLOT_BYTES, &maps->w1 + layer, 0, k0, 0, bar);
 }
 
-// Put the first NSTAGE - 1 tiles of W (K, N) in flight, one committed group
-// each (empty groups past K).  cta_mma<K, N> expects them.
-template <int K, int N>
-__device__ __forceinline__ void prefetch_weights(const uint16_t* __restrict__ W, uint16_t* ring) {
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < K / KT) {
-      stage_weights<N>(W, s * KT, ring + s * WTILE);
-    } else {
-      cp_async_commit();
-    }
+// The calling warp has read a product phase's `count` ring tiles, the last
+// it has read.  The group that reads tiles last (group 1 when both run: its
+// turn comes after group 0's) frees their slots: the last of its 8 warps to
+// get here (a count in shared memory) has lane l stage the tile NSTAGE after
+// the phase's l-th into that tile's slot, if the passes have one.  (No warp
+// counts a later phase before all have counted this one: with two groups,
+// the later phase's turn comes after all of group 1 has finished this one;
+// alone, the later phase's last tile lands only after this count.)
+__device__ __forceinline__ void free_tiles(const Pass& p, uint32_t count) {
+  if (p.g != (p.turns ? 1 : 0)) return;
+  const uint32_t first = p.it - count;
+  const uint32_t lane = threadIdx.x & 31;
+  __syncwarp();
+  uint32_t before = 0;
+  if (lane == 0) {
+    // release: the warp's reads of the tiles come first; acquire: so do the
+    // other warps', for the last
+    asm volatile("atom.acq_rel.cta.shared.add.u32 %0, [%1], 1;\n"
+                 : "=r"(before) : "r"(p.done) : "memory");
+  }
+  if (__shfl_sync(0xFFFFFFFFu, before, 0) % 8 == 7 && lane < count &&
+      first + lane + NSTAGE < (uint32_t)p.mc_times * TILES) {
+    stage_tile(p.maps, first + lane + NSTAGE, p.ring, p.full);
   }
 }
 
-// The CTA's C(SROWS x N) = in(SROWS x K, bf16, leading dimension LDA) @ W
-// (bf16 (K, N) in device memory), streamed KT rows at a time through the
-// ring, whose first NSTAGE - 1 tiles prefetch_weights<K, N> has put in flight.
-// Warp (wm, wn) owns rows [wm WROWS, (wm + 1) WROWS) and columns
-// [wn N/4, (wn + 1) N/4).  With g = lane / 4, q = lane % 4, acc[i][j][0..1] is
-// C at row wm WROWS + 16 i + g, columns wn N/4 + 8 j + 2 q + 0..1, and
-// acc[i][j][2..3] the same columns eight rows below.  Ends with a barrier.
+// The warp's share of C(SROWS x N) = act(SROWS x K, bf16, leading dimension
+// LDA) @ W (bf16 (K, N)), whose KT-row tiles are the next K / KT tiles of the
+// ring.  Warp (wm, wn) = (warp / 4, warp % 4) owns rows [wm WROWS, (wm + 1)
+// WROWS) and columns [wn N/4, (wn + 1) N/4).  With g = lane / 4, q = lane % 4,
+// acc[i][j][0..1] is C at row wm WROWS + 16 i + g, columns wn N/4 + 8 j + 2 q
+// + 0..1, and acc[i][j][2..3] the same columns eight rows below.
 template <int K, int N>
-__device__ __forceinline__ void cta_mma(const uint16_t* in, const uint16_t* __restrict__ W,
-                                        uint16_t* ring, float (&acc)[MT][N / 32][4]) {
+__device__ __forceinline__ void warp_mma(Pass& p, float (&acc)[MT][N / 32][4]) {
   constexpr int NT = N / 32;  // 8-column mma tiles per warp
   static_assert(K % KT == 0 && NT % 2 == 0, "bad tiling");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -382,18 +487,16 @@ __device__ __forceinline__ void cta_mma(const uint16_t* in, const uint16_t* __re
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
   // ldmatrix row addresses: lanes 0-15 give rows 0-15 of the first eight
   // columns (k), lanes 16-31 the same rows eight columns on
-  const uint32_t a_addr = smem_u32(in + (wm * WROWS + (lane & 15)) * LDA + (lane >> 4) * 8);
-  const uint32_t b_off = ((lane & 15) * ldw(N) + wn * (N / 4) + (lane >> 4) * 8) * 2;
-  for (int c = 0; c < K / KT; ++c) {
-    cp_async_wait<NSTAGE - 2>();  // tile c has landed (this thread's part)
-    __syncthreads();              // ... everyone's, and tile c - 1 is free
-    const int next = c + NSTAGE - 1;
-    if (next < K / KT) {
-      stage_weights<N>(W, next * KT, ring + (next % NSTAGE) * WTILE);
-    } else {
-      cp_async_commit();
-    }
-    const uint32_t b_addr = smem_u32(ring + (c % NSTAGE) * WTILE) + b_off;
+  const uint32_t a_addr = smem_u32(p.act + (wm * WROWS + (lane & 15)) * LDA + (lane >> 4) * 8);
+  // the lane's row of the warp's ring quarter (k rows 0-15; 16-31 for kk =
+  // 16) and the swizzle of its 16-byte chunks, the same for both
+  constexpr int RB = rb(N);  // bytes in a row of a quarter
+  const uint32_t b_off = wn * KT * RB + (lane & 15) * RB;
+  const uint32_t swz = (((lane & 15) * RB) >> 7) & (RB / 16 - 1);
+  for (int c = 0; c < K / KT; ++c, ++p.it) {
+    // group 1 takes its turn after group 0 has waited for these tiles
+    if (p.g == 0) mbar_wait(p.full + (p.it % NSTAGE) * 8, (p.it / NSTAGE) & 1u);
+    const uint32_t b_addr = p.ring + (p.it % NSTAGE) * SLOT_BYTES + b_off;
 #pragma unroll
     for (int kk = 0; kk < KT; kk += 16) {
       uint32_t a[MT][4];
@@ -403,7 +506,7 @@ __device__ __forceinline__ void cta_mma(const uint16_t* in, const uint16_t* __re
       for (int jp = 0; jp < NT / 2; ++jp) {
         // b[0], b[1]: tile 2 jp (k rows 0-7, 8-15); b[2], b[3]: tile 2 jp + 1
         uint32_t b[4];
-        ldmatrix_x4_trans(b, b_addr + (kk * ldw(N) + 16 * jp) * 2);
+        ldmatrix_x4_trans(b, b_addr + kk * RB + (((2 * jp + (lane >> 4)) ^ swz) << 4));
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
@@ -412,14 +515,13 @@ __device__ __forceinline__ void cta_mma(const uint16_t* in, const uint16_t* __re
       }
     }
   }
-  __syncthreads();
 }
 
-// Epilogue of a layer of width N on the accumulators of cta_mma: tanh(acc + b),
-// with DROP the mask of layer key `key`; the bf16 result goes to out
-// (leading dimension LDA) when out is given, and, when head is given, its dot
-// product with head (N,) goes to red[wn][row] (the warp's column quarter).
-template <int N, bool DROP>
+// Epilogue of a layer of width N on the accumulators of warp_mma: tanh(acc + b),
+// with DROP the mask of layer key `key`; with STORE the bf16 result goes to
+// out (leading dimension LDA), and, when head is given, its dot product with
+// head (N,) goes to red[wn][row] (the warp's column quarter).
+template <int N, bool DROP, bool STORE>
 __device__ __forceinline__ void epilogue(const float (&acc)[MT][N / 32][4],
                                          const float* __restrict__ bias, uint16_t* out,
                                          const float* __restrict__ head, float* red,
@@ -453,7 +555,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[MT][N / 32][4],
           h1 = drop(h1, mixed ^ 1u, thresh, inv_keep);
         }
         const uint32_t p = pack_bf16x2(h0, h1);
-        if (out) *reinterpret_cast<uint32_t*>(out + row * LDA + col0 + 8 * j) = p;
+        if (STORE) *reinterpret_cast<uint32_t*>(out + row * LDA + col0 + 8 * j) = p;
         if (head) part[i][f] = fmaf(bf16_hi(p), hw.y, fmaf(bf16_lo(p), hw.x, part[i][f]));
       }
   }
@@ -470,14 +572,36 @@ __device__ __forceinline__ void epilogue(const float (&acc)[MT][N / 32][4],
   }
 }
 
-// Layer 0 of a sample pass in float32: h = tanh(x W0 + b0), masked, to bf16
-// in out.  Thread t owns columns 2 (t % 128) + 0..1 of every fourth row.
+// One wide layer (K -> N) of a sample pass for the calling warp's group: its
+// turn at the tensor cores, its products, then its epilogue: with STORE over
+// the layer's input in place, else into the head's sums alone.
+template <int K, int N, bool DROP, bool STORE>
+__device__ __forceinline__ void layer(Pass& p, const float* __restrict__ bias,
+                                      const float* __restrict__ head, float* red, uint32_t key) {
+  const uint32_t phases = 4u * (uint32_t)p.mc_times;
+  float acc[MT][N / 32][4];
+  if (p.turns && (p.g == 1 || p.phase > 0)) bar_sync(BAR_TURN + p.g, STHREADS);
+  warp_mma<K, N>(p, acc);
+  if (p.turns && (p.g == 0 || p.phase + 1 < phases)) bar_arrive(BAR_TURN + 1 - p.g, STHREADS);
+  ++p.phase;
+  free_tiles(p, K / KT);
+  // a warp's products read the rows of its slice alone, which its slice's
+  // epilogue writes
+  const int slice = threadIdx.x >> 7;
+  bar_sync(BAR_SLICE + slice, SLICE_THREADS);  // the slice's products have read the input
+  epilogue<N, DROP, STORE>(acc, bias, p.act, head, red, key, p.lr0, p.thresh, p.inv_keep);
+  if (STORE) bar_sync(BAR_SLICE + slice, SLICE_THREADS);  // ... and its epilogue has written it
+}
+
+// Layer 0 of a sample pass in float32 for the calling thread's row slice:
+// h = tanh(x W0 + b0), masked, to bf16 in out.  Thread t of the slice owns
+// columns 2 t + 0..1 of its 32 rows.
 __device__ __forceinline__ void sample_layer0(const float* xs, const float* __restrict__ w0,
                                               const float* __restrict__ b0, uint16_t* out,
                                               uint32_t key, uint32_t lr0, uint32_t thresh,
                                               float inv_keep) {
-  constexpr int PAIRS = H / 2;
-  const int c = 2 * (threadIdx.x % PAIRS);
+  static_assert(SLICE_THREADS == H / 2, "a thread per column pair");
+  const int c = 2 * (threadIdx.x % SLICE_THREADS), r0 = WROWS * (threadIdx.x / SLICE_THREADS);
   float w[D_IN][2];
 #pragma unroll
   for (int k = 0; k < D_IN; ++k) {
@@ -487,7 +611,7 @@ __device__ __forceinline__ void sample_layer0(const float* xs, const float* __re
   }
   const float2 b = __ldg(reinterpret_cast<const float2*>(b0 + c));
 #pragma unroll 2
-  for (int r = threadIdx.x / PAIRS; r < SROWS; r += STHREADS / PAIRS) {
+  for (int r = r0; r < r0 + WROWS; ++r) {
     const float4 xa = *reinterpret_cast<const float4*>(xs + r * D_IN);
     const float4 xb = *reinterpret_cast<const float4*>(xs + r * D_IN + 4);
     const float xv[D_IN] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
@@ -504,84 +628,96 @@ __device__ __forceinline__ void sample_layer0(const float* xs, const float* __re
   }
 }
 
+// Add one sample's prediction to row r's sums: rows[0..3][r] = base, sum d,
+// sum d^2, sum log var, with d = pred - base.
+__device__ __forceinline__ void add_sample(int r, const float* red_mean, const float* red_var,
+                                           float* rows, const float* __restrict__ mb,
+                                           const float* __restrict__ v2b) {
+  const float pred = ((red_mean[r] + red_mean[SROWS + r]) +
+                      (red_mean[2 * SROWS + r] + red_mean[3 * SROWS + r])) + __ldg(mb);
+  const float raw = ((red_var[r] + red_var[SROWS + r]) +
+                     (red_var[2 * SROWS + r] + red_var[3 * SROWS + r])) + __ldg(v2b);
+  const float d = __fsub_rn(pred, rows[r]);
+  rows[SROWS + r] = __fadd_rn(rows[SROWS + r], d);
+  rows[2 * SROWS + r] = __fadd_rn(rows[2 * SROWS + r], __fmul_rn(d, d));
+  rows[3 * SROWS + r] = __fadd_rn(rows[3 * SROWS + r], log_softplus(raw));
+}
+
 __global__ void __launch_bounds__(STHREADS, 1)
-mc_sample_kernel(const float* __restrict__ x, int n, SampleWeights wt, float* __restrict__ out,
-                 uint32_t seed, uint32_t block0, int mc_times, uint32_t thresh, float inv_keep) {
-  extern __shared__ __align__(16) unsigned char ssmem[];
-  uint16_t* actA = reinterpret_cast<uint16_t*>(ssmem);
-  uint16_t* actB = reinterpret_cast<uint16_t*>(ssmem + ACT_BYTES);
-  uint16_t* ring = reinterpret_cast<uint16_t*>(ssmem + 2 * ACT_BYTES);
-  float* xs = reinterpret_cast<float*>(ssmem + 2 * ACT_BYTES + RING_BYTES);
+mc_sample_kernel(const float* __restrict__ x, int n, SampleWeights wt,
+                 const __grid_constant__ WideMaps maps, float* __restrict__ out, uint32_t seed,
+                 uint32_t block0, int mc_times, uint32_t thresh, float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char ssmem[];
+  unsigned char* base = ssmem + ((1024u - (smem_u32(ssmem) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(base);
+  uint16_t* act = reinterpret_cast<uint16_t*>(base + RING_BYTES);
+  float* xs = reinterpret_cast<float*>(base + RING_BYTES + ACT_BYTES);
   float* red_mean = xs + SROWS * D_IN;
   float* red_var = red_mean + 4 * SROWS;
+  float* rows = red_var + 4 * SROWS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 4 * SROWS);
+  uint32_t* done = reinterpret_cast<uint32_t*>(full + NSTAGE);
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * SROWS;
-  prefetch_weights<H, H>(wt.w1, ring);
+  const int groups = n - row0 > GROWS ? 2 : 1;
+  if (t < NSTAGE) {
+    mbar_init(smem_u32(full + t), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (t == 0) *done = 0;
+  __syncthreads();
+  if (t == 0) {
+    for (uint32_t j = 0; j < NSTAGE && j < (uint32_t)mc_times * TILES; ++j) {
+      stage_tile(&maps, j, ring, smem_u32(full));
+    }
+  }
   // x rows; rows past n are zeros, computed and never stored
   for (int q = t; q < SROWS * D_IN; q += STHREADS) {
     const int r = q / D_IN;
     xs[q] = row0 + r < n ? x[(size_t)row0 * D_IN + q] : 0.0f;
   }
-  const bool owner = t < SROWS && row0 + t < n;  // thread t < SROWS sums row t
-  const float base = owner ? out[(size_t)(row0 + t) * 4] : 0.0f;  // from mc_base_kernel
-  const float mb = __ldg(wt.mb), v2b = __ldg(wt.v2b);
+  if (t < SROWS) {
+    rows[t] = row0 + t < n ? out[(size_t)(row0 + t) * 4] : 0.0f;  // base, from mc_base_kernel
+    rows[SROWS + t] = rows[2 * SROWS + t] = rows[3 * SROWS + t] = 0.0f;
+  }
   __syncthreads();
 
-  const uint32_t lr0 = (uint32_t)row0 % MASK_BLOCK;
-  const uint32_t block_salt = seed * 7919u + (block0 + (uint32_t)row0 / MASK_BLOCK) * 104729u;
-  float s_d = 0.0f, s_d2 = 0.0f, s_lv = 0.0f;
-  for (int s = 0; s < mc_times; ++s) {
-    const uint32_t salt = block_salt + (uint32_t)s * 15485863u;
-    sample_layer0(xs, wt.w0, wt.b0, actA, layer_key(hashed_salt(salt + 0u)), lr0, thresh,
-                  inv_keep);
-    // trunk layers 1 and 2 share one copy of their code: actA -> actB, then
-    // actB -> actA with the mean head
+  const int g = t / GTHREADS;
+  if (g < groups) {
+    const uint32_t lr0 = (uint32_t)row0 % MASK_BLOCK;
+    Pass p{&maps, ring, act, smem_u32(full), smem_u32(done), 0u, 0u, mc_times, g, groups == 2,
+           lr0, thresh, inv_keep};
+    const uint32_t block_salt = seed * 7919u + (block0 + (uint32_t)row0 / MASK_BLOCK) * 104729u;
+    // the first warp of each row slice adds its rows' sums, lane l row l
+    const int slice = t / SLICE_THREADS, r = WROWS * slice + (t & 31);
+    const bool adder = t % SLICE_THREADS < 32;
+    for (int s = 0; s < mc_times; ++s) {
+      const uint32_t salt = block_salt + (uint32_t)s * 15485863u;
+      sample_layer0(xs, wt.w0, wt.b0, act, layer_key(hashed_salt(salt + 0u)), lr0, thresh,
+                    inv_keep);
+      bar_sync(BAR_SLICE + slice, SLICE_THREADS);
+      // the previous sample's heads, summed by its last epilogues
+      if (adder && s > 0) add_sample(r, red_mean, red_var, rows, wt.mb, wt.v2b);
+      // trunk layers 1 and 2 share one copy of their code, layer 2 with the mean head
 #pragma unroll 1
-    for (int l = 1; l <= 2; ++l) {
-      float acc[MT][H / 32][4];
-      cta_mma<H, H>(l == 1 ? actA : actB, l == 1 ? wt.w1 : wt.w2, ring, acc);
-      if (l == 1) {
-        prefetch_weights<H, H>(wt.w2, ring);
-      } else {
-        prefetch_weights<H, V0>(wt.v0w, ring);
+      for (int l = 1; l <= 2; ++l) {
+        layer<H, H, true, true>(p, l == 1 ? wt.b1 : wt.b2, l == 1 ? nullptr : wt.mw, red_mean,
+                                layer_key(hashed_salt(salt + (uint32_t)l)));
       }
-      epilogue<H, true>(acc, l == 1 ? wt.b1 : wt.b2, l == 1 ? actB : actA,
-                        l == 1 ? nullptr : wt.mw, red_mean,
-                        layer_key(hashed_salt(salt + (uint32_t)l)), lr0, thresh, inv_keep);
+      layer<H, V0, true, true>(p, wt.v0b, nullptr, nullptr, layer_key(hashed_salt(salt + 3u)));
+      layer<V0, V1, false, false>(p, wt.v1b, wt.v2w, red_var, 0u);
     }
-    {
-      float acc[MT][V0 / 32][4];
-      cta_mma<H, V0>(actA, wt.v0w, ring, acc);
-      prefetch_weights<V0, V1>(wt.v1w, ring);
-      epilogue<V0, true>(acc, wt.v0b, actB, nullptr, nullptr, layer_key(hashed_salt(salt + 3u)),
-                         lr0, thresh, inv_keep);
-    }
-    {
-      float acc[MT][V1 / 32][4];
-      cta_mma<V0, V1>(actB, wt.v1w, ring, acc);
-      prefetch_weights<H, H>(wt.w1, ring);  // the next sample's first trunk layer
-      epilogue<V1, false>(acc, wt.v1b, nullptr, wt.v2w, red_var, 0u, lr0, thresh, inv_keep);
-    }
-    __syncthreads();
-    if (t < SROWS) {
-      const float pred = ((red_mean[t] + red_mean[SROWS + t]) +
-                          (red_mean[2 * SROWS + t] + red_mean[3 * SROWS + t])) + mb;
-      const float raw = ((red_var[t] + red_var[SROWS + t]) +
-                         (red_var[2 * SROWS + t] + red_var[3 * SROWS + t])) + v2b;
-      const float d = __fsub_rn(pred, base);
-      s_d = __fadd_rn(s_d, d);
-      s_d2 = __fadd_rn(s_d2, __fmul_rn(d, d));
-      s_lv = __fadd_rn(s_lv, log_softplus(raw));
-    }
+    bar_sync(BAR_SLICE + slice, SLICE_THREADS);
+    if (adder) add_sample(r, red_mean, red_var, rows, wt.mb, wt.v2b);  // the last sample's
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  if (owner) {
+  if (t < SROWS && row0 + t < n) {
     float* o = out + (size_t)(row0 + t) * 4;
-    o[1] = s_d;
-    o[2] = s_d2;
-    o[3] = s_lv;
+    o[1] = rows[SROWS + t];
+    o[2] = rows[2 * SROWS + t];
+    o[3] = rows[3 * SROWS + t];
   }
 }
 
@@ -589,6 +725,33 @@ template <class Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+// The tensor map of a bf16 (k, n) row-major weight for the ring: (n / 4
+// columns, k rows, 4 column quarters), so that a box of KT rows lands as a
+// slot's four quarters one after another, each swizzled by its row length.
+int encode_quarters(CUtensorMap* map, const uint16_t* w, int k, int n) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess) return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)n / 4, (cuuint64_t)k, 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 2, (cuuint64_t)rb(n)};  // bytes: a row, a quarter
+  const cuuint32_t box[3] = {(cuuint32_t)(n / 4), (cuuint32_t)KT, 4};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = rb(n) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : rb(n) == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<uint16_t*>(w),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -619,8 +782,14 @@ extern "C" int pinnfc_mc_dropout(const float* x, int n, const float* w0, const f
   mc_base_kernel<<<(n + BROWS - 1) / BROWS, BTHREADS, BSMEM_BYTES, s>>>(x, n, bw, out);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const SampleWeights sw{w0, b0, b1, b2, mw, mb, v0b, v1b, v2w, v2b, w1h, w2h, v0wh, v1wh};
+  WideMaps maps;
+  err = encode_quarters(&maps.w1, w1h, H, H);
+  if (err == 0) err = encode_quarters(&maps.w2, w2h, H, H);
+  if (err == 0) err = encode_quarters(&maps.v0, v0wh, H, V0);
+  if (err == 0) err = encode_quarters(&maps.v1, v1wh, V0, V1);
+  if (err != 0) return err;
+  const SampleWeights sw{w0, b0, b1, b2, mw, mb, v0b, v1b, v2w, v2b};
   mc_sample_kernel<<<(n + SROWS - 1) / SROWS, STHREADS, SSMEM_BYTES, s>>>(
-      x, n, sw, out, seed, block0, mc_times, thresh, inv_keep);
+      x, n, sw, maps, out, seed, block0, mc_times, thresh, inv_keep);
   return (int)cudaGetLastError();
 }

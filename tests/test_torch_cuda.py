@@ -312,14 +312,23 @@ def test_non_flagship_default_runs_bf16_operand_autograd(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1000, 37])
-def test_mc_kernel_matches_bf16_plain(cuda_device, n):
+@pytest.mark.parametrize("m", [64, 3])
+@pytest.mark.parametrize("n", [1000, 37, 64, 65, 129, 191])
+def test_mc_kernel_matches_bf16_plain(cuda_device, n, m):
     """N = 1,000 is ragged against the 128-row CTAs and the 256-row mask
-    blocks; N = 37 fills part of one CTA."""
+    blocks (its last CTA's second 64-row warp group is partial); N = 37 fills
+    part of one CTA; N = 64, 129 and 191 leave a CTA's second group empty, N =
+    65 gives it one row.  m = 3 passes, odd, beside 64.  At 3 passes the
+    kernel is held to the plain versions in pred_mean and aleatoric_std only:
+    epistemic_std, the spread of three values, turns one flipped bf16
+    rounding (the tensor cores accumulate in another order than the plain
+    version) into a gap of 4.4e-3 relative at one row of 1,000, and the bf16
+    plain version's own epistemic_std lies 3.4 times the float32 tolerance
+    from the float32 one's (CPU, N = 191)."""
     x = torch.as_tensor(np.random.RandomState(1).uniform(-1.2, 1.2, (n, 8)).astype(np.float32),
                         device=cuda_device)
     mlp = MLP(generator=torch.Generator().manual_seed(0), device=cuda_device)
-    seed, m = 123456789, 64
+    seed = 123456789
     before = build.LAUNCHES["mc_dropout"]
     k_sums = mc_dropout_sums(mlp, x, seed, mc_times=m)
     assert build.LAUNCHES["mc_dropout"] == before + 1
@@ -329,7 +338,7 @@ def test_mc_kernel_matches_bf16_plain(cuda_device, n):
                                               sample_dtype=torch.bfloat16), m)
     f = finish_mc_stats(mc_dropout_sums_plain(mlp, x, seed, mc_times=m), m)
     torch.testing.assert_close(k.pred_mean, b.pred_mean, rtol=2e-5, atol=1e-6)
-    for name in ("aleatoric_std", "epistemic_std"):
+    for name in ("aleatoric_std", "epistemic_std") if m == 64 else ("aleatoric_std",):
         torch.testing.assert_close(getattr(k, name), getattr(b, name), rtol=1e-3, atol=1e-5)
         torch.testing.assert_close(getattr(k, name), getattr(f, name), rtol=1e-2, atol=1e-4)
 

@@ -19,7 +19,7 @@ import torch
 from pinnfc_tpu.models.mlp import init_mlp
 from pinnfc_tpu.ops.pallas_mc_dropout import mc_dropout_pallas
 from pinnfc_tpu_torch.ops import build
-from pinnfc_tpu_torch.ops.mc_ablation import ABLATIONS, variant_source
+from pinnfc_tpu_torch.ops.mc_ablation import VARIANTS, variant_source
 from pinnfc_tpu_torch.ops.mc_dropout import (
     MASK_BLOCK,
     _U32,
@@ -238,11 +238,12 @@ def test_sample_pass_tanh_within_2e6_of_tanh(e_err, r_err):
     assert np.isnan(_tanh_sample(np.float32([np.nan]), e_err, r_err)).all()
 
 
-@pytest.mark.parametrize("name", sorted(ABLATIONS))
+@pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_ablation_edits_apply_to_the_kernel_source(name):
-    """pinnfc_tpu_torch.ops.mc_ablation edits csrc/mc_dropout.cu by text: each
-    edit must still find its text, and change the source."""
-    src = variant_source(ABLATIONS[name])
+    """pinnfc_tpu_torch.ops.mc_ablation edits csrc/mc_dropout.cu by text (the
+    four removals and the stamps): each edit must still
+    find its text, and change the source."""
+    src = variant_source(VARIANTS[name])
     assert src != variant_source([])
-    for old, new in ABLATIONS[name]:
+    for old, new in VARIANTS[name]:
         assert new in src
