@@ -7,7 +7,7 @@ the card, to set a cell's limits from (never run by a benchmark run):
 Runs the cell ``--seeds`` times as the benchmark runs it (short windows), then
 ``--controls`` times with the reference in the precision below the stated one
 in the program's place, then ``--faults`` times with each fault of
-``faults.FAULTS_OF`` planted in the timed path, each run on a seed of its own.
+``faults.faults_of`` the cell planted in the timed path, each run on a seed of its own.
 Prints one JSON line per run, then a summary line: per number the lower
 reading (the largest over the program's runs), the control's least reading
 and each fault's least reading.
@@ -39,7 +39,7 @@ def main(argv):
     cell = harness.load_cell(args.workload)
     kinds = [("program", args.seeds, None), ("control", args.controls, None)]
     kinds += [(f, args.faults, faults.FAULTS[f])
-              for f in faults.FAULTS_OF[cell.workload["traffic"]]]
+              for f in faults.faults_of(cell)]
     readings = {}
     seed = args.first_seed
     for kind, count, plant in kinds:

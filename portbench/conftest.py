@@ -6,7 +6,7 @@ import pytest
 
 from portbench import harness
 
-CELLS = ("paper.score", "bf16.train", "paper.train")
+CELLS = ("paper.score", "bf16.train", "paper.train", "paper.train-lambda")
 
 
 def tiny_cell(name: str) -> harness.Cell:

@@ -44,6 +44,49 @@ def train_flops_per_row_step(layers: Sequence[int]) -> int:
     return 6 * sum(i * o for i, o in linears(layers)) - 2 * i0 * o0
 
 
+# per row, the operations of each λ stage's loss forward (see
+# ``lambda_flops_per_row_step``), by stage and, for ``lambda_v``, dnn_para
+LAMBDA_FORWARD = {("lambda_v", False): 55, ("lambda_v", True): 56, ("thermal", False): 21,
+                  ("hydrogen", False): 19, ("oxygen", False): 26}
+
+
+def lambda_flops_per_row_step(stage: str, dnn_para: bool = False) -> int:
+    """One step of a λ stage for one row: its loss forward from the residual
+    equations (reference 01:535-914; ``reference/campaign.py::residuals``), and
+    its gradient counted as twice the forward, so three times the forward.
+    Each +, −, ×, ÷, exp, log, pow, sqrt, comparison, select and one-sided
+    clamp counts one operation (a two-sided clamp two); a product of
+    constants is folded and counts nothing; what is the same for every row
+    (the λ's alone) counts nothing.  The forward, per row, each total with
+    its features:
+
+    - the features an equation reads, de-normalised, (x − min) / scale: 2
+      each (voltage: I, p_H2, p_air, T_out, 8; thermal: I, ṁ, T_in, T_out, 8;
+      hydrogen: I, Q_H2, 4; oxygen: I, Q_air, 4);
+    - voltage (net_f_V, 01:724-765), 50 = 8 + 42: i = I/A + 1e-5 (2); T_K = T_out +
+      273.15 (1); T_K^1.334 (1); pp_H2 = 0.5·((p_H2/101 + 1)/exp(1.653·i/T_K^1.334)
+      − p_H2O) (8); pp_O2 = (p_air/101 + 1)/exp(4.192·i/T_K^1.334) − p_H2O (7);
+      b = R·T_K/(2αF) (1); V_act = −b·log(i/λ1) (4); V_ohm = −i·λ0 (2);
+      V_conc = α·b·log(1 − i/λ2) (5); E = c − R·T_K·log(p_H2O/(pp_H2·√pp_O2))/(2F)
+      (8); V_est = E + V_act + V_ohm + V_conc (3);
+      with dnn_para false, 55 (+ 5): (y − (V_est·5·scale_y + min_y))² (4) and its
+      sum into the mean (1); with dnn_para true, 56 (+ 6): the network's
+      voltage (u − min)/scale/5 (3), f = V_est − V (1), f² (1), the sum (1);
+    - thermal (net_f_T_simple, 01:869-914), 21 = 8 + 13: I/A + 1e-6 (2), ·A (1), ·λ0
+      (1), ṁ + 1e-6 (1), ·λ2 (1), 0.5·T_in (1), three sums with λ4 (3),
+      f = T_out − T_pred (1), f² (1), the sum (1);
+    - hydrogen (net_f_H, 01:621-722), 19 = 4 + 15: I_tot = (I/A + 1e-5)·A (3), Q_th =
+      max(I_tot·c, 1e-8) (2), the target where(I_tot ≤ λ2, λ0 + λ1·I_tot/100, ·)
+      (5), ratio (Q_H2 + 1e-6)/Q_th (2), f (1), f² (1), the sum (1);
+    - oxygen (net_f_O, 01:535-619), 26 = 4 + 22: I_tot (3), Q_th (2), the target (5)
+      clamped to [1.05, 15] (2), ratio (Q_air + 1e-6)·0.21/Q_th (3),
+      f = ratio − target + max(1 − ratio, 0)·10 (5), f² (1), the sum (1).
+
+    Per row-step: 165 (lambda_v), 168 (lambda_v, dnn_para), 63 (thermal),
+    57 (hydrogen), 78 (oxygen)."""
+    return 3 * LAMBDA_FORWARD[(stage, bool(dnn_para) if stage == "lambda_v" else False)]
+
+
 def mc_call(layers: Sequence[int], rows: int, passes: int) -> Dict[str, float]:
     """Work of one MC-dropout call over ``rows`` rows: one float32 eval pass
     and ``passes`` dropout passes.  Operations by the precision each part may

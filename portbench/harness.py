@@ -157,16 +157,21 @@ class Trace:
         hi = self.window[1] if hi is None else hi
         return sum(e - s for s, e in self.busy_intervals(lo, hi)) * 1e-9
 
-    def spans_named(self, name: str) -> List[Tuple[str, int, int]]:
-        return [s for s in self.spans if s[0] == name]
-
-    def host_ms_per_span(self, name: str) -> Optional[float]:
-        """Mean over the spans ``name`` of their wall time less the device's
-        busy time inside them, in ms (None without such spans)."""
-        spans = self.spans_named(name)
-        if not spans:
+    def host_ms_per_span(self, names: Sequence[str], per: Optional[float] = None
+                         ) -> Optional[float]:
+        """The wall time of the host events named ``names`` (the benchmark's
+        spans ``portbench.*`` or the program's ``pinnfc.*``) less the device's
+        busy time inside them, summed, in ms, over ``per`` (a count of
+        requests, stages or steps; by default the number of those events).
+        None where there is no such event or nothing to divide by, or where
+        the trace holds no device operation: without the card's timeline
+        there is no host part to split."""
+        found = [h for n in names for h in sorted((h for h in self.host if h[0] == n),
+                                                   key=lambda h: h[1])]
+        count = len(found) if per is None else per
+        if not found or not count or not self.device:
             return None
-        return 1e3 * sum((e - s) * 1e-9 - self.busy_s(s, e) for _, s, e in spans) / len(spans)
+        return 1e3 * sum((e - s) * 1e-9 - self.busy_s(s, e) for _, s, e in found) / count
 
     def device_s(self, names: Sequence[str]) -> Tuple[float, int]:
         """(seconds, launches) of the device operations whose name contains one

@@ -5,8 +5,9 @@ ms: the wall time of the program's spans ``pinnfc.export.to_host`` and
 first copy waits for the MC kernel: that wait is busy time), averaged over
 the traced requests (``pinnfc.export``)."""
 
-from portbench.program_spans import host_ms_per
+from portbench.program_spans import spans
 
 
 def read(trace, window, run, cell):
-    return host_ms_per(trace, ["export.to_host", "export.assemble"], "export")
+    return trace.host_ms_per_span(["pinnfc.export.to_host", "pinnfc.export.assemble"],
+                                  len(spans(trace, "export")))

@@ -4,8 +4,8 @@ export, in ms: the wall time of the program's span ``pinnfc.export.mc``
 launch, ``ops/mc_dropout.py``, up to its return) less the device's busy
 time inside it, averaged over the traced requests (``pinnfc.export``)."""
 
-from portbench.program_spans import host_ms_per
+from portbench.program_spans import spans
 
 
 def read(trace, window, run, cell):
-    return host_ms_per(trace, ["export.mc"], "export")
+    return trace.host_ms_per_span(["pinnfc.export.mc"], len(spans(trace, "export")))

@@ -5,4 +5,4 @@ averaged over the traced requests."""
 
 
 def read(trace, window, run, cell):
-    return trace.host_ms_per_span("portbench.score")
+    return trace.host_ms_per_span(["portbench.score"])

@@ -3,8 +3,8 @@ segment smoothing (``ops/smoothing.py``, float64 numpy, twice), in ms: the
 wall time of the program's span ``pinnfc.export.smooth`` less the device's
 busy time inside it, averaged over the traced requests (``pinnfc.export``)."""
 
-from portbench.program_spans import host_ms_per
+from portbench.program_spans import spans
 
 
 def read(trace, window, run, cell):
-    return host_ms_per(trace, ["export.smooth"], "export")
+    return trace.host_ms_per_span(["pinnfc.export.smooth"], len(spans(trace, "export")))

@@ -16,6 +16,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from portbench.harness import metric_reader
 
 PREFIX = "pinnfc."
+# the spans of run_schedule's λ stages, one a stage
+LAMBDA_STAGES = tuple(f"{PREFIX}stage.{n}" for n in ("lambda_v", "thermal", "hydrogen", "oxygen"))
 # the step's kernels of csrc/train_dnn.cu in both forms, as the training
 # rooflines list them
 TRAIN_KERNELS = tuple(dict.fromkeys(metric_reader("train_roofline_pct.bf16").KERNELS
@@ -25,18 +27,6 @@ TRAIN_KERNELS = tuple(dict.fromkeys(metric_reader("train_roofline_pct.bf16").KER
 def spans(trace, name: str) -> List[Tuple[str, int, int]]:
     """The program's spans ``pinnfc.<name>``, by start."""
     return sorted((h for h in trace.host if h[0] == PREFIX + name), key=lambda h: h[1])
-
-
-def host_ms_per(trace, names: Sequence[str], per: str) -> Optional[float]:
-    """The wall time of the spans ``names`` less the device's busy time inside
-    them, summed, in ms, over the number of ``per`` spans (one a request or a
-    stage).  None without ``per`` spans, or where the trace holds no device
-    operation: without the card's timeline there is no host part to split."""
-    count = len(spans(trace, per))
-    if not count or not trace.device:
-        return None
-    total = sum((e - s) * 1e-9 - trace.busy_s(s, e) for n in names for _, s, e in spans(trace, n))
-    return 1e3 * total / count
 
 
 def kernel_extents(trace, name: str,

@@ -10,5 +10,7 @@ of the port's kernels, importing nothing of the program under test.
   autograd with Adam.
 - ``campaign``: the MinMax scalers, the four physics residuals, the
   segment-wise smoothing and the 22-column artifact of a scored campaign.
+- ``lambda_stages``: the λ stages' losses, their gradients, Adam and the
+  box clamp.
 - ``compare``: the gaps between the program's outputs and the reference's.
 """

@@ -60,7 +60,8 @@ def residuals(real: torch.Tensor, v_stack: torch.Tensor, lam: Dict[str, Sequence
               ) -> Dict[str, torch.Tensor]:
     """The four physics models on real-unit rows ``real`` (N, 8) and the
     network's stack voltage ``v_stack`` (N,), float64: each residual and the
-    physics outputs the artifact keeps."""
+    physics outputs the artifact keeps.  The λ's are numbers or tensors (a
+    λ stage takes the gradient through them)."""
     lv, lt, lh, lo = (lam[k] for k in ("lam_v", "lam_t", "lam_h", "lam_o"))
     cur, cool, t_in, p_h2g, p_airg, t_out, h2, air = real.unbind(1)
 
@@ -85,14 +86,14 @@ def residuals(real: torch.Tensor, v_stack: torch.Tensor, lam: Dict[str, Sequence
     i_tot = (cur / A_CELL + 1e-5) * A_CELL
     q_h = torch.clamp_min(i_tot / (2 * F_CONST) * N_CELLS * V_MOLAR * 60.0, 1e-8)
     target_h = torch.where(i_tot <= lh[2], lh[0] + lh[1] * i_tot / I_NORM,
-                           torch.full_like(i_tot, lh[0] + lh[1] * lh[2] / I_NORM))
+                           lh[0] + lh[1] * lh[2] / I_NORM)
     ratio_h = (h2 + 1e-6) / q_h
 
     # oxygen (net_f_O, 01:535-619)
     q_o = torch.clamp_min(i_tot * N_CELLS / (4 * F_CONST) * V_MOLAR * 60.0, 1e-8)
     knee = abs(lo[2])
     target_o = torch.where(i_tot <= knee, lo[0] + lo[1] * i_tot / I_NORM,
-                           torch.full_like(i_tot, lo[0] + lo[1] * knee / I_NORM))
+                           lo[0] + lo[1] * knee / I_NORM)
     target_o = torch.clamp(target_o, 1.05, 15.0)
     ratio_o = (air + 1e-6) * O2_FRACTION / q_o
     return {"f_v": v_est - v_stack / N_CELLS, "f_t": t_out - t_pred,

@@ -36,8 +36,9 @@ def test_traced_run_has_the_breakdown_and_checks_last(name):
     assert res["device"]["window_s"] > 0
     per_layer = {m["name"] for m in tiny_cell(name).metrics("per_layer")}
     assert set(res["metrics"]) <= per_layer
-    # off the card no device metric is reported, only the host spans' readers
-    assert set(res["metrics"]) <= {"score_host_ms", "stage_host_ms"}
+    # off the card no device metric is reported: no reader splits host time
+    # from the device's without the card's timeline
+    assert res["metrics"] == {}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -48,7 +49,7 @@ def test_control_is_judged_incorrect(name):
 
 
 @pytest.mark.parametrize("name, fault", [(name, f) for name in CELLS
-                                         for f in faults.FAULTS_OF[tiny_cell(name).workload["traffic"]]])
+                                         for f in faults.faults_of(tiny_cell(name))])
 def test_planted_fault_is_judged_incorrect(name, fault):
     with faults.FAULTS[fault]():
         res = run_tiny(name, 55_555)
@@ -82,15 +83,24 @@ def test_score_keeps_only_the_requests_it_checks():
     assert sorted(i for _, i, _ in state.outputs) == sorted(state.picked)
 
 
-def test_train_check_reads_the_window_first_call():
+@pytest.mark.parametrize("name", ["paper.train", "paper.train-lambda"])
+def test_train_check_reads_the_window_first_call(name):
     from pinnfc_tpu_torch.training import stages
 
-    real = stages.train_dnn
-    run, traffic = _tiny_run("paper.train", 8_675_309)
+    names = ("train_dnn", "train_lambda_v_chunk", "train_residual_chunk", "adam_step")
+    real = {n: getattr(stages, n) for n in names}
+    run, traffic = _tiny_run(name, 8_675_309)
     state = traffic.setup(run)
-    assert state.starts == [] and state.losses == []
+    assert state.starts == [] and state.losses == [] and state.adam == {}
     traffic.window(state, run)
-    assert stages.train_dnn is real  # the recorder is gone once the call has ended
+    # the recorders are gone once the call has ended
+    assert all(getattr(stages, n) is real[n] for n in names)
     specs = run.cell.traffic["stages"]
     assert len(state.starts) == len(state.losses) == len(specs)
     assert [len(losses) for losses in state.losses] == [s["n_iter"] for s in specs]
+    k = run.cell.traffic["check_steps"]
+    lam = [j for j, s in enumerate(specs) if s["name"] != "dnn"]
+    assert sorted(state.adam) == lam
+    for j in lam:  # the λ's and the gradient of the first k + 1 steps
+        assert len(state.adam[j]) == k + 1
+        assert state.adam[j][0][0].tolist() == state.starts[j].tolist()

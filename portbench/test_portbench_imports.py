@@ -50,7 +50,8 @@ def test_reference_and_counts_load_nothing_of_the_port():
     code = (
         "import sys; sys.path.insert(0, '.')\n"
         "import portbench.reference.campaign, portbench.reference.mlp, "
-        "portbench.reference.compare, portbench.counts, portbench.traffic._campaign\n"
+        "portbench.reference.compare, portbench.reference.lambda_stages, portbench.counts, "
+        "portbench.traffic._campaign\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & "
         "{'pinnfc_tpu_torch', 'pinnfc_tpu', 'jax', 'jaxlib', 'flax'}))\n")
     out = _python(code)

@@ -26,8 +26,17 @@ def test_busy_time_is_the_union_of_device_operations():
 
 def test_host_time_per_span_is_wall_less_busy():
     # span 1: 5.5 ms wall, 3 ms busy; span 2: 4.5 ms wall, 1 ms busy
-    assert _trace().host_ms_per_span("portbench.score") == pytest.approx(3.0)
-    assert _trace().host_ms_per_span("portbench.run_schedule") is None
+    assert _trace().host_ms_per_span(["portbench.score"]) == pytest.approx(3.0)
+    # the sum over another divisor: 6 ms over 4 (stages, steps, ...)
+    assert _trace().host_ms_per_span(["portbench.score"], 4) == pytest.approx(1.5)
+    # the spans of several names together: the copy's 2 ms, none of it busy
+    assert _trace().host_ms_per_span(["portbench.score", "aten::copy_"], 2) == \
+        pytest.approx(4.0)
+    assert _trace().host_ms_per_span(["portbench.run_schedule"]) is None
+    assert _trace().host_ms_per_span(["portbench.score"], 0) is None
+    # without the card's timeline there is no host part to split
+    tr = _trace()
+    assert Trace(tr.window, [], tr.host, tr.spans).host_ms_per_span(["portbench.score"]) is None
 
 
 def test_device_time_by_kernel_name():
