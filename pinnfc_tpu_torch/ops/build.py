@@ -59,8 +59,9 @@ def reset_launches() -> None:
 # host-clock seconds of the costs a process pays once, each timed apart from
 # those timed inside it: "build" (nvcc, only when the hashed library is
 # missing), "load" (ctypes.CDLL and bind), "launch.<kernel>" (an entry's first
-# call through ``launch``: CUDA loads the kernel's module lazily there) and
-# "dispatch.residuals_op" (the registered operator's first call)
+# call through ``launch``: CUDA loads the kernel's module lazily there).  An
+# eager residual call launches directly; the registered operator
+# ``pinnfc_torch::residuals`` runs only in traced programs and is not timed here
 ONCE_S: Dict[str, float] = {}
 
 

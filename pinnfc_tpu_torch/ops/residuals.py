@@ -7,11 +7,17 @@ tensor launches the kernel, a CPU tensor runs the plain version.  On either
 device the inputs must be what the kernel reads in place: float32,
 contiguous, of the right sizes and on one device, else ``ValueError``.
 
-The wrapper reaches the kernel through the registered operator
-``pinnfc_torch::residuals`` (``residuals_op``: the kernel on CUDA, the plain
-version on the CPU, an (8, N) float32 result), so that ``torch.export``
-records the call as one node of a traced program: an exported monitor step
-moved to the card launches the same kernel as the eager monitor.
+An eager call launches the kernel directly (``launch_residuals``) or runs
+the plain version (``plain_rows``).  Only a traced call (``torch.export``,
+strict or not, ``torch.compile``, ``make_fx``: fake, functional or proxy
+tensors) goes through the registered operator ``pinnfc_torch::residuals``
+(``residuals_op``: the same two routes behind the dispatcher, an (8, N)
+float32 result), so that the traced program records the call as one node: an
+exported monitor step moved to the card launches the same kernel as the eager
+monitor.  The dispatcher runs a custom operator under
+``torch._disable_dynamo``, whose first call imports ``torch._dynamo``
+(seconds); the test for a trace imports nothing, so an eager process never
+loads it.
 """
 
 from __future__ import annotations
@@ -73,11 +79,24 @@ def all_residuals_kernel(
     """x_norm (N, 8) and u_norm (N, 1) or (N,), float32 → ResidualBundle of (N, 1)."""
     scalars = kernel_scalars(params, scaler_x, scaler_y)
     u_flat = check_inputs(x_norm, u_norm, scalars)
-    # the operator's first call imports torch._dynamo (custom ops run under
-    # torch._disable_dynamo): seconds, timed into ONCE_S
-    out = build.once("dispatch.residuals_op", residuals_op, x_norm, u_flat,
-                     *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    args = (x_norm, u_flat, *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    if _traced(x_norm):
+        out = residuals_op(*args)
+    elif x_norm.device.type == "cuda":
+        out = launch_residuals(x_norm, u_flat, scalars)
+    else:
+        out = plain_rows(*args)
     return ResidualBundle(*out.view(8, x_norm.shape[0], 1).unbind(0))
+
+
+def _traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` reaches the wrapper inside a trace: torch.compile or
+    torch.export (strict export never looks past these two flags), a tensor
+    subclass (fake, functional), a C++ functional wrapper, or a dispatch mode
+    (make_fx's proxy mode).  Reads flags only: imports nothing."""
+    return (torch.compiler.is_compiling() or torch.compiler.is_exporting()
+            or type(x) is not torch.Tensor or torch._is_functional_tensor(x)
+            or torch._C._len_torch_dispatch_stack() > 0)
 
 
 def _scaler(scale: torch.Tensor, min_: torch.Tensor) -> AffineScaler:
@@ -85,17 +104,25 @@ def _scaler(scale: torch.Tensor, min_: torch.Tensor) -> AffineScaler:
     return AffineScaler(scale=scale, min=min_, data_min=min_, data_max=min_)
 
 
+def plain_rows(x, u, lam_v, lam_t, lam_h, lam_o, sx_scale, sx_min, sy_scale, sy_min
+               ) -> torch.Tensor:
+    """The residual rows (8, N) of x (N, 8) and u (N,) by the plain version
+    ``physics.residuals.all_residuals``: the operator's CPU kernel and the
+    eager CPU route, so the two agree bitwise."""
+    params = {"lam_v": lam_v, "lam_t": lam_t, "lam_h": lam_h, "lam_o": lam_o}
+    bundle = all_residuals(params, x, u.reshape(-1, 1), _scaler(sx_scale, sx_min),
+                           _scaler(sy_scale, sy_min))
+    return torch.stack([t.reshape(-1) for t in bundle])
+
+
 @torch.library.custom_op("pinnfc_torch::residuals", mutates_args=(), device_types="cpu")
 def residuals_op(x: torch.Tensor, u: torch.Tensor, lam_v: torch.Tensor, lam_t: torch.Tensor,
                  lam_h: torch.Tensor, lam_o: torch.Tensor, sx_scale: torch.Tensor,
                  sx_min: torch.Tensor, sy_scale: torch.Tensor,
                  sy_min: torch.Tensor) -> torch.Tensor:
-    """The residual rows (8, N) of x (N, 8) and u (N,): on the CPU the plain
-    version ``physics.residuals.all_residuals``, on CUDA the kernel."""
-    params = {"lam_v": lam_v, "lam_t": lam_t, "lam_h": lam_h, "lam_o": lam_o}
-    bundle = all_residuals(params, x, u.reshape(-1, 1), _scaler(sx_scale, sx_min),
-                           _scaler(sy_scale, sy_min))
-    return torch.stack([t.reshape(-1) for t in bundle])
+    """The residual rows (8, N) of x (N, 8) and u (N,): on the CPU
+    ``plain_rows``, on CUDA the kernel."""
+    return plain_rows(x, u, lam_v, lam_t, lam_h, lam_o, sx_scale, sx_min, sy_scale, sy_min)
 
 
 @residuals_op.register_kernel("cuda")

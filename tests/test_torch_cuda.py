@@ -35,7 +35,8 @@ counterfactual on the card against the CPU: the monitor's series at rtol
 ranks equal, one residual-kernel launch per ``observe``/``observe_many``;
 a 40-step recovery solve with δ within 2e-5 of the range and v_after within
 2e-6 V.  The registered operator ``pinnfc_torch::residuals`` on the card
-against the plain version at the residual kernel's tolerances; a monitor
+against the plain version at the residual kernel's tolerances, and the
+eager wrapper's direct launch bitwise the operator's rows; a monitor
 step exported on the CPU and moved to the card bitwise the eager monitor on
 the card, one kernel launch per call.
 
@@ -1220,7 +1221,36 @@ def test_once_counts_the_first_launches_and_dispatch(cuda_device, monkeypatch):
     monkeypatch.setattr(build, "ONCE_S", {})
     build_comprehensive_results(params, ds, mc_seed=5, mc_times=16)
     first = dict(build.ONCE_S)
-    assert set(first) == {"launch.mc_dropout", "launch.residuals", "dispatch.residuals_op"}
+    # an eager export launches the residual kernel directly: no operator dispatch
+    assert set(first) == {"launch.mc_dropout", "launch.residuals"}
     assert all(v >= 0 for v in first.values())
     build_comprehensive_results(params, ds, mc_seed=5, mc_times=16)
     assert build.ONCE_S == first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15600, 37])
+def test_eager_residuals_launch_the_kernel_directly(cuda_device, campaign_rows, n):
+    """``all_residuals_kernel`` on CUDA tensors launches the kernel once
+    without the registered operator, and its rows are ``residuals_op``'s
+    bitwise, NaN sets included."""
+    from pinnfc_tpu_torch.ops.residuals import (
+        all_residuals_kernel, kernel_scalars, residuals_op)
+
+    ds = campaign_rows
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device=cuda_device)
+    params["lam_v"][2] = 1.2
+    sx, sy = ds.scaler_x.to(cuda_device), ds.scaler_y.to(cuda_device)
+    x = ds.x_test[:n].to(cuda_device)
+    with torch.no_grad():
+        u = params["mlp"](x)[0]
+    before = build.LAUNCHES["residuals"]
+    bundle = all_residuals_kernel(params, x, u, sx, sy)
+    assert build.LAUNCHES["residuals"] == before + 1
+    scalars = kernel_scalars(params, sx, sy)
+    want = residuals_op(x, u[:, 0], *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    got = torch.stack([t[:, 0] for t in bundle])
+    assert got.device == x.device
+    # 5,626 of the campaign's rows lie past the limiting current; none of the first 37
+    assert torch.isnan(want).any() == (n == 15600)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -5,27 +5,36 @@ order; none a user annotation, so none reaches a device timeline), nothing
 recorded with no profiler open, and ``ops/build.py::ONCE_S`` (each first call
 timed apart from the first calls inside it, reset by ``reset_once``).  The
 spans of the training kernel's CUDA path and the shared clock with the
-device are tested on the card (tests/test_torch_cuda.py)."""
+device are tested on the card (tests/test_torch_cuda.py).
+
+The residual wrapper's two routes: an eager call runs without the registered
+operator (so a scoring process never imports ``torch._dynamo``), bitwise the
+operator's rows; every kind of trace records the operator once."""
 
 import contextlib
 import itertools
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
+from torch.fx.experimental.proxy_tensor import make_fx
 from torch.profiler import ProfilerActivity, profile
 
 from pinnfc_tpu_torch.config import StageConfig
 from pinnfc_tpu_torch.data.combine import combine_and_normalize
 from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data
 from pinnfc_tpu_torch.models.pinn import init_pinn
-from pinnfc_tpu_torch.ops import build
-from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel
+from pinnfc_tpu_torch.ops import build, residuals
+from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel, kernel_scalars, residuals_op
 from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results
 from pinnfc_tpu_torch.training.stages import run_schedule
 from pinnfc_tpu_torch.utils.observability import span
 from pinnfc_tpu_torch.utils.threads import one_thread
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPORT_PHASES = ["pinnfc.export.mc", "pinnfc.export.residuals", "pinnfc.export.to_host",
                  "pinnfc.export.smooth", "pinnfc.export.assemble"]
 
@@ -125,14 +134,154 @@ def test_once_times_a_first_call_less_the_first_calls_inside(monkeypatch):
     assert list(build.ONCE_S) == ["inner"]
 
 
-def test_residual_operator_first_dispatch_is_counted_once(monkeypatch, small_campaign):
+def _eager_inputs(ds):
+    """The campaign's rows, its eval prediction and λ_V at 1.2: rows past the
+    limiting current give NaN residuals."""
+    params = init_pinn(generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        params["lam_v"][2] = 1.2
+        u = params["mlp"](ds.x_test)[0]
+    return params, u
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def test_eager_residuals_skip_the_operator(monkeypatch, small_campaign):
+    """An eager CPU call runs ``plain_rows`` without the registered operator:
+    nothing enters ``ONCE_S``, and its bundle is ``residuals_op``'s rows
+    bitwise, NaNs included."""
     monkeypatch.setattr(build, "ONCE_S", {})
     ds = small_campaign
-    params = init_pinn(generator=torch.Generator().manual_seed(0), device="cpu")
-    u = torch.zeros(ds.x_test.shape[0], 1)
+    params, u = _eager_inputs(ds)
+    dispatched = []
+    monkeypatch.setattr(residuals, "residuals_op",
+                        lambda *a: dispatched.append(a) or residuals_op(*a))
     with one_thread():
-        all_residuals_kernel(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
-        first = dict(build.ONCE_S)
-        all_residuals_kernel(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
-    assert list(first) == ["dispatch.residuals_op"] and first["dispatch.residuals_op"] >= 0
-    assert build.ONCE_S == first
+        bundle = all_residuals_kernel(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)
+        scalars = kernel_scalars(params, ds.scaler_x, ds.scaler_y)
+        rows = residuals_op(ds.x_test, u[:, 0],
+                            *(scalars[k] for k in build.RESIDUAL_SCALAR_SIZES))
+    assert build.ONCE_S == {} and dispatched == []  # no "dispatch.residuals_op"
+    assert torch.isnan(rows).any()
+    assert torch.equal(_bits(torch.stack([t[:, 0] for t in bundle])), _bits(rows))
+
+
+def test_eager_scoring_never_imports_dynamo():
+    """A fresh interpreter that imports the port, runs the residual wrapper and
+    a small CPU export has not loaded ``torch._dynamo``: the registered
+    operator's first dispatch would import it."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import pinnfc_tpu_torch\n"
+        "from pinnfc_tpu_torch.data.combine import combine_and_normalize\n"
+        "from pinnfc_tpu_torch.data.synthetic import synthesize_stack_data\n"
+        "from pinnfc_tpu_torch.models.pinn import init_pinn\n"
+        "from pinnfc_tpu_torch.ops.residuals import all_residuals_kernel\n"
+        "from pinnfc_tpu_torch.pipeline.export import build_comprehensive_results\n"
+        "ds = combine_and_normalize(*synthesize_stack_data(n_normal=300, n_fault=20, seed=42),\n"
+        "                           device='cpu')\n"
+        "params = init_pinn(generator=torch.Generator().manual_seed(0), device='cpu')\n"
+        "with torch.no_grad():\n"
+        "    u = params['mlp'](ds.x_test)[0]\n"
+        "all_residuals_kernel(params, ds.x_test, u, ds.scaler_x, ds.scaler_y)\n"
+        "res = build_comprehensive_results(params, ds, mc_seed=5, mc_times=8)[0]\n"
+        "dynamo = sorted(m for m in sys.modules if m.startswith('torch._dynamo'))\n"
+        "print(res.array.shape[0], dynamo)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(rows) >= 300 and loaded == "[]"
+
+
+class _Step(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x, u):
+        return self.fn(x, u)
+
+
+def _targets(gm):
+    return [str(n.target) for m in gm.modules() if isinstance(m, torch.fx.GraphModule)
+            for n in m.graph.nodes if n.op == "call_function"]
+
+
+def _made(fn, x, u, **kw):
+    gm = make_fx(fn, **kw)(x, u)
+    return gm, gm
+
+
+def _exported(strict):
+    def trace(fn, x, u):
+        ep = torch.export.export(_Step(fn), (x, u), strict=strict)
+        return ep.graph_module, ep.module()
+    return trace
+
+
+def _compiled(fn, x, u):
+    graphs = []
+
+    def capture(gm, example_inputs):
+        graphs.append(gm)
+        return gm.forward
+
+    compiled = torch.compile(fn, backend=capture, fullgraph=True)
+    compiled(x, u)
+    assert len(graphs) == 1
+    return graphs[0], compiled
+
+
+# each: (fn, x, u) -> (the graph recorded, the traced program)
+TRACERS = {
+    "make_fx": _made,
+    "export": _exported(strict=False),
+    "export_strict": _exported(strict=True),
+    "compile": _compiled,
+    "functionalize": lambda fn, x, u: _made(torch.func.functionalize(fn), x, u),
+}
+
+
+@pytest.mark.parametrize("tracer", list(TRACERS))
+def test_traced_residuals_record_the_operator(small_campaign, tracer):
+    """Every way of tracing the wrapper (proxy tensors, fake ones in
+    non-strict export, functional ones, strict export, torch.compile)
+    records the registered operator once, and the traced program gives the
+    eager rows bitwise."""
+    ds = small_campaign
+    params, u = _eager_inputs(ds)
+
+    def fn(x, u):
+        return torch.cat(all_residuals_kernel(params, x, u, ds.scaler_x, ds.scaler_y), dim=1)
+
+    with one_thread():
+        gm, program = TRACERS[tracer](fn, ds.x_test, u)
+        assert _targets(gm).count("pinnfc_torch.residuals.default") == 1
+        traced = program(ds.x_test, u)
+        eager = fn(ds.x_test, u)
+    assert torch.equal(_bits(traced), _bits(eager))
+
+
+def test_functional_tensors_take_the_operator(monkeypatch, small_campaign):
+    """Under ``torch.func.functionalize`` alone (C++ functional wrappers of
+    plain tensors, no dispatch mode) the wrapper dispatches the operator."""
+    ds = small_campaign
+    params, u = _eager_inputs(ds)
+    dispatched = []
+    monkeypatch.setattr(residuals, "residuals_op",
+                        lambda *a: dispatched.append(a) or residuals_op(*a))
+
+    def fn(x, u):
+        return torch.cat(all_residuals_kernel(params, x, u, ds.scaler_x, ds.scaler_y), dim=1)
+
+    with one_thread():
+        got = torch.func.functionalize(fn)(ds.x_test, u)
+        want = fn(ds.x_test, u)
+    assert len(dispatched) == 1  # the functional call's, not the eager one's
+    assert torch.equal(_bits(got), _bits(want))
